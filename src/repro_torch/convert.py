@@ -1,15 +1,24 @@
 """Carry a study and a fit's state from the JAX package into the port.
 
-Both functions take plain numpy values, so nothing here imports JAX.
+Every function takes plain numpy values, so nothing here imports JAX.
+A JAX state's ``key`` has no torch counterpart and is dropped: the port's
+``load_state_dict`` reseeds its generator instead.  That is safe because a
+reveal does not depend on the sharing randomness — Lagrange reconstruction
+cancels the sharing polynomials exactly — so the resumed run reveals the
+same aggregates and follows the same trajectory.
 """
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
 
-__all__ = ["state_from_jax", "parts_from_numpy"]
+__all__ = ["state_from_jax", "coordinator_state_from_jax",
+           "selection_state_from_jax", "fold_parts_from_jax",
+           "parts_from_numpy"]
 
 # the JAX SecureFitDriver.state_dict() keys the port carries over
 _CARRIED = ("beta", "iteration", "obj_prev", "trace", "converged", "bytes",
@@ -17,16 +26,43 @@ _CARRIED = ("beta", "iteration", "obj_prev", "trace", "converged", "bytes",
 
 
 def state_from_jax(state: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Turn a JAX ``SecureFitDriver.state_dict()`` into the port's.
-
-    Every field carries over except the JAX ``key``, which has no torch
-    counterpart: the port's ``load_state_dict`` reseeds its generator
-    instead.  That is safe because a reveal does not depend on the
-    sharing randomness — Lagrange reconstruction cancels the sharing
-    polynomials exactly — so the resumed fit reveals the same aggregates
-    and follows the same trajectory.
-    """
+    """Turn a JAX ``SecureFitDriver.state_dict()`` into the port's:
+    every field but the JAX ``key``."""
     return {k: np.asarray(state[k]) for k in _CARRIED if k in state}
+
+
+def coordinator_state_from_jax(state: dict[str, np.ndarray]
+                               ) -> dict[str, np.ndarray]:
+    """Turn a JAX ``StudyCoordinator.state_dict()`` into the port's:
+    every field but the JAX ``key``."""
+    return {k: np.asarray(v) for k, v in state.items() if k != "key"}
+
+
+def selection_state_from_jax(state: dict[str, np.ndarray],
+                             fold_ids: Mapping[str, np.ndarray]
+                             ) -> dict[str, np.ndarray]:
+    """Turn a JAX ``SelectionCoordinator.state_dict()`` into the port's:
+    the sweep state (``path_*``) as it is, the wrapped study's
+    (``study_*``) without its ``key``, and the fold ids the JAX run drew
+    for each institution (``fold_ids``: name -> (rows,) ids, as its
+    ``assign_folds`` gives them) as ``folds_<name>``.  The port draws its
+    folds from another generator, so the continued path needs JAX's."""
+    if not fold_ids:
+        raise ValueError("a JAX checkpoint needs the fold ids it was "
+                         "measured on")
+    out = {k: np.array(v) for k, v in state.items() if k != "study_key"}
+    out.update({f"folds_{name}": np.array(ids, dtype=np.int32)
+                for name, ids in fold_ids.items()})
+    return out
+
+
+def fold_parts_from_jax(fold_ids) -> list[torch.Tensor]:
+    """The JAX package's per-institution fold ids (as numpy) as the
+    port's ``fold_parts``: int32 CPU tensors, one per institution, for
+    ``PathDriver.run_chunk``.  The port's own ``assign_folds`` draws other
+    (equally balanced) folds, so a run held against the JAX package passes
+    these in."""
+    return [torch.from_numpy(np.array(f, dtype=np.int32)) for f in fold_ids]
 
 
 def parts_from_numpy(parts, device=None):

@@ -14,15 +14,19 @@ iteration.  Three rungs of precision:
   Gram (chunked float32 products merged in float64).
 
 Rows >= counts[s] are zero AND masked, so the stacked layout is exact for
-arbitrarily uneven partitions.  The cross-validated variant of the JAX
-package (``batched_cv_summaries``) belongs to the model-selection slice.
+arbitrarily uneven partitions.
+
+``batched_cv_summaries`` is the cross-validated variant for the
+model-selection sweep: fold masks composed onto the same packed batch, one
+pass emitting every (configuration, institution) pair's train-fold
+summaries and held-out metrics, on the same three rungs (K5 on "kernel").
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import weakref
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 from ..kernels import ops, ref
 from .logreg import LocalSummaries
 
-__all__ = ["PackedPartitions", "pack_partitions", "batched_local_summaries",
+__all__ = ["PackedPartitions", "pack_partitions", "pack_cache_evict",
+           "batched_local_summaries", "CVSummaries", "batched_cv_summaries",
            "BACKENDS"]
 
 BACKENDS = ("reference", "kernel", "mixed")
@@ -48,6 +53,14 @@ class PackedPartitions:
     X32: torch.Tensor  # (S, N_max, d) float32 Gram operand
     y: torch.Tensor  # (S, N_max) float64
     counts: torch.Tensor  # (S,) int32 true row counts
+
+    @property
+    def num_institutions(self) -> int:
+        return self.X.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.X.shape[2]
 
 
 # LRU pack cache.  Unlike jax arrays, torch tensors are mutable, so a part
@@ -68,6 +81,20 @@ def _tensor_key(t: torch.Tensor) -> tuple:
 
 def _pack_cache_key(parts) -> tuple:
     return tuple((_tensor_key(X), _tensor_key(y)) for X, y in parts)
+
+
+def pack_cache_evict(parts) -> None:
+    """Evict every cached pack that includes one of ``parts``' tensors.
+
+    The coordinator's churn hook: an institution that joins or leaves
+    takes every pack built around its tensors with it, so no later cohort
+    reuses a stale padded batch (the weakref finalizers cover collected
+    tensors; this covers live ones leaving a cohort).
+    """
+    ids = {id(t) for part in parts for t in part}
+    for key in list(_PACK_CACHE):
+        if any(kx[0] in ids or ky[0] in ids for kx, ky in key):
+            _PACK_CACHE.pop(key, None)
 
 
 def pack_partitions(
@@ -116,20 +143,25 @@ def pack_partitions(
 MIXED_GRAM_CHUNK = 1024
 
 
-def _mixed_summaries(beta, X, X32, y, counts, chunk: int = MIXED_GRAM_CHUNK):
-    """float64 g/dev + split-accumulation float32 Gram: float32 products
-    over ``chunk``-row slabs, merged across slabs in float64."""
-    s_dim, n, d = X.shape
-    w, g, dev = ref.masked_irls_terms(beta, X, y, counts)
+def _mixed_gram(Xw, X32, chunk: int = MIXED_GRAM_CHUNK):
+    """Split-accumulation Gram Xw^T X32 (S, d, d) float64: float32
+    products over ``chunk``-row slabs, merged across slabs in float64."""
+    s_dim, n, d = Xw.shape
     num_chunks = -(-n // chunk)
     pad = num_chunks * chunk - n
-    Xw32 = (X * w[..., None]).to(torch.float32)
 
     def slabs(a):
         return F.pad(a, (0, 0, 0, pad)).reshape(s_dim, num_chunks, chunk, d)
 
-    Hc = slabs(Xw32).transpose(2, 3) @ slabs(X32)  # (S, nc, d, d) f32
-    return Hc.to(torch.float64).sum(dim=1), g, dev
+    # (S, nc, d, d) float32 partial Grams
+    Hc = slabs(Xw.to(torch.float32)).transpose(2, 3) @ slabs(X32)
+    return Hc.to(torch.float64).sum(dim=1)
+
+
+def _mixed_summaries(beta, X, X32, y, counts):
+    """float64 g/dev + split-accumulation float32 Gram."""
+    w, g, dev = ref.masked_irls_terms(beta, X, y, counts)
+    return _mixed_gram(X * w[..., None], X32), g, dev
 
 
 def batched_local_summaries(
@@ -156,3 +188,70 @@ def batched_local_summaries(
     else:
         H, g, dev = ref.fused_irls(beta, X, y, counts)
     return LocalSummaries(H, g, dev, counts)
+
+
+# -- cross-validated summaries: fold masks over the SAME packed batch --------
+
+class CVSummaries(NamedTuple):
+    """Per-(config, institution) train summaries + held-out metrics.
+
+    Every field carries leading (C, S) axes — C path configurations
+    (lambda x fold pairs, plus a full-data fit with ``fold == -1``) over S
+    institutions — all float64.  The validation fields are
+    per-institution secrets exactly like H/g/dev: they only ever leave an
+    institution secret-shared.
+    """
+
+    hessian: torch.Tensor  # (C, S, d, d) train-fold Gram
+    gradient: torch.Tensor  # (C, S, d) train-fold score
+    deviance: torch.Tensor  # (C, S) train-fold -2 log L
+    count: torch.Tensor  # (C, S) train-fold row count
+    val_deviance: torch.Tensor  # (C, S) held-out -2 log L
+    val_correct: torch.Tensor  # (C, S) held-out correct predictions
+    val_count: torch.Tensor  # (C, S) held-out row count
+
+
+def batched_cv_summaries(
+    betas: torch.Tensor,
+    packed: PackedPartitions,
+    fold_ids: torch.Tensor,
+    fold_of: torch.Tensor,
+    backend: str = "kernel",
+) -> CVSummaries:
+    """All (config, institution) train summaries + held-out metrics in one
+    pass over the packed batch — no per-fold repacking.
+
+    ``betas`` (C, d) holds one Newton iterate per configuration,
+    ``fold_ids`` (S, N_max) each row's fold (padding rows may hold
+    anything: the row mask excludes them), ``fold_of`` (C,) each
+    configuration's held-out fold (-1: none).  ``backend`` is the rung of
+    ``batched_local_summaries``: "reference" float64 end to end, "kernel"
+    one K5 launch (float32 Gram), "mixed" a split-accumulation float32
+    Gram.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}")
+    fold_ids = fold_ids.to(torch.int32)
+    fold_of = fold_of.to(torch.int32)
+    X, y, counts = packed.X, packed.y, packed.counts
+    if backend == "kernel":
+        H, g, dev_tr, dev_va, acc_va, n_va = ops.fused_irls_cv(
+            betas, X, y, fold_ids, fold_of, counts=counts,
+            mxu_operand=packed.X32,
+        )
+        H = H.to(torch.float64)
+    else:
+        w, g, dev_tr, dev_va, acc_va, n_va = ref.masked_cv_terms(
+            betas, X, y, counts, fold_ids, fold_of)
+        # one configuration at a time: an (S, N, d) temporary, not (C, ...)
+        if backend == "reference":
+            H = torch.stack([torch.einsum("sni,snj->sij",
+                                          X * w_c[..., None], X)
+                             for w_c in w])
+        else:  # mixed: chunked float32 products merged in float64
+            H = torch.stack([_mixed_gram(X * w_c[..., None], packed.X32)
+                             for w_c in w])
+    # train and held-out rows partition the valid rows (also for
+    # fold_of == -1, where n_va == 0): no (C, S, N) mask needed
+    n_tr = counts[None, :].to(torch.float64) - n_va
+    return CVSummaries(H, g, dev_tr, n_tr, dev_va, acc_va, n_va)

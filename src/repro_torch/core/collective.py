@@ -4,8 +4,8 @@ Institutions protect local summaries, Computation Centers aggregate
 share-wise (Algorithm 2), and only the threshold-met *aggregate* is ever
 reconstructed.  :class:`SecureCollective` owns that chain once.  This is
 the main-path part of the JAX package's ``core/collective.py``: the
-multi-config round, the in-SPMD wires (``psum``, ``psum_2d``,
-``allreduce``) and the sharded aggregate belong to later slices.
+in-SPMD wires (``psum``, ``psum_2d``, ``allreduce``) and the sharded
+aggregate belong to later slices.
 
 Backends and the flat wire
 --------------------------
@@ -53,6 +53,7 @@ from .flatbuf import (
     tree_flatten,
     tree_unflatten,
     unpack_pytree,
+    unpack_pytree_batched,
 )
 from .shamir import ShamirScheme
 
@@ -65,6 +66,16 @@ __all__ = [
 
 # int64 accumulator: S reduced residues (< max p) sum exactly below 2**63
 ACCUMULATOR_LIMIT = 2**63
+
+_MASK64 = 2**64 - 1
+
+
+def _splitmix64(x: int) -> int:
+    """One splitmix64 step: a bijective 64-bit mix (Steele et al.)."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
 
 
 def check_aggregation_headroom(num_addends: int, field: FieldSpec) -> None:
@@ -189,6 +200,25 @@ class SecureCollective:
         if self.scheme.field.moduli != self.codec.field.moduli:
             raise ValueError("scheme and codec must agree on the field")
 
+    # rng threading --------------------------------------------------------
+    @staticmethod
+    def round_key(seed: int, slot: int, device) -> torch.Generator:
+        """The one per-round rng rule: round ``slot``'s generator on
+        ``device``, seeded from (seed, slot) alone.
+
+        Every scan-block consumer (``fit_scan_block``, the selection
+        sweep) draws round r's sharing polynomials from this generator,
+        so executed round r sees the same randomness however the fit was
+        cut into blocks — which keeps a resumed run's shares identical
+        to an uninterrupted one's.  (The JAX package folds the slot into
+        a threefry key; the streams differ, the rule is the same.)
+        """
+        mixed = _splitmix64(_splitmix64(int(seed) & _MASK64)
+                            ^ (int(slot) & _MASK64))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(mixed >> 1)  # 63 bits: a valid torch seed
+        return gen
+
     # institution side --------------------------------------------------------
     @_traced("protect")
     def protect(self, generator: torch.Generator, tree):
@@ -304,6 +334,49 @@ class SecureCollective:
         sel = torch.tensor([p - 1 for p in points], device=aggd.buf.device)
         return self.reveal(FlatProtected(aggd.buf[sel], aggd.layout),
                            points=points, dtype=dtype)
+
+    @_traced("secure_round")
+    def secure_round_multiconfig(self, generator: torch.Generator, tree,
+                                 points: Sequence[int] | None = None,
+                                 dtype=torch.float64):
+        """One secure round over a (C, S, ...)-leading summary tree.
+
+        Every leaf carries a leading (configuration, institution) pair of
+        axes — for the selection sweep, C is the (lambda x fold) path
+        points advancing together.  Three launches whatever C is:
+
+        * ONE encode+share launch (K1) over the C * S flat slices;
+        * ONE exact int64 reduction over the institution axis of the
+          (w, R, C, S, rows, 128) share buffer — Algorithm 2 per config;
+        * ONE Lagrange + CRT reveal (K2) of the (C * rows, 128) stack of
+          per-config aggregates, unpacked to (C, ...)-leading leaves.
+
+        Per-institution validation scores therefore exist only as shares;
+        only their cross-institution sums are revealed, per config.
+        """
+        points = self._validated_points(points)
+        leaves, treedef = tree_flatten(tree)
+        if not leaves:
+            raise ValueError("cannot run a round on an empty tree")
+        c_dim, s_dim = leaves[0].shape[0], leaves[0].shape[1]
+        if any(tuple(l.shape[:2]) != (c_dim, s_dim) for l in leaves):
+            raise ValueError(
+                "all leaves need the same leading (config, institution) axes"
+            )
+        flat_tree = tree_unflatten(treedef, [
+            l.reshape((c_dim * s_dim,) + tuple(l.shape[2:])) for l in leaves
+        ])
+        prot = self.protect_batched(generator, flat_tree)
+        w, num_r, _, rows, lanes = prot.buf.shape
+        by_config = prot.buf.reshape(w, num_r, c_dim, s_dim, rows, lanes)
+        check_aggregation_headroom(s_dim, self.scheme.field)
+        aggd = fsum(by_config, self.scheme.field, axis=3, residue_axis=1)
+        sel = torch.tensor([p - 1 for p in points], device=aggd.device)
+        stacked = aggd[sel].reshape(len(points), num_r, c_dim * rows, lanes)
+        flat = _reveal_flat(stacked, self.scheme, self.codec.frac_bits,
+                            points)  # (C * rows, 128) float64
+        return unpack_pytree_batched(flat.reshape(c_dim, rows, lanes),
+                                     prot.layout, dtype=dtype)
 
     @_traced("reveal")
     def reveal(self, protected, points=None, dtype=torch.float64):

@@ -17,11 +17,12 @@ Two execution shapes for the secure loop, as in the JAX package:
   Python loop over institutions, one protect per institution.  Kept as
   the correctness comparator.
 
-The port runs eagerly: there is no ``jit`` and no ``lax.scan``, so the
-JAX package's whole-fit scan blocks (``rounds="scan"``) wait for slice B
-(``ROADMAP.md``).  Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``; without a card they raise instead of falling
-back to the CPU.
+``rounds="scan"`` runs the fused round in blocks of ``rounds_per_sync``
+slots (``core/scanfit.py``): the carry stays on the device, round r's
+sharing polynomials come from ``SecureCollective.round_key(seed, r)``, and
+the block's traces come back in one read.  Entry points run on the CUDA
+card unless the caller passes ``device="cpu"``; without a card they raise
+instead of falling back to the CPU.
 """
 from __future__ import annotations
 
@@ -284,17 +285,13 @@ class SecureFitDriver:
         deadline: float | None = None,
         min_responders: int = 1,
         rounds: str = "step",
+        rounds_per_sync: int | None = None,
         summaries_backend: str | None = None,
         device=None,
     ):
         if protect not in PROTECT_CHOICES:
             raise ValueError(f"protect must be one of {PROTECT_CHOICES}")
-        if rounds == "scan":
-            raise NotImplementedError(
-                "rounds='scan' (whole-fit scan blocks) is slice B of the "
-                "port (ROADMAP.md); use rounds='step'"
-            )
-        if rounds != "step":
+        if rounds not in ("step", "scan"):
             raise ValueError("rounds must be 'step' or 'scan'")
         self.device = resolve_device(device)
         self.agg = aggregator or SecureCollective()
@@ -306,8 +303,18 @@ class SecureFitDriver:
                 "share buffers ARE its wire format); use fused=False with "
                 "backend='reference'"
             )
+        if rounds == "scan" and not fused:
+            raise ValueError(
+                "rounds='scan' requires the fused kernel path (a scan slot "
+                "IS the fused iteration); use rounds='step' with "
+                "fused=False for the loop oracle"
+            )
+        if rounds_per_sync is not None and rounds_per_sync < 1:
+            raise ValueError("rounds_per_sync must be >= 1 (or None for "
+                             "one scan block per fit)")
         self.fused = fused
         self.rounds = rounds
+        self.rounds_per_sync = rounds_per_sync
         if summaries_backend is None:
             summaries_backend = "kernel"
         if summaries_backend not in SUMMARY_BACKENDS:
@@ -406,6 +413,15 @@ class SecureFitDriver:
     # -- one Newton round ---------------------------------------------------
     @_traced("newton")
     def step(self) -> RoundReport:
+        if self.rounds == "scan":
+            # in scan mode a supervised "round" is one block; a raise inside
+            # leaves all fit state unmutated, as a failed step does
+            reports = self.step_block()
+            if reports:
+                return reports[-1]
+            if self.reports:  # stepped past convergence: nothing executed
+                return self.reports[-1]
+            raise RuntimeError("scan block executed no rounds")
         # validate the round BEFORE mutating any fit state
         cohort = self.cohort_indices()
         points = self.live_points()
@@ -530,11 +546,58 @@ class SecureFitDriver:
         self._last_round_metrics = (grad_norm, step_norm)
         return obj, lambda: beta_new
 
+    # -- scan blocks -------------------------------------------------------
+    @_traced("newton")
+    def step_block(self, num_rounds: int | None = None
+                   ) -> list[RoundReport]:
+        """Up to ``num_rounds`` fused rounds as one block with one trace
+        read-back (``core/scanfit.py``), from which the per-round
+        ``RoundReport`` records are rebuilt.
+
+        The cohort and live reveal points are frozen for the block; the
+        mid-round hooks fire before it runs, and a below-threshold block
+        raises with all fit state unmutated.  Default length:
+        ``rounds_per_sync``, or the fit's remaining ``max_iter`` budget.
+        """
+        if self.rounds != "scan":
+            raise RuntimeError("step_block requires rounds='scan'")
+        from .scanfit import run_fit_block
+
+        cohort = self.cohort_indices()
+        points = self.live_points()
+        parts = [self.parts[j] for j in cohort]
+        in_cohort = set(cohort)
+        stragglers = [
+            self.names[j] for j in range(len(self.parts))
+            if self.online[j] and j not in in_cohort
+        ]
+        num_live = None if points is None else len(points)
+        nbytes = self.agg.round_bytes(
+            self.dim, len(parts), self.protect, num_live_centers=num_live,
+        )
+        if num_rounds is None:
+            num_rounds = self.rounds_per_sync or max(
+                self.max_iter - self.iteration, 1)
+        pts = self._post_protect_points(points)
+        if pts is not None and len(pts) == self.agg.scheme.num_shares:
+            pts = None  # all centers live: the default first-t reveal
+        reports = run_fit_block(
+            self, pack_partitions(parts), pts, num_rounds, self.l1, False,
+            nbytes, ([self.names[j] for j in cohort], stragglers,
+                     list(points or ())), "secure_fit_scan",
+        )
+        self.bytes_transmitted += nbytes * len(reports)
+        return reports
+
     def run(self, max_iter: int | None = None) -> FitResult:
         limit = self.max_iter if max_iter is None else max_iter
         t_total = time.perf_counter()
         while not self.converged and self.iteration < limit:
-            self.step()
+            if self.rounds == "scan":
+                block = self.rounds_per_sync or (limit - self.iteration)
+                self.step_block(min(block, limit - self.iteration))
+            else:
+                self.step()
         self.total_seconds += time.perf_counter() - t_total
         return self.result()
 
@@ -561,13 +624,18 @@ class SecureFitDriver:
             "latency": np.asarray(self.latency),
             "centers_online": np.asarray(self.centers_online),
             "round_base": np.asarray(self._round_base),
+            "seed": np.asarray(self.seed),
         }
 
     def load_state_dict(self, state: dict):
         """Restore a ``state_dict``.  Without ``rng_state`` (a state
         carried over from the JAX package) the generator is reseeded from
         the driver's seed: reveals do not depend on the sharing
-        randomness, so the fit continues on the same trajectory."""
+        randomness, so the fit continues on the same trajectory.  The
+        saved ``seed``, where present, replaces the driver's, so scan
+        rounds draw from the same ``round_key`` stream."""
+        if "seed" in state:
+            self.seed = int(state["seed"])
         self.beta = torch.tensor(np.asarray(state["beta"]),
                                  dtype=torch.float64, device=self.device)
         self.iteration = int(state["iteration"])
@@ -608,6 +676,7 @@ def secure_fit(
     l1: float = 0.0,
     fused: bool | None = None,
     rounds: str = "step",
+    rounds_per_sync: int | None = None,
     summaries_backend: str | None = None,
     device=None,
 ) -> FitResult:
@@ -620,11 +689,14 @@ def secure_fit(
     ``fused=None`` auto-selects: the kernel backend runs the batched
     iteration (one kernel launch per phase, one host sync per iteration);
     the reference backend runs the per-institution loop (the oracle).
-    This is the one-call form of :class:`SecureFitDriver`.
+    ``rounds="scan"`` runs the fused rounds in blocks of
+    ``rounds_per_sync`` (None: the whole fit as one block).  This is the
+    one-call form of :class:`SecureFitDriver`.
     """
     driver = SecureFitDriver(
         parts, lam=lam, tol=tol, max_iter=max_iter, protect=protect,
         aggregator=aggregator, seed=seed, l1=l1, fused=fused, rounds=rounds,
-        summaries_backend=summaries_backend, device=device,
+        rounds_per_sync=rounds_per_sync, summaries_backend=summaries_backend,
+        device=device,
     )
     return driver.run()

@@ -6,7 +6,9 @@ PyTorch version side by side, and a public wrapper in ``ops.py``.
 
 * K1 ``shamir_poly``        — fused fixed-point encode + Shamir shares;
 * K2 ``shamir_reconstruct`` — Lagrange reveal + CRT/Garner decode;
-* K3 ``fused_irls``         — all institutions' IRLS summaries.
+* K3 ``fused_irls``         — all institutions' IRLS summaries;
+* K5 ``fused_irls_cv``      — the same over (configuration, institution)
+  pairs with cross-validation fold masks.
 
 Nothing here builds or imports CUDA code at import time: the library is
 compiled at the first launch (``_build.library``).

@@ -22,7 +22,8 @@ __all__ = ["SOURCES", "library", "build", "build_log", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("shamir_poly.cu", "shamir_reconstruct.cu", "fused_irls.cu")
+SOURCES = ("shamir_poly.cu", "shamir_reconstruct.cu", "fused_irls.cu",
+           "fused_irls_cv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +43,11 @@ _SIGNATURES = {
     # stream
     "repro_k3_fused_irls": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                             _vp, _vp, _i, _ll, _i, _i, _i, _vp),
+    # betas, X, Xm, y, counts, fold_ids, fold_of, H, g, stats, Hp, gp, sp,
+    # S, n_max, d, Q, NSL, TN, stream
+    "repro_k5_fused_irls_cv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                               _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
+                               _vp),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from .fused_irls import fused_irls_kernel
+from .fused_irls import fused_irls_cv_kernel, fused_irls_kernel
 from .shamir_poly import encode_share_kernel
 from .shamir_reconstruct import reconstruct_kernel
 
-__all__ = ["fused_irls", "shamir_protect_flat", "shamir_reveal_flat"]
+__all__ = ["fused_irls", "fused_irls_cv", "shamir_protect_flat",
+           "shamir_reveal_flat"]
 
 
 def fused_irls(beta, X, y, counts=None, mxu_operand=None):
@@ -31,6 +32,28 @@ def fused_irls(beta, X, y, counts=None, mxu_operand=None):
     Xm = X.to(torch.float32) if mxu_operand is None else mxu_operand
     return fused_irls_kernel(beta.to(torch.float64), X, Xm,
                              y.to(torch.float64), counts.to(torch.int32))
+
+
+def fused_irls_cv(betas, X, y, fold_ids, fold_of, counts=None,
+                  mxu_operand=None):
+    """Cross-validated batched IRLS summaries over a (config, institution)
+    grid: (H (C,S,d,d) f32, g (C,S,d), dev_train (C,S), dev_val (C,S),
+    correct_val (C,S), count_val (C,S)), all but H float64.
+
+    ``betas`` (C, d) holds one iterate per (lambda x fold) configuration,
+    ``fold_ids`` (S, N_max) each row's fold and ``fold_of`` (C,) each
+    configuration's held-out fold (-1: none, a full-data fit sharing the
+    launch).  ``counts=None`` means all N_max rows of every institution;
+    rows past ``counts`` are masked whatever their fold id.
+    """
+    s_dim, n, _ = X.shape
+    if counts is None:
+        counts = torch.full((s_dim,), n, dtype=torch.int32, device=X.device)
+    Xm = X.to(torch.float32) if mxu_operand is None else mxu_operand
+    return fused_irls_cv_kernel(
+        betas.to(torch.float64), X, Xm, y.to(torch.float64),
+        counts.to(torch.int32), fold_ids.to(torch.int32),
+        fold_of.to(torch.int32))
 
 
 def shamir_protect_flat(buf, coeffs, num_shares: int, moduli, frac_bits: int,

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_irls", "masked_irls_terms", "shamir_shares"]
+__all__ = ["cv_masks", "fused_irls", "masked_cv_terms", "masked_irls_terms",
+           "shamir_shares"]
 
 
 def masked_irls_terms(beta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
@@ -41,6 +42,39 @@ def fused_irls(beta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
     w, g, dev = masked_irls_terms(beta, X, y, counts)
     H = torch.einsum("sni,snj->sij", X * w[..., None], X)
     return H, g, dev
+
+
+def cv_masks(n: int, counts: torch.Tensor, fold_ids: torch.Tensor,
+             fold_of: torch.Tensor):
+    """(train, hold) bool (C, S, N): the row mask first, then the fold
+    compare, so a padding row (fold id -1) never joins a refit
+    configuration's (fold_of = -1) held-out set."""
+    valid = (torch.arange(n, device=fold_ids.device)[None, :]
+             < counts[:, None])  # (S, N)
+    hold = valid[None] & (fold_ids[None] == fold_of[:, None, None])
+    return valid[None] & ~hold, hold
+
+
+def masked_cv_terms(betas: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                    counts: torch.Tensor, fold_ids: torch.Tensor,
+                    fold_of: torch.Tensor):
+    """The cross-validated terms every path shares, in float64, for C
+    configurations (``betas`` (C, d), held-out fold ``fold_of`` (C,)):
+    train-fold IRLS weights w (C, S, N), g (C, S, d), dev_train, dev_val,
+    correct_val and count_val (C, S).  Only the Gram is left to the
+    caller."""
+    train, hold = cv_masks(X.shape[1], counts, fold_ids, fold_of)
+    tmask, vmask = train.to(torch.float64), hold.to(torch.float64)
+    z = torch.einsum("snd,cd->csn", X, betas.to(X.dtype))
+    p = torch.sigmoid(z)
+    ll = y[None] * z - torch.logaddexp(torch.zeros_like(z), z)
+    dev_tr = -2.0 * torch.sum(ll * tmask, dim=2)
+    dev_va = -2.0 * torch.sum(ll * vmask, dim=2)
+    correct = torch.sum(
+        torch.where((z > 0.0) == (y[None] > 0.5), vmask, 0.0), dim=2)
+    g = torch.einsum("csn,snd->csd", (y[None] - p) * tmask, X)
+    w = p * (1.0 - p) * tmask
+    return w, g, dev_tr, dev_va, correct, vmask.sum(dim=2)
 
 
 def shamir_shares(secret: torch.Tensor, coeffs: torch.Tensor,

@@ -9,15 +9,16 @@ no JAX it runs on its own:
 Tolerances: K1 and K2 are exact field arithmetic (bit-identical); K3's
 float32 Gram differs from the plain version's in summation order
 (|dH| <= 2e-5 max|H|), its float64 g and dev to 1e-12 of the sums of
-absolute terms.
+absolute terms.  K5 holds the same H bound, g and the deviances to 1e-10
+relative (of the sums of absolute terms), and its held-out counts exactly.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.field import FIELD31, FIELD_WIDE
-from repro_torch.kernels.fused_irls import fused_irls_kernel, \
-    fused_irls_plain
+from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
+    fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain
 from repro_torch.kernels.shamir_poly import encode_share_kernel, \
     encode_share_plain
 from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
@@ -113,3 +114,50 @@ def test_k3_kernel_matches_plain(cuda, counts, n, d):
     dev_terms = ((y * z - torch.logaddexp(torch.zeros_like(z), z)) * mask)
     dev_scale = dev_terms.abs().sum(dim=1)
     assert bool(((dev - devp).abs() <= 1e-12 * dev_scale + 1e-300).all())
+
+
+@pytest.mark.parametrize("counts,n,d,fold_of", [
+    ((300, 123, 257), 300, 8, (-1, 0, 2)),
+    ((7, 530, 64), 530, 12, (0,)),
+    ((1000, 37, 2500), 2500, 130, (-1, 0, 1, 2, 3)),
+    ((26250, 23750), 26250, 128, (0, 1, 2, 3, 4)),
+    ((0, 300), 300, 256, (-1, 1)),
+    ((700, 90), 530, 12, (-1, 0, 1)),  # a count past N_max
+])
+def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
+    gen = torch.Generator(device=cuda).manual_seed(sum(counts) + d)
+    s_dim, c_dim = len(counts), len(fold_of)
+    X = torch.randn((s_dim, n, d), generator=gen, device=cuda,
+                    dtype=torch.float64)
+    y = (torch.rand((s_dim, n), generator=gen, device=cuda,
+                    dtype=torch.float64) < 0.4).to(torch.float64)
+    betas = 0.05 * torch.randn((c_dim, d), generator=gen, device=cuda,
+                               dtype=torch.float64)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    fids = torch.randint(0, 5, (s_dim, n), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    rows = torch.arange(n, device=cuda)[None, :]
+    fids = torch.where(rows < cnt[:, None], fids, -1)  # padding: fold -1
+    fold = torch.tensor(fold_of, dtype=torch.int32, device=cuda)
+    args = (betas, X, X.to(torch.float32), y, cnt, fids, fold)
+    before = fused_irls_cv_kernel.launches
+    got = fused_irls_cv_kernel(*args)
+    torch.cuda.synchronize()
+    assert fused_irls_cv_kernel.launches == before + 1
+    want = fused_irls_cv_plain(*args)
+    H, Hp = got[0], want[0]
+    assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())
+    z = torch.einsum("snd,cd->csn", X, betas)
+    p = torch.sigmoid(z)
+    valid = (rows < cnt[:, None])[None]
+    g_scale = torch.einsum("snd,csn->csd", X.abs(),
+                           ((y[None] - p) * valid).abs())
+    assert bool(((got[1] - want[1]).abs() <= 1e-10 * g_scale + 1e-300)
+                .all())
+    ll = (y[None] * z - torch.logaddexp(torch.zeros_like(z), z)) * valid
+    dev_scale = 2.0 * ll.abs().sum(dim=2)
+    for k in (2, 3):
+        assert bool(((got[k] - want[k]).abs() <= 1e-10 * dev_scale
+                     + 1e-300).all())
+    for k in (4, 5):
+        assert torch.equal(got[k], want[k])

@@ -63,3 +63,39 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert secure_fit(parts, device="cpu", max_iter=1).iterations == 1
+
+
+def test_slice_c_entry_points_raise_without_a_card(monkeypatch):
+    """The deployment and selection entry points: ``device=None`` raises
+    without a card, ``device="cpu"`` runs."""
+    import numpy as np
+
+    from repro_torch import (
+        Institution,
+        SelectionCoordinator,
+        StudyCoordinator,
+        secure_cv_path,
+    )
+    from repro_torch.core.collective import SecureCollective
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    X = np.concatenate([np.ones((40, 1)), rng.normal(size=(40, 2))], 1)
+    y = (rng.random(40) < 0.5).astype(np.float64)
+
+    def insts():
+        return [Institution("a", torch.as_tensor(X[:20]),
+                            torch.as_tensor(y[:20])),
+                Institution("b", torch.as_tensor(X[20:]),
+                            torch.as_tensor(y[20:]))]
+
+    agg = SecureCollective(backend="kernel")
+    for call in (lambda: StudyCoordinator(insts()),
+                 lambda: SelectionCoordinator(insts(), [1.0, 0.1]),
+                 lambda: secure_cv_path([(X, y)], [1.0, 0.1], num_folds=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert StudyCoordinator(insts(), device="cpu").step().iteration == 1
+    rep = secure_cv_path([(X, y)], [1.0, 0.1], num_folds=2, aggregator=agg,
+                         max_rounds=2, device="cpu")
+    assert rep.fold_rounds.max() <= 2

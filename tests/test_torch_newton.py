@@ -200,9 +200,15 @@ def test_prox_step_matches_jax_fista():
                                    atol=1e-12)
 
 
-def test_scan_rounds_wait_for_slice_b(study):
+def test_scan_rounds_need_the_fused_kernel_path(study):
+    """Scan rounds run on the fused kernel path; the loop oracle and the
+    reference backend refuse them, as they refuse a fused fit."""
     parts, _, _ = study
-    with pytest.raises(NotImplementedError, match="slice B"):
+    res = secure_fit(parts_from_numpy(parts, "cpu"), rounds="scan",
+                     aggregator=SecureCollective(backend="kernel"),
+                     device="cpu")
+    assert res.converged
+    with pytest.raises(ValueError, match="fused kernel path"):
         secure_fit(parts_from_numpy(parts, "cpu"), rounds="scan",
                    device="cpu")
     with pytest.raises(ValueError, match="kernel backend"):

@@ -14,7 +14,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    summaries at the λ-path's (5 folds) and refit's (fold -1) shapes and
    at a ragged shape with a count past N_max, H within 2e-5 max|H|, g and
    the deviances within 1e-10 of the sums of absolute terms, held-out
-   counts exact;
+   counts exact; K4 leaf-wise shares bit-identical at n = 1,000,000, R = 2,
+   (t, w) = (2, 3) and (3, 5); K6 weighted Gram within 2e-5 max|H| at one
+   institution's (25,000 x 128) and the pooled (200,000 x 128) shape;
 4. a full ``secure_fit`` at the acceptance configuration (S=8
    institutions, d=128, N=200,000 rows split +-5%, protect="both", 2-of-3
    Shamir over the (2^31-1, 2^31-19) CRT pair, 28 fractional bits)
@@ -31,12 +33,38 @@ Phases, each printing one line (any failure raises and exits non-zero):
    every fold and the refit converged, exact bytes, the refit beta
    against ``centralized_fit`` at λ_1se, and K5, K1 and K2 launched once
    per executed round (K3 never);
-6. with ``--profile`` only: ``--repeats`` more timed runs of the fit and
-   of the λ path, then one of each under ``torch.profiler`` (device time
+6. leaf-wise Shamir at ``benchmarks/secure_overhead.py``'s largest size
+   (1,000,000 parameters, 4 institutions, 2-of-3 over the CRT pair, 28
+   fractional bits) through ``ShamirScheme(backend="kernel")``: every
+   institution's encoded leaf shared (K4, one launch each), the shares
+   summed in the field, reconstructed from each 2-subset (K2 residues
+   mode, one launch per residue) and revealed as a per-leaf tree through
+   ``SecureCollective(backend="kernel").reveal``; every reveal equal to
+   the decoded exact sum bit for bit;
+7. the weighted Gram through ``ops.gram_hessian`` (K6): each
+   institution's X^T diag(w) X at the IRLS weights, their sum against the
+   pooled Gram;
+8. fault-tolerant supervision: ``benchmarks/fault_overhead.py``'s own
+   configuration (S=4, d=64, N=80,000, protect="both", its policy, the
+   fused ``StudyCoordinator``) bare and supervised without faults
+   (bit-identical beta, per-round host-clock overhead), then under its
+   three canned schedules (center schedules bit-identical to the
+   fault-free beta, the flap within (S+1)/2^28), with its CPU run's counts
+   printed beside for reference; a supervised ``SecureFitDriver`` at phase
+   4's configuration under a mid-round center loss (same beta, iterations
+   and bytes as phase 4) and a supervised ``SelectionCoordinator`` of
+   phase 5's path under center faults (same report and refit beta);
+9. multi-study rounds: 4 studies at phase 4's shape (seeds 0-3, λ = 0.3,
+   1, 3, 10), 10 rounds through ``run_multistudy_rounds``, each study's
+   beta within (S+1)/2^28 of its own ``SecureFitDriver`` round by round,
+   and per round 4 K3 launches, one K1 and one K2;
+10. with ``--profile`` only: ``--repeats`` more timed runs of the fit, the
+   λ path and the multi-study rounds, then one of each under
+   ``torch.profiler`` (device time
    per kernel name, the union of device-busy intervals over the run's
    wall window, so the card's idle share), as ``profile`` JSON lines;
    ``--trace`` also writes the fit's Chrome trace;
-7. one JSON line with each kernel's time, bound and launches.
+11. one JSON line with each kernel's time, bound and launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -71,6 +99,40 @@ PATH_ROUND_BYTES = 16_711_680
 JAX_PATH = {"rounds": 37, "lambda_1se": 31.622776601683793,
             "lambda_best": 4.393970560760792}
 SPIN_CYCLES = 5_000_000  # a few ms of card time, longer than any enqueue
+# leaf-wise Shamir: benchmarks/secure_overhead.py's largest default size
+LEAF_N, LEAF_INST = 1_000_000, 4
+# supervision: benchmarks/fault_overhead.py's configuration and schedules
+FAULT_S, FAULT_D, FAULT_N, FAULT_MAX_ROUNDS = 4, 64, 80_000, 60
+FAULT_REPEATS = 5  # interleaved bare/supervised pairs
+FAULT_SCHEDULES = {
+    "flap_quorum_retry": {2: [("flap", "i1", 3.0), ("flap", "i2", 3.0),
+                              ("flap", "i3", 3.0)]},
+    "midround_abort_reshare": {2: [("center_midround", 2),
+                                   ("center_midround", 3)]},
+    "center_loss_reprovision": {2: [("center_crash", 2),
+                                    ("center_crash", 3)]},
+}
+CENTER_ONLY = ("midround_abort_reshare", "center_loss_reprovision")
+# what the JAX package's CPU run counted (BENCH_fault_overhead.json):
+# shown for reference, not checked
+BENCH_FAULT = {
+    "flap_quorum_retry": dict(rounds=9, retries=2, aborted_attempts=0,
+                              degraded_rounds=1, sim_backoff_seconds=3.0),
+    "midround_abort_reshare": dict(rounds=9, retries=1, aborted_attempts=1,
+                                   degraded_rounds=1,
+                                   sim_backoff_seconds=1.0),
+    "center_loss_reprovision": dict(rounds=9, retries=1, aborted_attempts=0,
+                                    degraded_rounds=1,
+                                    sim_backoff_seconds=1.0),
+}
+# center faults that leave three live centers for every executed round,
+# so bytes match the unsupervised runs: a below-threshold mid-round loss
+# (abort, re-provision, re-share) and a two-center crash (re-provision)
+FIT_FAULTS = {3: [("center_midround", 1), ("center_midround", 2)]}
+PATH_FAULTS = {2: [("center_midround", 1), ("center_midround", 2)],
+               4: [("center_crash", 2), ("center_crash", 3)]}
+# multi-study rounds: M studies at the fit's shape
+MS_SEEDS, MS_LAMS, MS_ROUNDS = (0, 1, 2, 3), (0.3, 1.0, 3.0, 10.0), 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -136,6 +198,8 @@ CATEGORIES = (
     ("K3 fused_irls", ("irls_partial", "irls_reduce")),
     ("K1 encode_share", ("encode_share",)),
     ("K2 reconstruct", ("reconstruct_kernel",)),
+    ("K4 leaf-wise share", ("leafwise_share",)),
+    ("K6 gram_hessian", ("gram_partial", "gram_reduce")),
     ("solve (LU, cuBLAS/cuSOLVER)", ("getrf", "getrs", "laswp", "trsm",
                                      "trsv", "ipiv", "lu_", "magma",
                                      "solve", "gemv", "batch_")),
@@ -304,10 +368,301 @@ def check_path_launches(launches: dict, rounds: int, what: str) -> None:
           f"{what} launches {launches} vs {rounds} rounds")
 
 
+def check_k4(dev, gen):
+    """K4 against its plain version at the leaf-wise phase's size: n =
+    1,000,000 elements, R = 2 residues, (t, w) = (2, 3) and (3, 5), with
+    0 and p - 1 among the secrets.  Returns the (2, 3) arguments."""
+    import torch
+    from repro_torch.core.field import FIELD_WIDE
+    from repro_torch.kernels.shamir_poly import share_kernel, share_plain
+
+    moduli = FIELD_WIDE.moduli
+
+    def draw(shape):
+        return torch.stack([torch.randint(0, p, shape, generator=gen,
+                                          device=dev) for p in moduli])
+
+    cases = {}
+    for t, w in ((2, 3), (3, 5)):
+        secret, coeffs = draw((LEAF_N,)), draw((t - 1, LEAF_N))
+        secret[:, 0] = 0
+        secret[:, 1] = torch.tensor(moduli, device=dev) - 1
+        got = share_kernel(secret, coeffs, moduli, w)
+        want = share_plain(secret, coeffs, moduli, w)
+        check(torch.equal(got, want), f"K4 t={t} w={w} n={LEAF_N}")
+        cases[(t, w)] = (secret, coeffs, moduli, w)
+    return cases[(2, 3)]
+
+
+def check_k6(X_all, w_all):
+    """K6 against its plain version at one institution's (25,000 x 128)
+    and the pooled (200,000 x 128) shape; returns (max|dH|, per shape the
+    largest |H - float64 sum of the float32 products| of the kernel and of
+    the plain version, the pooled float32 arguments)."""
+    from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
+        gram_hessian_plain
+
+    X32, w32 = X_all.float(), w_all.float()
+    err, vs_f64 = 0.0, {}
+    for rows in (25_000, X32.shape[0]):
+        Xr, wr = X32[:rows], w32[:rows]
+        H = gram_hessian_kernel(Xr, wr)
+        Hp = gram_hessian_plain(Xr, wr)
+        dH = float((H - Hp).abs().max())
+        check(dH <= 2e-5 * float(Hp.abs().max()),
+              f"K6 ({rows} x {Xr.shape[1]}) H err {dH}")
+        H64 = gram_f64(Xr[None], wr[None])[0]
+        vs_f64[f"{rows}x{Xr.shape[1]}"] = (float((H - H64).abs().max()),
+                                           float((Hp - H64).abs().max()))
+        err = max(err, dH)
+    return err, vs_f64, (X32, w32)
+
+
+def leafwise_phase(dev, counts):
+    """Phase 6: leaf-wise Shamir through the kernel scheme at 1,000,000
+    parameters and 4 institutions.  ``counts`` is (reset, read) of the
+    launch counters.  Returns (seconds of the share calls, seconds of the
+    three reconstructions, launches)."""
+    import torch
+    from repro_torch.core.collective import SecureCollective
+    from repro_torch.core.field import FIELD_WIDE, fsum
+    from repro_torch.core.fixed_point import FixedPointCodec
+    from repro_torch.core.shamir import ShamirScheme
+
+    reset, read = counts
+    codec = FixedPointCodec(FIELD_WIDE, FRAC_BITS)
+    scheme = ShamirScheme(2, 3, FIELD_WIDE, backend="kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    leaves = [100.0 * torch.randn((LEAF_N,), generator=gen,
+                                  dtype=torch.float64, device=dev)
+              for _ in range(LEAF_INST)]
+    encoded = [codec.encode(x) for x in leaves]  # (R, n) int64 each
+    exact = codec.decode(fsum(torch.stack(encoded), FIELD_WIDE, axis=0,
+                              residue_axis=0))
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    shares = [scheme.share(gen, e) for e in encoded]  # (3, R, n) each
+    torch.cuda.synchronize()
+    share_s = time.perf_counter() - t0
+    agg_shares = fsum(torch.stack(shares), FIELD_WIDE, axis=0,
+                      residue_axis=1)
+    collective = SecureCollective(scheme=scheme, codec=codec)
+    t0 = time.perf_counter()
+    for pts in ((1, 2), (1, 3), (2, 3)):
+        sel = agg_shares[[q - 1 for q in pts]]
+        rec = codec.decode(scheme.reconstruct(sel, pts))
+        check(torch.equal(rec, exact), f"leaf-wise reconstruct {pts}")
+        tree = collective.reveal({"leaf": sel}, points=pts)
+        check(torch.equal(tree["leaf"], exact), f"leaf-wise reveal {pts}")
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = read()
+    R = FIELD_WIDE.num_residues
+    want = {"share_kernel": LEAF_INST, "reconstruct_kernel": 2 * 3 * R,
+            "encode_share_kernel": 0}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"leaf-wise launches {launches}")
+    check(float((exact - sum(leaves)).abs().max()) <= LEAF_INST / 2**FRAC_BITS,
+          "leaf-wise exact sum vs float sum")
+    return share_s, rec_s, launches
+
+
+def gram_phase(parts, beta, counts):
+    """Phase 7: each institution's weighted Gram at the IRLS weights
+    through ``ops.gram_hessian`` (K6, X cast to float32 in the call), and
+    their sum against the pooled Gram."""
+    import torch
+    from repro_torch.kernels import ops
+
+    reset, read = counts
+    ws = [torch.sigmoid(X @ beta) for X, _ in parts]
+    ws = [p * (1.0 - p) for p in ws]
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    Hs = [ops.gram_hessian(X, w) for (X, _), w in zip(parts, ws)]
+    pooled = ops.gram_hessian(torch.cat([X for X, _ in parts]),
+                              torch.cat(ws))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    check(launches["gram_hessian_kernel"] == len(parts) + 1,
+          f"gram launches {launches}")
+    dsum = float((torch.stack(Hs).sum(0) - pooled).abs().max())
+    check(dsum <= 2e-5 * float(pooled.abs().max()),
+          f"sum of institution Grams vs pooled {dsum}")
+    return secs, launches, dsum, float(pooled.abs().max())
+
+
+def _fault_policy():
+    from repro_torch.runtime import FaultPolicy
+
+    # benchmarks/fault_overhead.py's _policy()
+    return FaultPolicy(max_retries=4, backoff_base=1.0, backoff_factor=2.0,
+                       round_seconds=1.0, heartbeat_timeout=5.0,
+                       reprovision_after=1)
+
+
+def supervisor_phase(dev, agg) -> dict:
+    """Phase 8a: the fused ``StudyCoordinator`` at
+    ``benchmarks/fault_overhead.py``'s configuration, bare and supervised
+    (fault-free, interleaved), then under its three canned schedules."""
+    import torch
+    from repro_torch.core.protocol import Institution, StudyCoordinator
+    from repro_torch.data import generate_synthetic
+    from repro_torch.runtime import FailureInjector, RoundSupervisor
+
+    fparts = generate_synthetic(SEED, FAULT_S, FAULT_N // FAULT_S, FAULT_D,
+                                device=dev).parts
+
+    def coord():
+        return StudyCoordinator(
+            [Institution(f"i{j}", X, y) for j, (X, y) in enumerate(fparts)],
+            lam=1.0, protect=PROTECT, aggregator=agg, seed=SEED, fused=True,
+            device=dev)
+
+    def bare():
+        c = coord()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while not c.converged and c.iteration < FAULT_MAX_ROUNDS:
+            c.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, c, None
+
+    def supervised(schedule=None):
+        c = coord()
+        sup = RoundSupervisor(c, policy=_fault_policy(),
+                              injector=FailureInjector(schedule or {}))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup.run(max_rounds=FAULT_MAX_ROUNDS)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, c, sup
+
+    bare()  # warm-up: allocator, pack cache
+    supervised()
+    per_round = {"bare": [], "supervised": []}
+    for rep in range(FAULT_REPEATS):
+        order = ("bare", "supervised") if rep % 2 == 0 else \
+            ("supervised", "bare")
+        for which in order:
+            dt, c, _ = (bare if which == "bare" else supervised)()
+            per_round[which].append(dt / c.iteration)
+            if which == "bare":
+                oracle = c
+            else:
+                sup_c = c
+    check(oracle.converged and sup_c.converged, "fault-free runs converged")
+    check(torch.equal(oracle.beta, sup_c.beta),
+          "supervised fault-free beta bit-identical to the bare run")
+    med = {k: statistics.median(v) for k, v in per_round.items()}
+    out = {"rounds": oracle.iteration, "seconds_per_round": per_round,
+           "overhead_pct": (med["supervised"] / med["bare"] - 1.0) * 100.0,
+           "schedules": {}}
+    quant = (FAULT_S + 1) / 2**FRAC_BITS
+    for name, schedule in FAULT_SCHEDULES.items():
+        dt, c, sup = supervised(schedule)
+        err = float((c.beta - oracle.beta).abs().max())
+        tol = 0.0 if name in CENTER_ONLY else quant
+        check(c.converged and err <= tol,
+              f"{name}: converged {c.converged}, err {err} > {tol}")
+        out["schedules"][name] = {
+            "rounds": c.iteration,
+            "retries": sup.total_retries,
+            "aborted_attempts": sum(r.aborted_attempts for r in sup.rounds),
+            "degraded_rounds": sum(1 for r in sup.rounds if r.degraded),
+            "sim_backoff_seconds": sup.total_backoff,
+            "seconds": dt,
+            "max_abs_err_vs_fault_free": err,
+            "jax_cpu_run": BENCH_FAULT[name],
+        }
+    return out
+
+
+def multistudy_phase(dev, agg, parts, counts):
+    """Phase 9: four studies at the fit's shape advanced by one collective
+    round each, ten rounds, against four independent fits.  Returns the
+    results and the timed run (for ``--profile``)."""
+    import torch
+    from repro_torch.core import (
+        fused_multistudy_iteration,
+        run_multistudy_rounds,
+        stack_studies,
+    )
+    from repro_torch.core.newton import SecureFitDriver
+    from repro_torch.data import generate_synthetic, ragged_sizes, split_rows
+
+    reset, read = counts
+    studies = []
+    for seed in MS_SEEDS:
+        if seed == SEED:
+            studies.append(parts)
+            continue
+        Xs, ys = generate_synthetic(seed, num_institutions=1,
+                                    records_per_institution=N, dim=D,
+                                    device=dev).pooled()
+        studies.append(split_rows(Xs, ys, ragged_sizes(N, S)))
+
+    def run():
+        return run_multistudy_rounds(
+            studies, MS_LAMS, MS_ROUNDS, aggregator=agg, protect=PROTECT,
+            seed=SEED, device=dev)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    betas, trace = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    M = len(studies)
+    want = {"fused_irls_kernel": M * MS_ROUNDS,
+            "encode_share_kernel": MS_ROUNDS, "reconstruct_kernel": MS_ROUNDS,
+            "fused_irls_cv_kernel": 0, "share_kernel": 0}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"multi-study launches {launches} over {MS_ROUNDS} rounds")
+    # the same rounds one at a time, for the per-round betas
+    packed = stack_studies(studies)
+    x_bytes = packed.X.numel() * 12  # float64 X + its float32 copy
+    b = torch.zeros((M, D), dtype=torch.float64, device=dev)
+    lams = torch.tensor(MS_LAMS, dtype=torch.float64, device=dev)
+    per_round = []
+    for r in range(MS_ROUNDS):
+        b = fused_multistudy_iteration(
+            b, agg.round_key(SEED, r, dev), packed.X, packed.X32, packed.y,
+            packed.counts, lams, agg, PROTECT, 0.0)[0]
+        per_round.append(b)
+    check(torch.equal(b, betas), "per-round loop vs run_multistudy_rounds")
+    err, obj_err = 0.0, 0.0
+    for m, study in enumerate(studies):
+        drv = SecureFitDriver(study, lam=MS_LAMS[m], protect=PROTECT,
+                              aggregator=agg, summaries_backend="kernel",
+                              device=dev)
+        for r in range(MS_ROUNDS):
+            if not drv.converged:
+                rep = drv.step()
+                obj_err = max(obj_err, abs(float(trace[r, m])
+                                           - rep.objective))
+            e = float((per_round[r][m] - drv.beta).abs().max())
+            check(e <= QUANT_TOL, f"study {m} round {r + 1}: beta err {e}")
+            err = max(err, e)
+    return {"studies": M, "rounds": MS_ROUNDS, "seconds": secs,
+            "seconds_per_round": secs / MS_ROUNDS, "launches": launches,
+            "max_beta_err_vs_independent": err,
+            "max_objective_err_vs_independent": obj_err,
+            "x_bytes_on_card": x_bytes, "peak_bytes_allocated": peak}, run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also time and profile the fit (phase 5)")
+                    help="also time and profile the fit and the path "
+                         "(phase 10)")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
@@ -331,8 +686,10 @@ def main() -> int:
     from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
         fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain
     from repro_torch.selection import SelectionCoordinator, secure_cv_path
+    from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
+        gram_hessian_plain
     from repro_torch.kernels.shamir_poly import encode_share_kernel, \
-        encode_share_plain
+        encode_share_plain, share_kernel, share_plain
     from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
         reconstruct_plain
 
@@ -469,6 +826,9 @@ def main() -> int:
     check(float((revealed - want_sum).abs().max()) <= (S + 1) / 2**FRAC_BITS,
           "K2 reveal vs plaintext sum")
     k5_err, k5_args, k5_vs_f64 = check_k5(dev, gen, packed, beta)
+    k4_args = check_k4(dev, gen)
+    p_all = torch.sigmoid(X_all @ beta)
+    k6_err, k6_vs_f64, k6_args = check_k6(X_all, p_all * (1.0 - p_all))
     torch.cuda.synchronize()
     print("kernels vs plain: K1 bit-identical (2 fields, f32/f64, points, "
           f"edges); K2 bit-identical (3 point sets, R=1 and 2, residues); "
@@ -476,9 +836,11 @@ def main() -> int:
           ", g/dev within 1e-12 of the abs sums; d=130 ok; K5 max|dH| "
           f"{k5_err:.3e} over the path (C=5), refit (C=1) and ragged "
           "(d=130, count > N_max) shapes, g/dev within 1e-10, held-out "
-          "counts exact")
+          f"counts exact; K4 bit-identical (n={LEAF_N}, R=2, (t, w) = (2, "
+          f"3) and (3, 5)); K6 max|dH| {k6_err:.3e} at (25000 x 128) and "
+          f"({N} x 128) (<= 2e-5 max|H|)")
     print("max|H - float64 sum of the float32 products| (kernel, plain): "
-          f"K3 {k3_vs_f64}; K5 {k5_vs_f64}")
+          f"K3 {k3_vs_f64}; K5 {k5_vs_f64}; K6 {k6_vs_f64}")
 
     # -- 4. the main path: secure_fit at the acceptance config --------------
     agg = SecureCollective(backend="kernel")
@@ -488,7 +850,7 @@ def main() -> int:
     gold = centralized_fit(X_all, y_all, device=dev)
     torch.cuda.synchronize()
     counters = (encode_share_kernel, reconstruct_kernel, fused_irls_kernel,
-                fused_irls_cv_kernel)
+                fused_irls_cv_kernel, share_kernel, gram_hessian_kernel)
 
     def reset_counts():
         for k in counters:
@@ -511,8 +873,9 @@ def main() -> int:
           f"bytes {res.bytes_transmitted} for {res.iterations} iterations")
     check(err <= (S + 1) / 2**FRAC_BITS, f"beta err vs centralized {err}")
     check(all(launches[k.__name__] == res.iterations
-              for k in counters[:3]) and launches["fused_irls_cv_kernel"]
-          == 0, f"launches {launches} != iterations {res.iterations}")
+              for k in counters[:3])
+          and all(launches[k.__name__] == 0 for k in counters[3:]),
+          f"launches {launches} != iterations {res.iterations}")
     print(f"secure_fit: S={S} d={D} N={N} protect={PROTECT} iterations "
           f"{res.iterations} converged {res.converged} bytes "
           f"{res.bytes_transmitted} max|beta - centralized| {err:.3e} "
@@ -610,7 +973,76 @@ def main() -> int:
           f"max|beta - secure_cv_path beta| {coord_err:.3e} seconds "
           f"{coord_s:.4f} launches {coord_launches}")
 
-    # -- 6. where the time goes (--profile) ---------------------------------
+    # -- 6. leaf-wise Shamir through the kernel scheme (K4, K2 residues) ---
+    counts = (reset_counts, read_counts)
+    share_s, rec_s, leaf_launches = leafwise_phase(dev, counts)
+    print(f"leaf-wise Shamir: n={LEAF_N} institutions {LEAF_INST} 2-of-3 "
+          f"over {FIELD_WIDE.name}: every reveal from (1,2), (1,3), (2,3) "
+          f"and the per-leaf tree reveal equals the decoded exact sum; "
+          f"share seconds {share_s:.4f} (4 calls) reconstruct+reveal "
+          f"seconds {rec_s:.4f} (6 reveals) launches {leaf_launches}")
+
+    # -- 7. the weighted Gram through ops.gram_hessian (K6) -----------------
+    gram_s, gram_launches, gram_dsum, gram_max = gram_phase(parts, beta,
+                                                            counts)
+    print(f"ops.gram_hessian: {S} institutions + the pooled study, "
+          f"max|sum of institution Grams - pooled| {gram_dsum:.3e} (max|H| "
+          f"{gram_max:.4e}) seconds {gram_s:.4f} launches {gram_launches}")
+
+    # -- 8. fault-tolerant supervision --------------------------------------
+    from repro_torch.core.newton import SecureFitDriver
+    from repro_torch.runtime import FailureInjector, RoundSupervisor
+
+    sup_out = supervisor_phase(dev, agg)
+    print(json.dumps({"supervisor": sup_out, "card": smi}))
+    drv = SecureFitDriver(parts, **fit_kw)
+    sup = RoundSupervisor(drv, policy=_fault_policy(),
+                          injector=FailureInjector(FIT_FAULTS))
+    reset_counts()
+    t0 = time.perf_counter()
+    sres = sup.run(max_rounds=FAULT_MAX_ROUNDS)
+    torch.cuda.synchronize()
+    sfit_s = time.perf_counter() - t0
+    sfit_launches = read_counts()
+    check(np.array_equal(sres.beta, res.beta)
+          and (sres.iterations, sres.bytes_transmitted)
+          == (res.iterations, res.bytes_transmitted),
+          "supervised secure_fit vs phase 4 (beta, iterations, bytes)")
+    check([r.aborted_attempts for r in sup.rounds][2] == 1,
+          "the mid-round loss aborted round 3 once")
+    print(f"supervised SecureFitDriver ({FIT_FAULTS}): iterations "
+          f"{sres.iterations} bytes {sres.bytes_transmitted} beta "
+          "bit-identical to phase 4, retries "
+          f"{sup.total_retries} aborted "
+          f"{sum(r.aborted_attempts for r in sup.rounds)} seconds "
+          f"{sfit_s:.4f} launches {sfit_launches}")
+    ssel = SelectionCoordinator(
+        [Institution(str(j), X, y) for j, (X, y) in enumerate(parts)],
+        lambdas, device=dev, **path_kw)
+    sup = RoundSupervisor(ssel, policy=_fault_policy(),
+                          injector=FailureInjector(PATH_FAULTS))
+    t0 = time.perf_counter()
+    srep = sup.run(max_rounds=50)
+    torch.cuda.synchronize()
+    spath_s = time.perf_counter() - t0
+    check((srep.lambda_best, srep.lambda_1se, srep.rounds_total,
+           srep.bytes_total) == (rep.lambda_best, rep.lambda_1se,
+                                 rep.rounds_total, rep.bytes_total),
+          "supervised selection report vs phase 5")
+    check(np.array_equal(srep.beta, crep.beta),
+          "supervised selection refit beta vs phase 5's coordinator")
+    print(f"supervised SelectionCoordinator ({PATH_FAULTS}): chunks "
+          f"{len(sup.rounds)} rounds {srep.rounds_total} lambda_1se "
+          f"{srep.lambda_1se:.6g} bytes {srep.bytes_total} refit beta "
+          f"bit-identical to phase 5, retries {sup.total_retries} aborted "
+          f"{sum(r.aborted_attempts for r in sup.rounds)} seconds "
+          f"{spath_s:.4f}")
+
+    # -- 9. multi-study rounds -----------------------------------------------
+    ms_out, ms_run = multistudy_phase(dev, agg, parts, counts)
+    print(json.dumps({"multistudy": ms_out, "card": smi}))
+
+    # -- 10. where the time goes (--profile) --------------------------------
     if args.profile:
         print(json.dumps({"profile": profile_run(
             lambda: secure_fit(parts, **fit_kw), lambda r: r.iterations,
@@ -618,8 +1050,11 @@ def main() -> int:
         print(json.dumps({"profile": profile_run(
             run_path, lambda r: r.rounds_total, "lambda_path",
             args.repeats), "card": smi}))
+        print(json.dumps({"profile": profile_run(
+            ms_run, lambda r: MS_ROUNDS, "multistudy", args.repeats),
+            "card": smi}))
 
-    # -- 7. times and bounds -------------------------------------------------
+    # -- 11. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
     k2_in = aggd[[0, 1]].contiguous()
@@ -634,8 +1069,13 @@ def main() -> int:
     # (configuration, row) pairs on train rows: a held-out row has weight
     # 0 and adds nothing to H or g
     k5_train = n_cfg * rows_total - int(k5_terms[5].sum())
+    k4_secret, k4_coeffs, k4_moduli, k4_w = k4_args
+    k4_r, k4_tm1, k4_n = k4_coeffs.shape
+    X6, w6 = k6_args
+    n6 = X6.shape[0]
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
+             path="secure_fit",
              source="src/repro_torch/csrc/shamir_poly.cu",
              replaces="src/repro/kernels/shamir_poly.py:223",
              run=lambda: encode_share_kernel(x, coeffs, FIELD_WIDE.moduli,
@@ -645,7 +1085,7 @@ def main() -> int:
              library=None, err=k1_err,
              bound=bound(n1 * 8 + n1 * 2 * 4 + n1 * 3 * 2 * 4,
                          f64_ops=n1)),
-        dict(name="K2 reconstruct", fn=reconstruct_kernel,
+        dict(name="K2 reconstruct", fn=reconstruct_kernel, path="secure_fit",
              source="src/repro_torch/csrc/shamir_reconstruct.cu",
              replaces="src/repro/kernels/shamir_reconstruct.py:120",
              run=lambda: reconstruct_kernel(k2_in, (1, 2), FIELD_WIDE.moduli,
@@ -655,7 +1095,7 @@ def main() -> int:
              library=None, err=k2_err,
              bound=bound(k2_in.numel() * 4 + rows * 128 * 8,
                          f64_ops=rows * 128)),
-        dict(name="K3 fused_irls", fn=fused_irls_kernel,
+        dict(name="K3 fused_irls", fn=fused_irls_kernel, path="secure_fit",
              source="src/repro_torch/csrc/fused_irls.cu",
              replaces="src/repro/kernels/fused_irls.py:100",
              run=lambda: fused_irls_kernel(*k3_args),
@@ -669,6 +1109,7 @@ def main() -> int:
                          f32_ops=rows_total * D * (D + 1),
                          f64_ops=rows_total * (4 * D + 30))),
         dict(name="K5 fused_irls_cv", fn=fused_irls_cv_kernel,
+             path="lambda_path",
              source="src/repro_torch/csrc/fused_irls_cv.cu",
              replaces="src/repro/kernels/fused_irls.py:270",
              run=lambda: fused_irls_cv_kernel(*k5_args),
@@ -684,26 +1125,55 @@ def main() -> int:
                          f32_ops=k5_train * D * (D + 1),
                          f64_ops=n_cfg * rows_total * (2 * D + 30)
                          + k5_train * 2 * D)),
+        dict(name="K4 leaf-wise share", fn=share_kernel, path="leafwise",
+             source="src/repro_torch/csrc/shamir_share.cu",
+             replaces="src/repro/kernels/shamir_poly.py:116",
+             run=lambda: share_kernel(*k4_args),
+             plain=lambda: share_plain(*k4_args),
+             library=None, err=0.0,
+             # int64 secret and coefficients read once, w shares written;
+             # the 64-bit integer multiply/modulo steps have no peak in
+             # the float table, and the bytes bound it
+             bound=bound(k4_r * k4_n * 8 * (1 + k4_tm1 + k4_w))),
+        dict(name="K6 gram_hessian", fn=gram_hessian_kernel, path="gram",
+             source="src/repro_torch/csrc/gram_hessian.cu",
+             replaces="src/repro/kernels/fused_irls.py:387",
+             run=lambda: gram_hessian_kernel(X6, w6),
+             plain=lambda: gram_hessian_plain(X6, w6),
+             # one institution's shape, beside the pooled one
+             more={"25000x128": lambda: gram_hessian_kernel(X6[:25_000],
+                                                            w6[:25_000])},
+             library=lambda: torch.matmul((X6 * w6[:, None]).T, X6),
+             err=k6_err,
+             # float32 X and w read once, H written; the symmetric Gram
+             bound=bound(n6 * (D + 1) * 4 + D * D * 4,
+                         f32_ops=n6 * D * (D + 1))),
     ]
+    by_path = {"secure_fit": launches, "lambda_path": path_launches,
+               "leafwise": leaf_launches, "gram": gram_launches,
+               "supervised_fit": sfit_launches,
+               "multistudy": ms_out["launches"]}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
         plain_ms, _ = cuda_times(e["plain"], 20)
         lib_ms = cuda_times(e["library"], 20)[0] if e["library"] else None
         bound_ms, bound_by = e["bound"]
+        more = {k: cuda_times(fn, 30)[0]
+                for k, fn in e.get("more", {}).items()}
         kernels.append({
             "name": e["name"], "route": "cuda", "source": e["source"],
             "replaces": e["replaces"],
             # each kernel's count on the path it was ported for: K1-K3
-            # the secure_fit run, K5 the lambda path
-            "launches": (path_launches if e["fn"] is fused_irls_cv_kernel
-                         else launches)[e["fn"].__name__],
-            "launches_by_path": {
-                "secure_fit": launches[e["fn"].__name__],
-                "lambda_path": path_launches[e["fn"].__name__]},
+            # the secure_fit run, K5 the lambda path, K4 the leaf-wise
+            # shares, K6 the weighted Grams
+            "launches": by_path[e["path"]][e["fn"].__name__],
+            "launches_by_path": {k: v[e["fn"].__name__]
+                                 for k, v in by_path.items()},
             "max_abs_err": e["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "call_ms": call_ms,
+            **({"ms_by_shape": more} if more else {}),
         })
     print(json.dumps({
         "kernels": kernels,
@@ -714,6 +1184,8 @@ def main() -> int:
         "path_rounds": rep.rounds_total,
         "path_seconds_per_round": path_s / rep.rounds_total,
         "coordinator_path_seconds": coord_s,
+        "multistudy_seconds_per_round": ms_out["seconds_per_round"],
+        "supervisor_overhead_pct": sup_out["overhead_pct"],
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ passes ``device="cpu"``:
 * ``StudyCoordinator`` (``core/protocol.py``) — the deployment shape
   with stragglers, center failures and elastic membership;
 * ``secure_cv_path`` / ``SelectionCoordinator`` (``selection/``) — the
-  cross-validated λ path and its 1-SE pick.
+  cross-validated λ path and its 1-SE pick;
+* ``RoundSupervisor`` (``runtime/``) — any of those drivers under a
+  schedule of institution and center faults;
+* ``run_multistudy_rounds`` (``core/multistudy.py``) — M studies advanced
+  by one collective round.
 """
 from .core import SecureCollective, centralized_fit, secure_fit  # noqa: F401
 from .core.newton import SecureFitDriver  # noqa: F401

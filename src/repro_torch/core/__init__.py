@@ -15,7 +15,12 @@ name):
   and ``secure_fit`` (loop, fused, scan rounds);
 * ``scanfit`` — blocks of rounds with one trace read-back;
 * ``protocol`` — the deployment shape: ``Institution``,
-  ``ComputationCenter``, ``StudyCoordinator``.
+  ``ComputationCenter``, ``StudyCoordinator``;
+* ``multistudy`` — M independent studies advanced by one collective
+  round.
+
+``shamir``'s kernel backend shares leaf-wise through K4 and reconstructs
+through K2's residues mode.
 """
 from .batched_summaries import (
     CVSummaries,
@@ -41,6 +46,11 @@ from .flatbuf import (
     unpack_pytree_batched,
 )
 from .logreg import LocalSummaries, deviance, local_summaries, predict_proba
+from .multistudy import (
+    fused_multistudy_iteration,
+    run_multistudy_rounds,
+    stack_studies,
+)
 from .newton import (
     FitResult,
     RoundReport,
@@ -68,4 +78,5 @@ __all__ = [
     "newton_step", "prox_newton_step", "secure_fit",
     "Institution", "ComputationCenter", "StudyCoordinator",
     "scan_rounds", "fit_scan_block",
+    "stack_studies", "fused_multistudy_iteration", "run_multistudy_rounds",
 ]

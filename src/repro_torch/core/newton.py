@@ -47,6 +47,7 @@ from .flatbuf import tree_flatten, tree_unflatten
 from .logreg import LocalSummaries, local_summaries
 
 __all__ = ["FitResult", "RoundReport", "newton_step", "prox_newton_step",
+           "batched_prox_newton_step",
            "centralized_fit", "secure_fit", "SecureFitDriver",
            "regularized_objective", "stop_threshold", "should_stop",
            "stop_threshold_host", "should_stop_host"]
@@ -114,8 +115,9 @@ class FitResult:
 class RoundReport:
     """One secure round's audit record.
 
-    The trailing fault-supervision fields keep the JAX package's
-    fault-free defaults until the supervisor is ported (slice B).
+    The trailing fault-supervision fields keep their fault-free defaults
+    unless a ``runtime.RoundSupervisor`` stamps the round's retries,
+    simulated backoff, aborted attempts and degradation into them.
     """
 
     iteration: int
@@ -169,6 +171,31 @@ def prox_newton_step(beta: torch.Tensor, hessian: torch.Tensor,
                                      device=beta.device)
     for _ in range(inner_steps):
         grad = -gradient + hessian @ (z - beta) + lam * z
+        b_new = _soft_threshold(z - grad / L, l1 / L)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        z = b_new + ((t - 1.0) / t_new) * (b_new - b)
+        b, t = b_new, t_new
+    return b
+
+
+def batched_prox_newton_step(betas, H, g, lams, l1: float,
+                             inner_steps: int = 200):
+    """The Newton (``l1 == 0``) or proximal Newton step of every slot at
+    once, each with its own λ: ``newton_step`` and ``prox_newton_step``
+    batched over the leading (C,) axis — the λ-path's configurations, the
+    multi-study round's studies."""
+    H = H.to(torch.float64)
+    g = g.to(torch.float64)
+    eye = torch.eye(betas.shape[1], dtype=H.dtype, device=H.device)
+    A = H + lams[:, None, None] * eye
+    if l1 == 0.0:
+        return betas + torch.linalg.solve(A, g - lams[:, None] * betas)
+    L = (torch.linalg.matrix_norm(A, ord=2) + 1e-12)[:, None]  # (C, 1)
+    b, z = betas, betas
+    t = torch.ones((), dtype=betas.dtype, device=betas.device)
+    for _ in range(inner_steps):
+        grad = (-g + torch.einsum("cij,cj->ci", H, z - betas)
+                + lams[:, None] * z)
         b_new = _soft_threshold(z - grad / L, l1 / L)
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         z = b_new + ((t - 1.0) / t_new) * (b_new - b)
@@ -260,8 +287,8 @@ class SecureFitDriver:
       ``RuntimeError`` and leaves the fit state untouched.
     * ``state_dict()``/``load_state_dict()`` — resume after a crash; the
       generator state takes the place of the JAX key.
-    * liveness hooks — ``set_online``/``set_latency`` per institution
-      name, ``set_center_online`` per evaluation point, and
+    * liveness hooks — ``set_online``/``set_latency``/``get_latency``
+      per institution name, ``set_center_online`` per evaluation point, and
       ``_midround_hooks`` (one-shot callables fired between protect and
       reveal): >= t surviving centers reveal bit-identically, fewer abort
       the round.
@@ -368,6 +395,9 @@ class SecureFitDriver:
 
     def set_latency(self, name: str, latency: float):
         self.latency[self._idx(name)] = float(latency)
+
+    def get_latency(self, name: str) -> float:
+        return self.latency[self._idx(name)]
 
     def set_center_online(self, index: int, up: bool):
         if not (1 <= index <= len(self.centers_online)):

@@ -14,12 +14,13 @@ Backends
 --------
 ``backend="reference"`` (default) runs the int64 ``%`` arithmetic in
 plain PyTorch — the correctness oracle.  ``backend="kernel"`` is the
-port's name for the JAX package's ``"pallas"``: it marks an aggregator
-whose flat wire runs through the CUDA kernels (``SecureCollective``
-selects the fused encode+share and reveal kernels through it).  The
-scheme's own leaf-wise ``share``/``reconstruct`` on that backend need the
-leaf-wise share kernel (K4 in ``ROADMAP.md``), which is not ported yet,
-and raise ``NotImplementedError``; the fused path never calls them.
+port's name for the JAX package's ``"pallas"``: the leaf-wise share runs
+through K4 (``kernels/shamir_poly.py::share_kernel``, every residue in
+one launch) and reconstruction through K2's residues mode, one launch per
+residue (``ops.shamir_reconstruct``).  It also marks an aggregator whose
+flat wire runs through the fused encode+share and reveal kernels
+(``SecureCollective``).  Given the same coefficients the two backends
+give bit-identical shares and reconstructions.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from typing import Sequence
 
 import torch
 
+from ..kernels import ops
+from ..kernels.shamir_poly import share_kernel
 from ..kernels.shamir_reconstruct import lagrange_weights_host
 from .field import FIELD_WIDE, FieldSpec, fadd, fmul, random_elements
 from .flatbuf import tree_flatten, tree_unflatten
@@ -46,15 +49,6 @@ def lagrange_coeffs_at_zero(points: Sequence[int], field: FieldSpec,
     """
     return torch.tensor(lagrange_weights_host(tuple(points), field.moduli),
                         dtype=torch.int64, device=device)
-
-
-def _k4_missing(what: str):
-    return NotImplementedError(
-        f"ShamirScheme(backend='kernel').{what} needs the leaf-wise share "
-        "kernel K4 (shamir_poly_pallas), which is not ported yet (see "
-        "ROADMAP.md); use backend='reference' or the flat wire of "
-        "SecureCollective(backend='kernel')"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +74,9 @@ class ShamirScheme:
         """Split field elements (R, ...) into shares (w, R, ...).
 
         Coefficients are fresh uniform field elements per tensor element
-        (information-theoretic hiding below threshold t).
+        (information-theoretic hiding below threshold t); evaluation is
+        delegated to ``share_with_coeffs``.
         """
-        if self.backend == "kernel":
-            raise _k4_missing("share")
         coeffs = random_elements(
             generator, (self.threshold - 1,) + tuple(secret.shape[1:]),
             self.field, device=secret.device,
@@ -92,16 +85,23 @@ class ShamirScheme:
 
     def share_with_coeffs(self, secret: torch.Tensor,
                           coeffs: torch.Tensor) -> torch.Tensor:
-        """Deterministic share evaluation given coefficients (R, t-1, ...)."""
+        """Deterministic share evaluation given coefficients (R, t-1, ...).
+
+        Both backends give bit-identical output for the same inputs.
+        """
         t, w, field = self.threshold, self.num_shares, self.field
         if tuple(coeffs.shape[:2]) != (field.num_residues, t - 1):
             raise ValueError(
                 f"coeffs must be (R, t-1, ...), got {tuple(coeffs.shape)}"
             )
-        if self.backend == "kernel":
-            raise _k4_missing("share_with_coeffs")
         if t == 1:  # q(x) = m: every share is the secret itself
             return secret.expand((w,) + tuple(secret.shape)).clone()
+        if self.backend == "kernel":
+            num_r = field.num_residues
+            out = share_kernel(secret.reshape(num_r, -1),
+                               coeffs.reshape(num_r, t - 1, -1),
+                               field.moduli, w)  # (w, R, n): one launch
+            return out.reshape((w,) + tuple(secret.shape))
         coeffs = coeffs.transpose(0, 1)  # (t-1, R, ...)
 
         def eval_at(x: int) -> torch.Tensor:
@@ -132,7 +132,12 @@ class ShamirScheme:
                 "(information-theoretically irrecoverable below threshold)"
             )
         if self.backend == "kernel":
-            raise _k4_missing("reconstruct")
+            return torch.stack([
+                ops.shamir_reconstruct(shares[:, r].reshape(k, -1),
+                                       tuple(points), p)
+                .reshape(shares.shape[2:])
+                for r, p in enumerate(self.field.moduli)
+            ])  # (R, ...): one K2 launch per residue
         lam = lagrange_coeffs_at_zero(points, self.field, shares.device)
         acc = torch.zeros_like(shares[0])
         for i in range(k):

@@ -22,8 +22,8 @@ __all__ = ["SOURCES", "library", "build", "build_log", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("shamir_poly.cu", "shamir_reconstruct.cu", "fused_irls.cu",
-           "fused_irls_cv.cu")
+SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
+           "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,8 @@ _SIGNATURES = {
     # lim, scale, stream
     "repro_k1_encode_share": (_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _vp, _i,
                               _d, _d, _vp),
+    # secret, coeffs, out, n, R, t-1, moduli*, w, stream
+    "repro_k4_share": (_vp, _vp, _vp, _ll, _i, _i, _vp, _i, _vp),
     # shares, out, n, k, R, lams*, moduli*, decode, scale, stream
     "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _i, _d, _vp),
     # beta, X, Xm, y, counts, H, g, dev, Hp, gp, devp, S, n_max, d, C, TN,
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "repro_k5_fused_irls_cv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
                                _vp),
+    # X, w, H, Hp, n, d, C, TN, stream
+    "repro_k6_gram_hessian": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _vp),
 }
 
 _lib: ctypes.CDLL | None = None

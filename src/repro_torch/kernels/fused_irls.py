@@ -1,4 +1,4 @@
-"""K3 and K5: the IRLS summaries of every institution in one pass.
+"""K3, K5 and K6: the IRLS summaries and the weighted Gram.
 
 * K3 (:func:`fused_irls_kernel`) — (H_j, g_j, dev_j) per institution, the
   port of the JAX package's ``kernels/fused_irls.py::fused_irls_pallas``
@@ -6,7 +6,10 @@
 * K5 (:func:`fused_irls_cv_kernel`) — the cross-validated variant over a
   (configuration, institution) grid, train-fold H/g/dev plus held-out
   deviance, correct predictions and row count, the port of
-  ``fused_irls_cv_pallas`` (CUDA in ``csrc/fused_irls_cv.cu``).
+  ``fused_irls_cv_pallas`` (CUDA in ``csrc/fused_irls_cv.cu``);
+* K6 (:func:`gram_hessian_kernel`) — X^T diag(w) X for caller-given row
+  weights, the port of ``gram_hessian_pallas`` (CUDA in
+  ``csrc/gram_hessian.cu``).
 
 Each has its plain PyTorch version beside it (``*_plain``) — the CPU path
 and the kernel's oracle.  All keep the JAX ``fused_irls_sim`` precision
@@ -28,10 +31,10 @@ import math
 import torch
 
 from . import _build
-from .ref import masked_cv_terms, masked_irls_terms
+from .ref import gram_hessian, masked_cv_terms, masked_irls_terms
 
 __all__ = ["fused_irls_kernel", "fused_irls_plain", "fused_irls_cv_kernel",
-           "fused_irls_cv_plain"]
+           "fused_irls_cv_plain", "gram_hessian_kernel", "gram_hessian_plain"]
 
 _SMEM_BUDGET = 200 * 1024  # bytes of dynamic shared memory per block
 _MAX_TILE_ROWS = 32
@@ -206,3 +209,67 @@ def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
 
 
 fused_irls_cv_kernel.launches = 0
+
+
+# -- K6: the weighted Gram for caller-given weights --------------------------
+
+_K6_SMEM_BUDGET = 100 * 1024  # two blocks per SM fit in shared memory
+_K6_MAX_TILE_ROWS = 64
+
+
+def _check_gram_args(X, w):
+    if X.dim() != 2 or w.dim() != 1 or w.shape[0] != X.shape[0]:
+        raise ValueError(f"X must be (N, d) and w (N,), got "
+                         f"{tuple(X.shape)} and {tuple(w.shape)}")
+    if not X.dtype.is_floating_point or not w.dtype.is_floating_point:
+        raise TypeError(f"X and w must be floating point, got {X.dtype} "
+                        f"and {w.dtype}")
+    if X.device != w.device:
+        raise ValueError("X and w must be on one device")
+
+
+def gram_hessian_plain(X, w):
+    """Plain PyTorch K6: (d, d) float32 X^T diag(w) X, from X and w cast
+    to float32 once, the products (x_i w) x_j summed in float32."""
+    _check_gram_args(X, w)
+    return gram_hessian(X, w)
+
+
+def gram_launch_shape(n: int, d: int, device) -> tuple[int, int]:
+    """(C row slices, TN rows per staged tile) for K6: about two blocks
+    per SM over the (C, H tiles) grid, and no slice shorter than a tile."""
+    dpad = -(-d // 128) * 128
+    tn = min(_K6_MAX_TILE_ROWS, _K6_SMEM_BUDGET // ((dpad + 1) * 4))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    c = max(1, min(math.ceil(2 * sms / (dpad // 128) ** 2),
+                   math.ceil(n / tn)))
+    return c, tn
+
+
+def gram_hessian_kernel(X, w):
+    """K6 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  X (N, d) and w (N,) of any float
+    dtype are cast to float32 once; returns H (d, d) float32."""
+    if X.device.type == "cpu":
+        return gram_hessian_plain(X, w)
+    if X.device.type != "cuda":
+        raise ValueError(f"no K6 for device {X.device}")
+    _check_gram_args(X, w)
+    n, d = X.shape
+    if d > _MAX_DIM:
+        raise ValueError(f"K6 supports d <= {_MAX_DIM}, got {d}")
+    Xm = X.to(torch.float32).contiguous()
+    w32 = w.to(torch.float32).contiguous()
+    c, tn = gram_launch_shape(n, d, X.device)
+    H = torch.empty((d, d), dtype=torch.float32, device=X.device)
+    Hp = torch.empty((c, d, d), dtype=torch.float32, device=X.device)
+    err = _build.library().repro_k6_gram_hessian(
+        Xm.data_ptr(), w32.data_ptr(), H.data_ptr(), Hp.data_ptr(), n, d, c,
+        tn, torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    _build.check(err, "K6 gram_hessian")
+    gram_hessian_kernel.launches += 1
+    return H
+
+
+gram_hessian_kernel.launches = 0

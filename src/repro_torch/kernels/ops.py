@@ -10,12 +10,28 @@ from __future__ import annotations
 
 import torch
 
-from .fused_irls import fused_irls_cv_kernel, fused_irls_kernel
-from .shamir_poly import encode_share_kernel
+from .fused_irls import (
+    fused_irls_cv_kernel,
+    fused_irls_kernel,
+    gram_hessian_kernel,
+)
+from .shamir_poly import encode_share_kernel, share_kernel
 from .shamir_reconstruct import reconstruct_kernel
 
-__all__ = ["fused_irls", "fused_irls_cv", "shamir_protect_flat",
-           "shamir_reveal_flat"]
+__all__ = ["fused_irls", "fused_irls_cv", "gram_hessian",
+           "shamir_protect_flat", "shamir_reconstruct",
+           "shamir_reveal_flat", "shamir_shares"]
+
+
+def gram_hessian(X, w):
+    """X^T diag(w) X for caller-given row weights: (d, d) float32 (K6).
+
+    X (N, d) and w (N,) of any float dtype are cast to float32; the sum is
+    accumulated in float32.  The secure fit derives w from beta inside K3
+    instead; this op serves models that reweight rows themselves (offset
+    or exposure models).
+    """
+    return gram_hessian_kernel(X, w)
 
 
 def fused_irls(beta, X, y, counts=None, mxu_operand=None):
@@ -83,3 +99,35 @@ def shamir_reveal_flat(shares, points, moduli, frac_bits: int
     if len(points) != shares.shape[0]:
         raise ValueError("points must match the share count")
     return reconstruct_kernel(shares, tuple(points), tuple(moduli), frac_bits)
+
+
+def shamir_shares(secret, coeffs, num_shares: int, modulus: int
+                  ) -> torch.Tensor:
+    """(num_shares, n) int64 shares of ``secret`` (n,) under the
+    polynomial ``coeffs`` (t-1, n), both reduced mod ``modulus`` (K4).
+
+    The per-residue form of the JAX package's ``ops.shamir_shares``;
+    ``ShamirScheme(backend="kernel")`` calls K4 once for all residues.
+    """
+    if modulus >= 2**31:
+        raise ValueError("kernel field elements must fit 31 bits")
+    return share_kernel(secret[None], coeffs[None], (modulus,),
+                        num_shares)[:, 0]
+
+
+def shamir_reconstruct(secret_shares, points, modulus: int) -> torch.Tensor:
+    """(n,) int64 secret from the (k, n) reduced shares held at the public
+    1-based ``points``: K2 in its residues mode, one residue.
+
+    Residues travel to K2 as int32 (exact: each is <= 2**31 - 2) in
+    (rows, 128) tiles, the tail padded with zeros and cut off again.
+    """
+    if modulus >= 2**31:
+        raise ValueError("kernel field elements must fit 31 bits")
+    k, n = secret_shares.shape
+    rows = max(1, -(-n // 128))
+    tiles = torch.nn.functional.pad(secret_shares.to(torch.int32),
+                                    (0, rows * 128 - n))
+    rec = reconstruct_kernel(tiles.reshape(k, 1, rows, 128), tuple(points),
+                             (modulus,), None)
+    return rec.reshape(rows * 128)[:n].to(torch.int64)

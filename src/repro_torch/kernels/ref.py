@@ -4,8 +4,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cv_masks", "fused_irls", "masked_cv_terms", "masked_irls_terms",
-           "shamir_shares"]
+__all__ = ["cv_masks", "fused_irls", "gram_hessian", "masked_cv_terms",
+           "masked_irls_terms", "shamir_shares"]
+
+
+def gram_hessian(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """X^T diag(w) X with float32 operands and float32 accumulation."""
+    Xw = X.to(torch.float32) * w.to(torch.float32)[:, None]
+    return Xw.T @ X.to(torch.float32)
 
 
 def masked_irls_terms(beta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,

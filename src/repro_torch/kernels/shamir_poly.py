@@ -1,9 +1,15 @@
-"""K1: fused fixed-point encode + Shamir share evaluation (flat wire).
+"""K1 and K4: Shamir share evaluation by Horner's rule.
 
-The port of the JAX package's ``kernels/shamir_poly.py::
-shamir_encode_share_pallas``.  The CUDA kernel lives in
-``csrc/shamir_poly.cu``; :func:`encode_share_plain` beside it is the same
-function in plain PyTorch — the CPU path and the kernel's oracle.
+* K1 (:func:`encode_share_kernel`) — fused fixed-point encode + shares of
+  the flat wire, the port of the JAX package's ``kernels/shamir_poly.py::
+  shamir_encode_share_pallas`` (CUDA in ``csrc/shamir_poly.cu``);
+* K4 (:func:`share_kernel`) — shares of already-encoded field elements
+  for the leaf-wise ``ShamirScheme(backend="kernel")``, the port of
+  ``shamir_poly_pallas`` (CUDA in ``csrc/shamir_share.cu``), every residue
+  in one launch.
+
+Each has its plain PyTorch version beside it (``*_plain``) — the CPU path
+and the kernel's oracle.
 
 The TPU kernel's ``mulmod31``, ``addmod`` and ``_fold`` split 31-bit
 products into 16-bit limbs because the TPU vector unit has no 64-bit
@@ -15,9 +21,13 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, ref
 
-__all__ = ["encode_share_kernel", "encode_share_plain"]
+__all__ = ["encode_share_kernel", "encode_share_plain", "share_kernel",
+           "share_plain"]
+
+# K4's static limits (csrc/shamir_share.cu)
+K4_MAX_R, K4_MAX_TM1, K4_MAX_POINTS = 8, 15, 16
 
 
 def _max_signed(moduli) -> int:
@@ -104,3 +114,69 @@ def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
 
 
 encode_share_kernel.launches = 0
+
+
+# -- K4: leaf-wise shares of encoded field elements ---------------------------
+
+def _check_share_args(secret, coeffs, moduli, num_shares):
+    if secret.dim() != 2 or secret.shape[0] != len(moduli):
+        raise ValueError(f"secret must be (R={len(moduli)}, n), got "
+                         f"{tuple(secret.shape)}")
+    if coeffs.dim() != 3 or coeffs.shape[0] != secret.shape[0] or \
+            coeffs.shape[2] != secret.shape[1]:
+        raise ValueError(f"coeffs must be (R, t-1, n={secret.shape[1]}), "
+                         f"got {tuple(coeffs.shape)}")
+    if secret.dtype != torch.int64 or coeffs.dtype != torch.int64:
+        raise TypeError("secret and coeffs must be int64 field elements")
+    if coeffs.device != secret.device:
+        raise ValueError("secret and coeffs must be on one device")
+    if any(not (num_shares < p < 2**31) for p in moduli):
+        raise ValueError(f"moduli must lie in (w, 2**31), got {moduli}")
+    if not (1 <= num_shares <= K4_MAX_POINTS) or \
+            coeffs.shape[1] > K4_MAX_TM1 or len(moduli) > K4_MAX_R:
+        raise ValueError(
+            f"K4 takes w <= {K4_MAX_POINTS}, t-1 <= {K4_MAX_TM1} and R <= "
+            f"{K4_MAX_R}; got w={num_shares}, t-1={coeffs.shape[1]}, "
+            f"R={len(moduli)}")
+
+
+def share_plain(secret: torch.Tensor, coeffs: torch.Tensor,
+                moduli: tuple[int, ...], num_shares: int) -> torch.Tensor:
+    """Plain PyTorch K4: (w, R, n) int64 shares.
+
+    ``secret`` (R, n) and ``coeffs`` (R, t-1, n) hold reduced int64 field
+    elements; share j is q(j) = secret + sum_k coeffs[k] j^(k+1) mod p_r,
+    by Horner's rule per residue (``ref.shamir_shares``).
+    """
+    _check_share_args(secret, coeffs, moduli, num_shares)
+    return torch.stack([ref.shamir_shares(secret[r], coeffs[r], num_shares, p)
+                        for r, p in enumerate(moduli)], dim=1)
+
+
+def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
+                 moduli: tuple[int, ...], num_shares: int) -> torch.Tensor:
+    """K4 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Returns (w, R, n) int64 shares,
+    holder axis leading, every residue from one launch."""
+    if secret.device.type == "cpu":
+        return share_plain(secret, coeffs, moduli, num_shares)
+    if secret.device.type != "cuda":
+        raise ValueError(f"no K4 for device {secret.device}")
+    _check_share_args(secret, coeffs, moduli, num_shares)
+    secret = secret.contiguous()
+    coeffs = coeffs.contiguous()
+    R, t_minus_1, n = coeffs.shape
+    out = torch.empty((num_shares, R, n), dtype=torch.int64,
+                      device=secret.device)
+    mods = (ctypes.c_longlong * R)(*moduli)
+    err = _build.library().repro_k4_share(
+        secret.data_ptr(), coeffs.data_ptr(), out.data_ptr(), n, R,
+        t_minus_1, mods, num_shares,
+        torch.cuda.current_stream(secret.device).cuda_stream,
+    )
+    _build.check(err, "K4 share")
+    share_kernel.launches += 1
+    return out
+
+
+share_kernel.launches = 0

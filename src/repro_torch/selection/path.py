@@ -43,7 +43,11 @@ from ..core.batched_summaries import (
     pack_partitions,
 )
 from ..core.collective import SecureCollective, declassify_sum
-from ..core.newton import regularized_objective, should_stop
+from ..core.newton import (
+    batched_prox_newton_step,
+    regularized_objective,
+    should_stop,
+)
 from ..core.scanfit import scan_rounds
 from ..obs import metrics as _metrics
 from ..obs.trace import traced as _traced
@@ -54,33 +58,6 @@ __all__ = ["PathSettings", "PathDriver", "secure_cv_path"]
 
 PROTECT_CHOICES = ("none", "gradient", "hessian", "both")
 _VAL_LEAVES = ("val_deviance", "val_correct", "val_count")
-
-
-def _soft_threshold(x, t):
-    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
-
-
-def _batched_update(betas, H, g, lams, l1: float, inner_steps: int = 200):
-    """The Newton (``l1 == 0``) or proximal Newton step of every
-    configuration at once, each with its own λ: ``newton_step`` and
-    ``prox_newton_step`` batched over the leading (C,) axis."""
-    H = H.to(torch.float64)
-    g = g.to(torch.float64)
-    eye = torch.eye(betas.shape[1], dtype=H.dtype, device=H.device)
-    A = H + lams[:, None, None] * eye
-    if l1 == 0.0:
-        return betas + torch.linalg.solve(A, g - lams[:, None] * betas)
-    L = (torch.linalg.matrix_norm(A, ord=2) + 1e-12)[:, None]  # (C, 1)
-    b, z = betas, betas
-    t = torch.ones((), dtype=betas.dtype, device=betas.device)
-    for _ in range(inner_steps):
-        grad = (-g + torch.einsum("cij,cj->ci", H, z - betas)
-                + lams[:, None] * z)
-        b_new = _soft_threshold(z - grad / L, l1 / L)
-        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-        z = b_new + ((t - 1.0) / t_new) * (b_new - b)
-        b, t = b_new, t_new
-    return b
 
 
 def _cv_sweep_block(carry, seed: int, packed: PackedPartitions, fold_ids,
@@ -131,7 +108,7 @@ def _cv_sweep_block(carry, seed: int, packed: PackedPartitions, fold_ids,
         active = ~converged & (iters < max_rounds)
         stop = should_stop(obj_prev, obj, tol, num_parts, scale)
         conv_new = converged | (active & stop)
-        beta_new = _batched_update(betas, H, g, lams, l1)
+        beta_new = batched_prox_newton_step(betas, H, g, lams, l1)
         exhausting = active & (iters + 1 >= max_rounds)
         freeze = conv_new | exhausting | ~active
         betas = torch.where(freeze[:, None], betas, beta_new)

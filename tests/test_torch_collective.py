@@ -111,13 +111,18 @@ def test_below_threshold_and_bad_points_rejected():
         SecureCollective().protect_batched(torch.Generator(), tree)
 
 
-def test_kernel_scheme_leafwise_needs_k4():
+def test_kernel_scheme_leafwise_matches_reference():
+    """The kernel scheme's leaf-wise share runs through K4 and its
+    reconstruction through K2's residues mode (their plain versions on the
+    CPU): the reference backend's shares, and the secret back, bit for
+    bit."""
     sch = ShamirScheme(backend="kernel")
-    secret = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K4"):
-        sch.share(torch.Generator(), secret)
-    with pytest.raises(NotImplementedError, match="K4"):
-        sch.reconstruct(torch.zeros((2, 2, 4), dtype=torch.int64))
+    secret = torch.tensor([[0, 1, 5, 2**31 - 2], [3, 0, 7, 2**31 - 20]],
+                          dtype=torch.int64)
+    shares = sch.share(torch.Generator().manual_seed(3), secret)
+    assert torch.equal(shares, ShamirScheme().share(
+        torch.Generator().manual_seed(3), secret))
+    assert torch.equal(sch.reconstruct(shares[[0, 2]], [1, 3]), secret)
 
 
 def test_overflow_check_raises_before_saturation():

@@ -11,6 +11,8 @@ float32 Gram differs from the plain version's in summation order
 (|dH| <= 2e-5 max|H|), its float64 g and dev to 1e-12 of the sums of
 absolute terms.  K5 holds the same H bound, g and the deviances to 1e-10
 relative (of the sums of absolute terms), and its held-out counts exactly.
+K4 is exact field arithmetic (bit-identical); K6's float32 Gram holds
+|dH| <= 2e-5 max|H| against the plain version (summation order).
 """
 import numpy as np
 import pytest
@@ -18,9 +20,10 @@ import torch
 
 from repro_torch.core.field import FIELD31, FIELD_WIDE
 from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
-    fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain
+    fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain, \
+    gram_hessian_kernel, gram_hessian_plain
 from repro_torch.kernels.shamir_poly import encode_share_kernel, \
-    encode_share_plain
+    encode_share_plain, share_kernel, share_plain
 from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
     reconstruct_plain
 
@@ -161,3 +164,43 @@ def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
                      + 1e-300).all())
     for k in (4, 5):
         assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("t,w", [(1, 2), (2, 3), (3, 5), (5, 9), (16, 16)])
+@pytest.mark.parametrize("n", [1, 100, 4096, 100_003])
+def test_k4_kernel_matches_plain(cuda, field, t, w, n):
+    g = torch.Generator(device=cuda).manual_seed(n + t)
+    draw = lambda shape: torch.stack([  # noqa: E731
+        torch.randint(0, p, shape, generator=g, device=cuda)
+        for p in field.moduli])
+    secret, coeffs = draw((n,)), draw((t - 1, n))
+    secret[:, 0] = 0
+    secret[:, -1] = torch.tensor(field.moduli, device=cuda) - 1
+    before = share_kernel.launches
+    got = share_kernel(secret, coeffs, field.moduli, w)
+    torch.cuda.synchronize()
+    assert share_kernel.launches == before + 1
+    assert torch.equal(got, share_plain(secret, coeffs, field.moduli, w))
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (1, 3, torch.float32),
+    (1000, 12, torch.float64),
+    (2500, 130, torch.float32),
+    (25_000, 128, torch.float32),
+    (4097, 256, torch.bfloat16),
+    (0, 8, torch.float32),
+])
+def test_k6_kernel_matches_plain(cuda, n, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    w = torch.rand((n,), generator=gen, device=cuda, dtype=torch.float64)
+    before = gram_hessian_kernel.launches
+    H = gram_hessian_kernel(X, w)
+    torch.cuda.synchronize()
+    assert gram_hessian_kernel.launches == before + 1
+    Hp = gram_hessian_plain(X, w)
+    assert H.dtype == torch.float32 and tuple(H.shape) == (d, d)
+    assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())

@@ -16,7 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 def test_import_leaves_jax_and_the_jax_package_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-        "repro_torch.convert, repro_torch.data\n"
+        "repro_torch.convert, repro_torch.data, repro_torch.runtime, "
+        "repro_torch.core.multistudy, repro_torch.selection\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -42,6 +43,8 @@ def _imported_modules(path: pathlib.Path):
     ROOT / "chip_smoke.py",
 ], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
+    """Every module of the port, the ``runtime`` copies and
+    ``core/multistudy.py`` included, and ``chip_smoke.py``."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
@@ -99,3 +102,27 @@ def test_slice_c_entry_points_raise_without_a_card(monkeypatch):
     rep = secure_cv_path([(X, y)], [1.0, 0.1], num_folds=2, aggregator=agg,
                          max_rounds=2, device="cpu")
     assert rep.fold_rounds.max() <= 2
+
+
+def test_the_walk_reaches_the_slice_b_modules():
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"runtime/__init__.py", "runtime/managers.py",
+            "runtime/supervisor.py", "core/multistudy.py"} <= walked
+
+
+def test_slice_b_entry_points_raise_without_a_card(monkeypatch):
+    """The multi-study round: ``device=None`` raises without a card,
+    ``device="cpu"`` runs."""
+    import numpy as np
+
+    from repro_torch.core import run_multistudy_rounds
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    X = np.concatenate([np.ones((30, 1)), rng.normal(size=(30, 2))], 1)
+    y = (rng.random(30) < 0.5).astype(np.float64)
+    studies = [[(X[:15], y[:15]), (X[15:], y[15:])]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_multistudy_rounds(studies, [1.0], 1)
+    betas, trace = run_multistudy_rounds(studies, [1.0], 2, device="cpu")
+    assert tuple(betas.shape) == (1, 3) and tuple(trace.shape) == (2, 1)

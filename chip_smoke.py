@@ -58,13 +58,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    1, 3, 10), 10 rounds through ``run_multistudy_rounds``, each study's
    beta within (S+1)/2^28 of its own ``SecureFitDriver`` round by round,
    and per round 4 K3 launches, one K1 and one K2;
-10. with ``--profile`` only: ``--repeats`` more timed runs of the fit, the
-   λ path and the multi-study rounds, then one of each under
-   ``torch.profiler`` (device time
+10. serving a dense GQA decoder at Qwen2.5-32B's full width
+   (``src/repro_torch/configs/qwen2_5_32b.py``: d_model 5120, 40 query / 8
+   KV heads of 128, d_ff 27,648, vocab 152,064, QKV bias, RoPE θ 1e6,
+   bf16) with its depth cut to 8 of 64 layers (5,457,982,464 parameters,
+   10.9 GB, drawn on the card from a seed): first K7 (causal flash
+   attention) against its plain version at the serving shape (B 4, S
+   2048, H 40, KVH 8, D 128, bf16), an H2O-like ragged shape (1, 1000,
+   32, 8, 120, bf16), MQA (2, 384, 4, 1, 64, f32) and an f32 many-block
+   case with score outliers (o within 2e-5 f32, 5e-3 + 1e-2 relative
+   bf16, m and l within 1e-5 relative); then 8 requests in batches of 4,
+   prompts of 2048 tokens, 32 greedy new tokens each, through
+   ``launch.serve.serve_requests`` (prefill -> KV-cache decode): 256
+   tokens, every logit finite, K7 launched once per layer of each
+   prefill (16) and never in decode; then the continuation check
+   (decode's logits after a 2048-token prefill against the last-position
+   logits of a prefill over those 2049 tokens: in bf16 within 2e-2
+   max|logits|, the port's bf16 tolerance against the JAX package, and
+   with the same weights in float32 within 1e-4 max|logits|); a
+   ``{"serve": ...}`` JSON line;
+11. with ``--profile`` only: ``--repeats`` more timed runs of the fit, the
+   λ path, the multi-study rounds and the serving run, then one of each
+   under ``torch.profiler`` (device time
    per kernel name, the union of device-busy intervals over the run's
    wall window, so the card's idle share), as ``profile`` JSON lines;
    ``--trace`` also writes the fit's Chrome trace;
-11. one JSON line with each kernel's time, bound and launches.
+12. one JSON line with each kernel's time, bound and launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -83,10 +102,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, CUDA-core
+# float32 and float64 FLOP/s, tensor-core bfloat16 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+PEAK_BF16 = 989e12
 
 S, D, N, PROTECT, FRAC_BITS = 8, 128, 200_000, "both", 28
 SEED = 0
@@ -133,6 +154,24 @@ PATH_FAULTS = {2: [("center_midround", 1), ("center_midround", 2)],
                4: [("center_crash", 2), ("center_crash", 3)]}
 # multi-study rounds: M studies at the fit's shape
 MS_SEEDS, MS_LAMS, MS_ROUNDS = (0, 1, 2, 3), (0.3, 1.0, 3.0, 10.0), 10
+# serving: Qwen2.5-32B at full width, depth cut so the weights (10.9 GB)
+# leave the card room beside the earlier phases
+SERVE_ARCH, SERVE_LAYERS, SERVE_PARAMS = "qwen2_5_32b", 8, 5_457_982_464
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 2048, 32
+# decode vs prefill continuation: bf16 within 2e-2 max|logits| (the
+# port's bf16 tolerance against the JAX package), float32 within 1e-4
+CONT_TOL, CONT_TOL_F32 = 2e-2, 1e-4
+# K7 against its plain version: (B, S, H, KVH, D, dtype, score outliers)
+# K7's o against its plain version, (abs, rel): float32 the JAX tests' own;
+# bf16 set from the measured error (1.95e-3 at most over these shapes on
+# the H100, under one bf16 unit in the last place of |o| < 2)
+K7_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-3, 1e-2)}
+K7_CASES = (
+    ("serving", 4, 2048, 40, 8, 128, "bfloat16", False),
+    ("h2o-like ragged", 1, 1000, 32, 8, 120, "bfloat16", False),
+    ("mqa", 2, 384, 4, 1, 64, "float32", False),
+    ("outliers many-block", 1, 256, 2, 2, 32, "float32", True),
+)
 
 
 def check(cond: bool, what: str) -> None:
@@ -170,12 +209,14 @@ def cuda_times(fn, reps: int) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(call)
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0):
+def bound(nbytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     """(least ms, what bounds it): the larger of the bytes' time and the
-    operations' time; float32 and float64 run on separate pipes, so the
-    operations take the longer of the two."""
+    operations' time; each type's operations run at its own peak on its
+    own pipe, so the operations take the longest of the three."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(f32_ops / PEAK_F32, f64_ops / PEAK_F64)
+    t_ops = max(f32_ops / PEAK_F32, f64_ops / PEAK_F64,
+                bf16_ops / PEAK_BF16)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -207,15 +248,27 @@ CATEGORIES = (
 )
 
 
-def _category(name: str) -> str:
-    for cat, keys in CATEGORIES:
+# the serving run's categories (first hit): cuBLAS names its bf16 matmuls
+# nvjet_*, and the float32 products of decode attention gemmSN_*/gemv*
+SERVE_CATEGORIES = (
+    ("K7 flash_attention", ("flash_attention_fwd",)),
+    ("decode attention products (float32)", ("gemmSN", "gemv")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
+                         "splitKreduce")),
+    ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+def _category(name: str, categories=CATEGORIES) -> str:
+    for cat, keys in categories:
         if any(k in name for k in keys):
             return cat
     return "small ops"
 
 
 def profile_run(run, rounds_of, label: str, repeats: int,
-                trace: str = "") -> dict:
+                trace: str = "", categories=CATEGORIES) -> dict:
     """``repeats`` timed runs, then one under ``torch.profiler``: the
     device time per kernel name and per category, and the card's idle
     share of the run.  ``rounds_of(result)`` counts the run's rounds."""
@@ -257,7 +310,7 @@ def profile_run(run, rounds_of, label: str, repeats: int,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     by_cat: dict = collections.defaultdict(float)
     for n, (_, us) in top:
-        by_cat[_category(n)] += us / rounds
+        by_cat[_category(n, categories)] += us / rounds
     if trace:
         prof.export_chrome_trace(trace)
     return {
@@ -658,6 +711,150 @@ def multistudy_phase(dev, agg, parts, counts):
             "x_bytes_on_card": x_bytes, "peak_bytes_allocated": peak}, run
 
 
+def check_k7(dev):
+    """K7 against its plain version on the card at the four shapes of
+    ``K7_CASES``; returns (the largest |o - plain o| over them, the
+    serving shape's (q, k, v) for timing)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, \
+        flash_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err, serving = 0.0, None
+    for name, B, S_, H, KVH, Dh, dt, outliers in K7_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((B, S_, n, Dh), generator=gen, device=dev)
+                   for n in (H, KVH, KVH))
+        if outliers:
+            q[:, 17] *= 30.0
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        o, m, l = flash_attention_kernel(q, k, v)
+        op, mp, lp = flash_attention_plain(q, k, v)
+        atol, rtol = K7_TOL[dt]
+        do = (o.float() - op.float()).abs()
+        check(bool((do <= atol + rtol * op.float().abs()).all()),
+              f"K7 {name} o err {float(do.max())}")
+        dm = (m - mp).abs()
+        check(bool((dm <= 1e-6 + 1e-5 * mp.abs()).all()),
+              f"K7 {name} m err {float(dm.max())}")
+        check(bool(((l - lp).abs() <= 1e-5 * lp).all()),
+              f"K7 {name} l err {float((l - lp).abs().max())}")
+        err = max(err, float(do.max()))
+        if serving is None:
+            serving = (q, k, v)
+        del op, mp, lp
+    torch.cuda.synchronize()
+    return err, serving
+
+
+def serving_phase(dev, smi, counts):
+    """Phase 10b: 8 requests at Qwen2.5-32B's full width (8 of 64 layers)
+    through ``launch.serve.serve_requests``, then the continuation check.
+    Returns (the ``serve`` line's fields, the timed run for --profile)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as T
+
+    reset, read = counts
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
+    check(T.count_params(cfg) == SERVE_PARAMS,
+          f"serving params {T.count_params(cfg)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (SERVE_REQUESTS, SERVE_PROMPT + 1),
+                            generator=gen).to(dev)
+    served = prompts[:, :SERVE_PROMPT]
+
+    def run():
+        return serve_requests(params, cfg, served, SERVE_BATCH, SERVE_NEW)
+
+    serve_requests(params, cfg, served[:SERVE_BATCH], SERVE_BATCH, 2)  # warm
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    completed, stats = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(v) for v in completed.values())
+    want = {"flash_attention_kernel": stats["batches"] * SERVE_LAYERS}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"serving launches {launches}: K7 once per "
+          f"layer of each of {stats['batches']} prefills, nothing else")
+    check(tokens == SERVE_REQUESTS * SERVE_NEW, f"tokens {tokens}")
+    check(stats["nonfinite_logits"] == 0,
+          f"{stats['nonfinite_logits']} non-finite logits")
+    # continuation: decode after a P-token prefill == prefill over P + 1
+    batch = prompts[:SERVE_BATCH]
+
+    def continuation(p, c):
+        with torch.inference_mode():
+            _, caches, n = T.prefill(p, c, batch[:, :SERVE_PROMPT],
+                                     cache_len=SERVE_PROMPT + 1)
+            dec, _, _ = T.decode_step(p, caches, n, c,
+                                      batch[:, SERVE_PROMPT])
+            del caches
+            ref, _, _ = T.prefill(p, c, batch)
+        return dec.float(), ref.float()
+
+    dec, ref = continuation(params, cfg)
+    # the same weights in float32: the path itself, without bf16 rounding
+    cfg32 = dataclasses.replace(cfg, dtype_str="float32")
+    p32 = {k: (v.float() if torch.is_tensor(v) else
+               [{n: t.float() for n, t in seg.items()} for seg in v])
+           for k, v in params.items()}
+    dec32, ref32 = continuation(p32, cfg32)
+    del p32
+    torch.cuda.empty_cache()
+    cont_err = float((dec - ref).abs().max())
+    cont32_err = float((dec32 - ref32).abs().max())
+    bf16_noise = float((ref - ref32).abs().max())
+    scale = float(ref.abs().max())
+    check(cont32_err <= CONT_TOL_F32 * float(ref32.abs().max()),
+          f"float32 continuation: max|decode - prefill| {cont32_err}")
+    check(cont_err <= CONT_TOL * scale,
+          f"continuation: max|decode - prefill| {cont_err} (max|logit| "
+          f"{scale}, bf16 vs float32 prefill {bf16_noise})")
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    prefill_tokens = stats["batches"] * SERVE_BATCH * SERVE_PROMPT
+    out = {
+        "arch": full.name, "num_layers": SERVE_LAYERS,
+        "reduced": {"num_layers": f"{SERVE_LAYERS} of {full.num_layers}"},
+        "params": SERVE_PARAMS, "params_full_depth": T.count_params(full),
+        "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+        "tokens_generated": tokens, "seconds": secs,
+        "tokens_per_second": tokens / secs,
+        "prefill_seconds": stats["prefill_seconds"],
+        "prefill_tokens_per_second": prefill_tokens
+        / stats["prefill_seconds"],
+        "decode_steps": stats["decode_steps"],
+        "decode_ms_per_step": stats["decode_seconds"]
+        / stats["decode_steps"] * 1e3,
+        "launches": launches,
+        "continuation_max_abs_err": cont_err,
+        "continuation_max_abs_logit": scale,
+        "continuation_f32_max_abs_err": cont32_err,
+        "bf16_vs_f32_prefill_max_abs_err": bf16_noise,
+        "continuation_argmax_agreement": agree,
+        "init_params_seconds": init_s,
+        "peak_bytes_allocated": peak,
+        "sample_output": completed[0][:8],
+        "card": smi,
+    }
+    return out, run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -692,6 +889,8 @@ def main() -> int:
         encode_share_plain, share_kernel, share_plain
     from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
         reconstruct_plain
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, \
+        flash_attention_plain
 
     # full float32 products everywhere: the plain versions and the
     # library yardstick must not drop to TF32
@@ -850,7 +1049,8 @@ def main() -> int:
     gold = centralized_fit(X_all, y_all, device=dev)
     torch.cuda.synchronize()
     counters = (encode_share_kernel, reconstruct_kernel, fused_irls_kernel,
-                fused_irls_cv_kernel, share_kernel, gram_hessian_kernel)
+                fused_irls_cv_kernel, share_kernel, gram_hessian_kernel,
+                flash_attention_kernel)
 
     def reset_counts():
         for k in counters:
@@ -1042,7 +1242,14 @@ def main() -> int:
     ms_out, ms_run = multistudy_phase(dev, agg, parts, counts)
     print(json.dumps({"multistudy": ms_out, "card": smi}))
 
-    # -- 10. where the time goes (--profile) --------------------------------
+    # -- 10. serving at Qwen2.5-32B's full width (K7 on every prefill) -----
+    k7_err, k7_args = check_k7(dev)
+    print(f"K7 vs plain: {[c[0] for c in K7_CASES]} within tolerance, "
+          f"max|do| {k7_err:.3e}")
+    serve_out, serve_run = serving_phase(dev, smi, counts)
+    print(json.dumps({"serve": serve_out}))
+
+    # -- 11. where the time goes (--profile) --------------------------------
     if args.profile:
         print(json.dumps({"profile": profile_run(
             lambda: secure_fit(parts, **fit_kw), lambda r: r.iterations,
@@ -1053,8 +1260,12 @@ def main() -> int:
         print(json.dumps({"profile": profile_run(
             ms_run, lambda r: MS_ROUNDS, "multistudy", args.repeats),
             "card": smi}))
+        # a round is one batch: its prefill and its decode steps
+        print(json.dumps({"profile": profile_run(
+            serve_run, lambda r: r[1]["batches"], "serve", args.repeats,
+            categories=SERVE_CATEGORIES), "card": smi}))
 
-    # -- 11. times and bounds ------------------------------------------------
+    # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
     k2_in = aggd[[0, 1]].contiguous()
@@ -1073,6 +1284,11 @@ def main() -> int:
     k4_r, k4_tm1, k4_n = k4_coeffs.shape
     X6, w6 = k6_args
     n6 = X6.shape[0]
+    q7, k7, v7 = k7_args
+    b7, s7, h7, d7 = q7.shape
+    kvh7 = k7.shape[2]
+    # SDPA on the same bf16 tensors, heads first (copied outside the timing)
+    q7t, k7t, v7t = (t.transpose(1, 2).contiguous() for t in k7_args)
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
              path="secure_fit",
@@ -1148,11 +1364,27 @@ def main() -> int:
              # float32 X and w read once, H written; the symmetric Gram
              bound=bound(n6 * (D + 1) * 4 + D * D * 4,
                          f32_ops=n6 * D * (D + 1))),
+        dict(name="K7 flash_attention", fn=flash_attention_kernel,
+             path="serve",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:116",
+             run=lambda: flash_attention_kernel(q7, k7, v7),
+             plain=lambda: flash_attention_plain(q7, k7, v7),
+             library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q7t, k7t, v7t, is_causal=True, enable_gqa=True),
+             err=k7_err,
+             # q, k, v read once, o written (bf16), m and l (float32); the
+             # causal half: each allowed (query, key) pair costs 2 D for
+             # q.k and 2 D for p v, bf16 products at the tensor-core peak
+             bound=bound((2 * b7 * s7 * h7 * d7 + 2 * b7 * s7 * kvh7 * d7)
+                         * q7.element_size() + 2 * b7 * h7 * s7 * 4,
+                         bf16_ops=b7 * h7 * s7 * (s7 + 1) // 2 * 4 * d7)),
     ]
     by_path = {"secure_fit": launches, "lambda_path": path_launches,
                "leafwise": leaf_launches, "gram": gram_launches,
                "supervised_fit": sfit_launches,
-               "multistudy": ms_out["launches"]}
+               "multistudy": ms_out["launches"],
+               "serve": serve_out["launches"]}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -1166,7 +1398,7 @@ def main() -> int:
             "replaces": e["replaces"],
             # each kernel's count on the path it was ported for: K1-K3
             # the secure_fit run, K5 the lambda path, K4 the leaf-wise
-            # shares, K6 the weighted Grams
+            # shares, K6 the weighted Grams, K7 the serving run
             "launches": by_path[e["path"]][e["fn"].__name__],
             "launches_by_path": {k: v[e["fn"].__name__]
                                  for k, v in by_path.items()},
@@ -1186,6 +1418,10 @@ def main() -> int:
         "coordinator_path_seconds": coord_s,
         "multistudy_seconds_per_round": ms_out["seconds_per_round"],
         "supervisor_overhead_pct": sup_out["overhead_pct"],
+        "serve_tokens_per_second": serve_out["tokens_per_second"],
+        "serve_prefill_tokens_per_second":
+            serve_out["prefill_tokens_per_second"],
+        "serve_decode_ms_per_step": serve_out["decode_ms_per_step"],
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

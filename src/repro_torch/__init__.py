@@ -16,7 +16,10 @@ passes ``device="cpu"``:
 * ``RoundSupervisor`` (``runtime/``) — any of those drivers under a
   schedule of institution and center faults;
 * ``run_multistudy_rounds`` (``core/multistudy.py``) — M studies advanced
-  by one collective round.
+  by one collective round;
+* ``launch.serve`` over ``models.transformer`` (``prefill``,
+  ``decode_step``) — the LM side's batched serving, its prefill attention
+  on the flash-attention kernel.
 """
 from .core import SecureCollective, centralized_fit, secure_fit  # noqa: F401
 from .core.newton import SecureFitDriver  # noqa: F401

@@ -1,0 +1,10 @@
+"""Qwen2.5-32B: dense, GQA kv=8, QKV bias.  [hf:Qwen/Qwen2.5-*; hf]"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b", family="dense",
+    num_layers=64, d_model=5120, num_heads=40, num_kv_heads=8,
+    d_ff=27648, vocab_size=152064, head_dim=128,
+    attention="full", qkv_bias=True, rope_theta=1_000_000.0,
+    paper_ref="hf:Qwen/Qwen2.5-0.5B",
+)

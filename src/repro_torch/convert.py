@@ -1,4 +1,5 @@
-"""Carry a study and a fit's state from the JAX package into the port.
+"""Carry a study, a fit's state and LM parameters from the JAX package
+into the port.
 
 Every function takes plain numpy values, so nothing here imports JAX.
 A JAX state's ``key`` has no torch counterpart and is dropped: the port's
@@ -18,7 +19,7 @@ from ._device import resolve_device
 
 __all__ = ["state_from_jax", "coordinator_state_from_jax",
            "selection_state_from_jax", "fold_parts_from_jax",
-           "parts_from_numpy"]
+           "lm_params_from_jax", "parts_from_numpy"]
 
 # the JAX SecureFitDriver.state_dict() keys the port carries over
 _CARRIED = ("beta", "iteration", "obj_prev", "trace", "converged", "bytes",
@@ -74,3 +75,28 @@ def parts_from_numpy(parts, device=None):
          torch.as_tensor(np.asarray(y), dtype=torch.float64, device=dev))
         for X, y in parts
     ]
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy the tensor may own
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: torch refuses it
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def lm_params_from_jax(params, device=None):
+    """Turn a JAX LM parameter tree (``transformer.init_params``, its
+    leaves as numpy arrays) into the port's: the same dicts and lists,
+    each leaf a tensor of the same shape, dtype and bits on ``device``
+    (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor_from_numpy(np.asarray(node), dev)
+
+    return walk(params)

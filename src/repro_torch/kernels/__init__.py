@@ -11,7 +11,9 @@ PyTorch version side by side, and a public wrapper in ``ops.py``.
 * K4 ``shamir_poly``        — leaf-wise shares of encoded field elements;
 * K5 ``fused_irls_cv``      — the same over (configuration, institution)
   pairs with cross-validation fold masks;
-* K6 ``fused_irls``         — the weighted Gram X^T diag(w) X.
+* K6 ``fused_irls``         — the weighted Gram X^T diag(w) X;
+* K7 ``flash_attention``    — causal GQA flash-attention forward (the LM
+  side's prefill attention).
 
 Nothing here builds or imports CUDA code at import time: the library is
 compiled at the first launch (``_build.library``).

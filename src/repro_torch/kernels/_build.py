@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "library", "build", "build_log", "check"]
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
-           "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu")
+           "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +53,9 @@ _SIGNATURES = {
                                _vp),
     # X, w, H, Hp, n, d, C, TN, stream
     "repro_k6_gram_hessian": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _vp),
+    # q, k, v, o, m, l, B, S, H, KVH, D, is_bf16, scale, stream
+    "repro_k7_flash_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                                 _i, _i, _i, _d, _vp),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,94 @@
+"""K7: causal GQA flash-attention forward.
+
+The port of the JAX package's ``kernels/flash_attention.py::
+flash_attention_pallas``: the CUDA kernel in ``csrc/flash_attention.cu``
+returns (o, m, l) — the output and the running softmax max and
+denominator each query row ended with — without ever writing the S x S
+scores to device memory.  :func:`flash_attention_plain` is the same
+function in plain PyTorch (materialized scores): the CPU path and the
+kernel's oracle.
+
+Layouts differ from the TPU kernel's and say so: q (B, S, H, D), k/v
+(B, S, KVH, D) are read as they lie, with no transpose to (B*H, S, D) and
+no padding of S or D; o comes back as (B, S, H, D) in q's dtype and m, l
+as (B, H, S) float32, which is the TPU kernel's (B*H, S) reshaped.  The
+scale is D**-0.5 with the true D, so m equals the JAX package's m (whose
+wrapper pads D to 128 and rescales q to the same effect).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import causal_scores
+
+__all__ = ["flash_attention_kernel", "flash_attention_plain"]
+
+_MAX_HEAD_DIM = 128
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_args(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, S, H, D) and k, v (B, S, KVH, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, D = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) \
+            or H % k.shape[2] != 0:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+                         " (same B, S, D; H a multiple of KVH)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {_DTYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+
+
+def flash_attention_plain(q, k, v):
+    """Plain PyTorch K7: (o (B, S, H, D) in q's dtype, m, l (B, H, S)
+    float32), from the materialized float32 scores."""
+    _check_args(q, k, v)
+    B, S, H, D = q.shape
+    s = causal_scores(q, k)  # (B, KVH, G, S, S)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    o = o / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return (o.reshape(B, S, H, D).to(q.dtype), m.reshape(B, H, S),
+            l.reshape(B, H, S))
+
+
+def flash_attention_kernel(q, k, v):
+    """K7 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  q (B, S, H, D), k/v (B, S, KVH, D),
+    contiguous, float32 or bfloat16, D <= 128.  Returns (o, m, l)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no K7 for device {q.device}")
+    _check_args(q, k, v)
+    B, S, H, D = q.shape
+    if D > _MAX_HEAD_DIM:
+        raise ValueError(f"K7 supports head_dim <= {_MAX_HEAD_DIM}, got {D}")
+    if S == 0 or B == 0:
+        raise ValueError("K7 needs a non-empty batch and sequence")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("K7 reads q, k, v by their (B, S, heads, D) "
+                         "strides: pass contiguous tensors")
+    o = torch.empty_like(q)
+    m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = _build.library().repro_k7_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, S, H, k.shape[2], D,
+        int(q.dtype == torch.bfloat16), D**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "K7 flash_attention")
+    flash_attention_kernel.launches += 1
+    return o, m, l
+
+
+flash_attention_kernel.launches = 0

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention_kernel
 from .fused_irls import (
     fused_irls_cv_kernel,
     fused_irls_kernel,
@@ -18,9 +19,22 @@ from .fused_irls import (
 from .shamir_poly import encode_share_kernel, share_kernel
 from .shamir_reconstruct import reconstruct_kernel
 
-__all__ = ["fused_irls", "fused_irls_cv", "gram_hessian",
+__all__ = ["flash_attention", "fused_irls", "fused_irls_cv", "gram_hessian",
            "shamir_protect_flat", "shamir_reconstruct",
            "shamir_reveal_flat", "shamir_shares"]
+
+
+def flash_attention(q, k, v):
+    """Causal GQA flash attention (K7).  q: (B, S, H, D); k/v: (B, S, KVH,
+    D), float32 or bfloat16, D <= 128.  Returns o (B, S, H, D) in q's
+    dtype.
+
+    Same semantics as ``ref.flash_attention``.  The kernel reads the
+    (B, S, heads, D) layout by stride and masks S itself, so nothing is
+    padded or transposed; query head h reads KV head h // (H // KVH).
+    """
+    return flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                  v.contiguous())[0]
 
 
 def gram_hessian(X, w):

@@ -4,8 +4,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cv_masks", "fused_irls", "gram_hessian", "masked_cv_terms",
-           "masked_irls_terms", "shamir_shares"]
+__all__ = ["causal_scores", "cv_masks", "flash_attention", "fused_irls",
+           "gram_hessian", "masked_cv_terms", "masked_irls_terms",
+           "shamir_shares"]
+
+NEG_INF = -1e30
 
 
 def gram_hessian(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -97,3 +100,28 @@ def shamir_shares(secret: torch.Tensor, coeffs: torch.Tensor,
             acc = (acc * x + coeffs[k]) % modulus
         out.append((acc * x + secret) % modulus)
     return torch.stack(out)
+
+
+def causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, KVH, G, S, S) float32 scores of causal GQA attention: q (B, S,
+    H, D) scaled by D**-0.5, k (B, S, KVH, D), query head h = kvh * G + g
+    reading KV head kvh; entries above the diagonal are -1e30."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    qf = q.to(torch.float32).reshape(B, S, KVH, H // KVH, D) * D**-0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(torch.float32))
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    return torch.where(mask, s, NEG_INF)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention oracle: q (B, S, H, D); k/v (B, S, KVH, D).
+
+    Plain materialized-scores softmax in float32 — the ground truth for
+    the flash kernel (which never materializes the S x S scores).
+    """
+    B, S, H, D = q.shape
+    p = torch.softmax(causal_scores(q, k), dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, S, H, D).to(q.dtype)

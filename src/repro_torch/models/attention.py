@@ -1,0 +1,126 @@
+"""Attention for prefill and decode: causal GQA/MQA, full or windowed.
+
+The JAX package's ``models/attention.py``.  Full-causal prefill attention
+(every query position sees every earlier key) runs K7
+(``kernels.ops.flash_attention``): on the card the CUDA kernel, on CPU
+tensors its plain version.  Windowed attention over a prompt longer than
+the window keeps the JAX package's banded online-softmax scan, a Python
+loop over query blocks whose key span is constant (window + one block),
+in plain PyTorch.  Decode attends one token over the cache, in plain
+PyTorch, as the JAX package does.  The JAX function's ``q_offset``
+(chunked prefill) and ``q_block`` options and MLA's Dv != Dk come with
+the first ported caller that needs them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import ops
+
+__all__ = ["attend", "decode_attend"]
+
+NEG_INF = -1e30
+Q_BLOCK = 1024  # the banded branch's query block, the JAX default
+
+
+def _pick_block(T: int) -> int:
+    for cand in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if T % cand == 0:
+            return min(T, cand)
+    return T
+
+
+def _online_block_scan(q, k_span, v_span, q_pos, kv_pos, window, scale):
+    """Online softmax over KV blocks of a span.
+
+    q: (B, Q, KVH, G, Dk); k_span, v_span: (B, T, KVH, Dk); q_pos: (Q,)
+    absolute positions; kv_pos: (T,) absolute positions.  Causal + window
+    mask.  Returns (B, Q, KVH, G, Dk) float32.
+    """
+    B, Q, KVH, G, Dk = q.shape
+    T = k_span.shape[1]
+    bk = _pick_block(T)
+    qf = q.to(torch.float32) * scale
+    m = torch.full((B, KVH, G, Q), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KVH, G, Q, Dk), dtype=torch.float32,
+                      device=q.device)
+    for j in range(T // bk):
+        ks = k_span[:, j * bk:(j + 1) * bk].to(torch.float32)
+        vs = v_span[:, j * bk:(j + 1) * bk].to(torch.float32)
+        ps = kv_pos[j * bk:(j + 1) * bk]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qf, ks)
+        allow = ((ps[None, :] <= q_pos[:, None])
+                 & (ps[None, :] > (q_pos[:, None] - window)))
+        s = torch.where(allow, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p,
+                                                   vs)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)  # (B, Q, KVH, G, Dk)
+
+
+def attend(q, k, v, *, window: int = 0):
+    """Causal (optionally windowed) attention for prefill and the
+    all-position forward.
+
+    q: (B, S, H, D); k, v: (B, S, KVH, D); H a multiple of KVH (GQA).
+    Returns (B, S, H, D) in q's dtype.
+    """
+    B, Sq, H, Dk = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    if v.shape[-1] != Dk:
+        raise NotImplementedError(
+            "Dv != Dk (MLA) comes with the MLA family, after the training "
+            "slice (ROADMAP slice F)")
+    if Sq != Skv:
+        raise ValueError(f"q has {Sq} positions, k and v {Skv}")
+
+    if not window or window >= Skv:
+        return ops.flash_attention(q, k, v)  # K7
+
+    # banded: constant KV span per q block = window rounded up + one block
+    G = H // KVH
+    dev = q.device
+    bq = min(Q_BLOCK, Sq)
+    if Sq % bq:
+        raise ValueError(f"pad S ({Sq}) to a multiple of {bq}")
+    span = min(Skv, ((window + bq + bq - 1) // bq) * bq)
+    qr = q.reshape(B, Sq, KVH, G, Dk)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)
+    outs = []
+    for i in range(Sq // bq):
+        q_pos = i * bq + torch.arange(bq, dtype=torch.int32, device=dev)
+        start = min(max((i + 1) * bq - span, 0), Skv - span)
+        outs.append(_online_block_scan(
+            qr[:, i * bq:(i + 1) * bq], k[:, start:start + span],
+            v[:, start:start + span], q_pos, kv_pos[start:start + span],
+            window, Dk**-0.5))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dk).to(q.dtype)
+
+
+def decode_attend(q, k_cache, v_cache, cache_pos, pos: int, *,
+                  window: int = 0):
+    """Single-token decode attention over a (possibly ring) KV cache.
+
+    q: (B, 1, H, Dk); k_cache: (B, T, KVH, Dk); v_cache: (B, T, KVH, Dv);
+    cache_pos: (T,) absolute position held in each cache slot (-1 =
+    empty); pos: the current absolute position.  Window semantics match
+    :func:`attend`.
+    """
+    B, _, H, Dk = q.shape
+    KVH = k_cache.shape[2]
+    G = H // KVH
+    qf = q.reshape(B, KVH, G, Dk).to(torch.float32) * Dk**-0.5
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.to(torch.float32))
+    allow = (cache_pos <= pos) & (cache_pos >= 0)
+    if window:
+        allow &= cache_pos > (pos - window)
+    p = torch.softmax(torch.where(allow, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, -1).to(q.dtype)

@@ -1,0 +1,57 @@
+"""Decode caches: full KV and ring (windowed) KV.
+
+Cache layout is per segment (see ``config.segments``): every leaf carries a
+leading ``L_seg`` axis, so layer ``l`` of a segment reads ``leaf[l]``.  One
+integer ``length`` (tokens written so far) is carried beside the caches;
+slot occupancy and absolute positions derive from it.
+
+Ring semantics (windowed attention): slot s of a T-slot cache holds the
+most recent position p < length with p % T == s.
+
+Unlike the JAX package's functional caches, the port writes tokens into
+the cache in place: a decode step then moves one token's K/V per layer
+instead of copying every layer's cache.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["init_segment_cache", "ring_positions", "write_token"]
+
+
+def ring_positions(length: int, num_slots: int, device=None):
+    """(num_slots,) int32 absolute position per cache slot (-1 if never
+    written), ``length`` tokens written so far.  Works for full caches too
+    (where length <= num_slots and slot s holds position s)."""
+    s = torch.arange(num_slots, dtype=torch.int32, device=device)
+    last = length - 1 - torch.remainder(length - 1 - s, num_slots)
+    held = s if length <= num_slots else last
+    return torch.where(s < min(length, num_slots), held,
+                       torch.full_like(s, -1))
+
+
+def init_segment_cache(kind, n_layers: int, batch: int, cache_len: int,
+                       cfg, dtype, device=None):
+    """Zero cache for one segment.  kind = (mixer_kind, ffn_kind)."""
+    mixer = kind[0]
+    if mixer in ("full", "swa", "local"):
+        T = cache_len if mixer == "full" else min(cfg.window, cache_len)
+        shape = (n_layers, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if mixer == "mla":
+        raise NotImplementedError(
+            "the MLA compressed cache comes with the MLA family, after the "
+            "training slice (ROADMAP slice F)")
+    if mixer in ("rwkv6", "rglru"):
+        raise NotImplementedError(
+            f"the {mixer} state cache comes with the recurrent families, "
+            "after the training slice (ROADMAP slice F)")
+    raise ValueError(f"unknown mixer kind {mixer!r}")
+
+
+def write_token(cache_kv, new_kv, length: int):
+    """Write one token's (B, 1, ...) entry at ring slot ``length % T`` of
+    ``cache_kv`` (B, T, ...), in place; returns ``cache_kv``."""
+    cache_kv[:, length % cache_kv.shape[1]] = new_kv[:, 0]
+    return cache_kv

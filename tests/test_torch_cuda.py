@@ -12,13 +12,23 @@ float32 Gram differs from the plain version's in summation order
 absolute terms.  K5 holds the same H bound, g and the deviances to 1e-10
 relative (of the sums of absolute terms), and its held-out counts exactly.
 K4 is exact field arithmetic (bit-identical); K6's float32 Gram holds
-|dH| <= 2e-5 max|H| against the plain version (summation order).
+|dH| <= 2e-5 max|H| against the plain version (summation order).  K7's
+output holds 2e-5 absolute and relative in float32, the JAX package's
+flash tolerance, and 5e-3 absolute + 1e-2 relative in bfloat16 (set from
+the measured error, under one bf16 unit in the last place of |o| < 2; the
+CPU parity tests keep the JAX package's 2e-2); its m and l 1e-5 relative
+(m also 1e-6 absolute, for a row whose largest score is near zero).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
 from repro_torch.core.field import FIELD31, FIELD_WIDE
+from repro_torch.kernels import flash_attention as k7_mod
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_kernel, \
+    flash_attention_plain
 from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
     fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain, \
     gram_hessian_kernel, gram_hessian_plain
@@ -26,6 +36,7 @@ from repro_torch.kernels.shamir_poly import encode_share_kernel, \
     encode_share_plain, share_kernel, share_plain
 from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
     reconstruct_plain
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.gpu
 
@@ -204,3 +215,90 @@ def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     Hp = gram_hessian_plain(X, w)
     assert H.dtype == torch.float32 and tuple(H.shape) == (d, d)
     assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype,outliers", [
+    (4, 2048, 40, 8, 128, torch.bfloat16, False),  # the serving shape
+    (1, 1000, 32, 8, 120, torch.bfloat16, False),  # H2O-like: ragged, D 120
+    (2, 384, 4, 1, 64, torch.float32, False),      # MQA
+    (1, 256, 2, 2, 32, torch.float32, True),       # outliers, many blocks
+    (1, 200, 2, 2, 16, torch.float32, False),      # ragged S, small D
+    (3, 1, 4, 2, 128, torch.float32, False),       # one token
+])
+def test_k7_kernel_matches_plain(cuda, B, S, H, KVH, D, dtype, outliers):
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=cuda)
+               for n in (H, KVH, KVH))
+    if outliers:
+        q[:, 17] *= 30.0
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = flash_attention_kernel.launches
+    o, m, l = flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    op, mp, lp = flash_attention_plain(q, k, v)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (5e-3, 1e-2)
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), op.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(m, mp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(l, lp, rtol=1e-5, atol=0.0)
+
+
+def test_k7_launches_once_per_layer_of_a_prefill(cuda):
+    """A full-causal prefill runs K7 once per layer; decode never; a
+    windowed prompt longer than the window takes the banded scan."""
+    for arch, prompt, want in (("qwen2_5_32b", 24, 2),
+                               ("h2o_danube3_4b", 16, 2),
+                               ("h2o_danube3_4b", 48, 0)):
+        cfg = smoke_config(arch)
+        params = T.init_params(cfg, seed=0, device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, prompt), device=cuda)
+        before = flash_attention_kernel.launches
+        logits, caches, n = T.prefill(params, cfg, toks, cache_len=prompt + 4)
+        assert flash_attention_kernel.launches - before == want
+        before = flash_attention_kernel.launches
+        for _ in range(3):
+            logits, caches, n = T.decode_step(params, caches, n, cfg,
+                                              logits.argmax(-1))
+        torch.cuda.synchronize()
+        assert flash_attention_kernel.launches == before
+        assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_k7_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k7_mod, "flash_attention_plain", refuse)
+    x = torch.randn((1, 64, 4, 32), device=cuda)
+    ops.flash_attention(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous())
+    cfg = smoke_config("qwen2_5_32b")
+    T.prefill(T.init_params(cfg, seed=0, device=cuda), cfg,
+              torch.zeros((1, 8), dtype=torch.long, device=cuda))
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.flash_attention(x.cpu(), x[:, :, :2].cpu(), x[:, :, :2].cpu())
+
+
+def test_prefill_on_the_card_matches_the_cpu(cuda):
+    """The smoke config's prefill and decode logits in float32, K7 on the
+    card against its plain version on the CPU, same weights."""
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke_config("qwen2_5_32b"),
+                              dtype_str="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = {"embed": params["embed"].to(cuda),
+               "final_norm": params["final_norm"].to(cuda),
+               "lm_head": params["lm_head"].to(cuda),
+               "segments": [{n: t.to(cuda) for n, t in seg.items()}
+                            for seg in params["segments"]]}
+    toks = torch.randint(0, cfg.vocab_size, (2, 40))
+    want, cw, nw = T.prefill(params, cfg, toks, cache_len=44)
+    got, cg, ng = T.prefill(on_card, cfg, toks.to(cuda), cache_len=44)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    tok = want.argmax(-1)
+    want, _, _ = T.decode_step(params, cw, nw, cfg, tok)
+    got, _, _ = T.decode_step(on_card, cg, ng, cfg, tok.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

@@ -17,7 +17,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
         "repro_torch.convert, repro_torch.data, repro_torch.runtime, "
-        "repro_torch.core.multistudy, repro_torch.selection\n"
+        "repro_torch.core.multistudy, repro_torch.selection, "
+        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -126,3 +127,27 @@ def test_slice_b_entry_points_raise_without_a_card(monkeypatch):
         run_multistudy_rounds(studies, [1.0], 1)
     betas, trace = run_multistudy_rounds(studies, [1.0], 2, device="cpu")
     assert tuple(betas.shape) == (1, 3) and tuple(trace.shape) == (2, 1)
+
+
+def test_the_walk_reaches_the_lm_modules():
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"models/transformer.py", "models/attention.py",
+            "configs/registry.py", "configs/qwen2_5_32b.py",
+            "launch/serve.py", "kernels/flash_attention.py"} <= walked
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """``serve.main`` and ``init_params`` default to the card: without one
+    they raise; ``--device cpu`` serves."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "qwen2_5_32b", "--requests", "2", "--batch", "2",
+            "--prompt-len", "8", "--new-tokens", "2"]
+    for call in (lambda: serve.main(argv),
+                 lambda: T.init_params(smoke_config("qwen2_5_32b"))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert serve.main(argv + ["--device", "cpu"])["tokens_generated"] == 4

@@ -83,7 +83,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
    per kernel name, the union of device-busy intervals over the run's
    wall window, so the card's idle share), as ``profile`` JSON lines;
    ``--trace`` also writes the fit's Chrome trace;
-12. one JSON line with each kernel's time, bound and launches.
+13. training at Qwen2.5-32B's full width with its depth cut to 2 of 64
+   layers (2,532,350,976 parameters), after the serving weights are
+   freed: (a) K8a/K8b (the flash-attention backward) against their plain
+   versions at K7's shapes and the training shape (B 1, S 2048, H 40, KVH
+   8, D 128, bf16); (b) in float32 with remat, the central difference of
+   ``loss_fn`` along u = g / |g| (h = 1e-2) against |g| within 2e-2
+   relative, one sequence of 2048 tokens; (c) 8 bf16 ``train_step`` calls
+   (2 institutions of one 2048-token sequence, lr 3e-4, AdamW, remat),
+   every loss and grad norm finite, the parameters moved, K7 8, K8a 4 and
+   K8b 4 launches a step, seconds a step, tokens/s and peak bytes in a
+   ``{"train": ...}`` line (with ``--profile``, one profiled step and one
+   profiled AdamW update); (d) ``run_lm`` with ``--secure-agg shamir`` at
+   the smoke config (the int32 shares of the full-width model do not fit
+   the card): the loss falls, one K1 and one K2 a step, exact wire bytes,
+   and the step-0 secure mean gradient within S * 2^-28 of the plain mean;
+12. (printed last) one JSON line with each kernel's time, bound and
+   launches, K8a/K8b with the SDPA backward as their one library call.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -92,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import pathlib
 import statistics
@@ -172,6 +189,24 @@ K7_CASES = (
     ("mqa", 2, 384, 4, 1, 64, "float32", False),
     ("outliers many-block", 1, 256, 2, 2, 32, "float32", True),
 )
+# K8a/K8b against their plain versions: K7's shapes and the training
+# shape; bf16 as K7, float32 within 2e-5 of the larger of max|plain out|
+# and max|do|
+K8_CASES = K7_CASES + (("training", 1, 2048, 40, 8, 128, "bfloat16",
+                        False),)
+K8_F32_TOL = 2e-5
+# training: Qwen2.5-32B at full width, depth cut to 2 of 64 layers
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "qwen2_5_32b", 2, 2_532_350_976
+TRAIN_BATCH, TRAIN_INST, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2, 2048, 8, \
+    3e-4
+# the float32 directional-derivative check: central difference along
+# g / |g| with step h, against |g|
+GRAD_H, GRAD_TOL = 1e-2, 2e-2
+# secure gradient aggregation at the smoke config (the int32 shares of
+# 2.53e9 parameters would take 24 B each per institution)
+SECURE_ARGV = ["--arch", "qwen2_5_32b", "--smoke", "--secure-agg", "shamir",
+               "--institutions", "2", "--batch", "4", "--seq-len", "32",
+               "--steps", "8", "--lr", "1e-2", "--log-every", "100"]
 
 
 def check(cond: bool, what: str) -> None:
@@ -257,6 +292,26 @@ SERVE_CATEGORIES = (
                          "splitKreduce")),
     ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+# a training step's categories (first hit); the AdamW update is profiled
+# on its own, where every kernel is its elementwise work
+TRAIN_CATEGORIES = (
+    ("K7 flash_attention", ("flash_attention_fwd",)),
+    ("K8a flash_dq", ("flash_dq_kernel",)),
+    ("K8b flash_dkdv", ("flash_dkdv_kernel",)),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
+                         "splitKreduce")),
+    ("softmax / log_softmax", ("softmax",)),
+    ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+ADAMW_CATEGORIES = (
+    ("reductions (grad norm)", ("reduce_kernel",)),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+    ("AdamW elementwise (casts, mul, add, sqrt, div, copy)",
+     ("elementwise", "copy", "pow")),
 )
 
 
@@ -855,6 +910,255 @@ def serving_phase(dev, smi, counts):
     return out, run
 
 
+def check_k8(dev):
+    """K8a and K8b against their plain versions on the card at the shapes
+    of ``K8_CASES``, from K7's statistics; returns (the largest |dq|, |dk|,
+    |dv| error over them, the training shape's (q, k, v, do, m, linv,
+    delta) for timing)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
+        flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    err, training = 0.0, None
+    for name, B, S_, H, KVH, Dh, dt, outliers in K8_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn((B, S_, n, Dh), generator=gen,
+                                   device=dev) for n in (H, KVH, KVH, H))
+        if outliers:
+            q[:, 17] *= 30.0
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        with torch.no_grad():
+            o, m, l = flash_attention_kernel(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, do, m, 1.0 / torch.clamp(l, min=1e-30), delta)
+        got = (flash_dq_kernel(*args), *flash_dkdv_kernel(*args))
+        want = (flash_dq_plain(*args), *flash_dkdv_plain(*args))
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            d = (g.float() - w.float()).abs()
+            if dt == "float32":
+                scale = max(float(w.abs().max()), float(do.abs().max()))
+                check(float(d.max()) <= K8_F32_TOL * scale,
+                      f"K8 {name} {what} err {float(d.max())}")
+            else:
+                atol, rtol = K7_TOL[dt]
+                check(bool((d <= atol + rtol * w.float().abs()).all()),
+                      f"K8 {name} {what} err {float(d.max())}")
+            err = max(err, float(d.max()))
+        if name == "training":
+            training = args
+        del got, want
+    torch.cuda.synchronize()
+    return err, training
+
+
+def grad_check(dev):
+    """Phase 13b: float32 ``loss_fn`` at Qwen2.5-32B's full width (2 of
+    64 layers, remat on), one sequence of 2048 tokens: the central
+    difference along u = g / |g| with step h against |g|.  The parameters
+    are moved in place (+h u, then -h u) and dropped afterwards."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.launch.train import _loss_and_grads, corpus_batch
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS, dtype_str="float32")
+    check(cfg.remat and T.count_params(cfg) == TRAIN_PARAMS,
+          f"grad-check config: remat {cfg.remat}, params "
+          f"{T.count_params(cfg)}")
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    batch = corpus_batch(SEED, 0, 1, TRAIN_SEQ, cfg.vocab_size, dev)
+    t0 = time.perf_counter()
+    loss0, grads = _loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    gnorm = float(sum((g * g).sum(dtype=torch.float64)
+                      for g in grads)) ** 0.5
+    leaves = tree_flatten(params)[0]
+    for g in grads:
+        g.div_(gnorm)  # g is now u
+
+    def loss_at(sign: float) -> float:
+        for p, u in zip(leaves, grads):
+            p.add_(u, alpha=sign * GRAD_H)
+        with torch.no_grad():
+            return float(T.loss_fn(params, batch, cfg)[0])
+
+    f_plus = loss_at(1.0)
+    f_minus = loss_at(-2.0)  # from +h u to -h u
+    fd = (f_plus - f_minus) / (2 * GRAD_H)
+    rel = abs(fd - gnorm) / gnorm
+    check(all(map(lambda x: x == x and abs(x) < float("inf"),
+                  (loss0, f_plus, f_minus, gnorm))), "grad check finite")
+    check(rel <= GRAD_TOL, f"directional derivative {fd} vs |g| {gnorm} "
+          f"(rel {rel})")
+    del params, grads, leaves
+    torch.cuda.empty_cache()
+    return {"loss": loss0, "grad_norm": gnorm, "f_plus": f_plus,
+            "f_minus": f_minus, "h": GRAD_H, "central_difference": fd,
+            "rel_err": rel, "grad_seconds": grad_s}
+
+
+def training_phase(dev, smi, counts):
+    """Phase 13c: 8 bf16 ``train_step`` calls at Qwen2.5-32B's full width
+    (2 of 64 layers, remat on), 2 institutions of one 2048-token sequence
+    each; K7 8, K8a 4, K8b 4 launches a step.  Returns (the ``train``
+    line's fields, one more step for --profile, the AdamW update alone
+    for --profile)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import corpus_batch, mean_gradients, \
+        train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    reset, read = counts
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    check(cfg.remat and cfg.dtype == torch.bfloat16
+          and T.count_params(cfg) == TRAIN_PARAMS, "training config")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    # run_lm's schedule: warm-up over half the run
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(1, TRAIN_STEPS // 2))
+    state = adamw_init(params)
+    watch = params["segments"][0]["wq"][0, :64].clone()
+    per = TRAIN_BATCH // TRAIN_INST
+
+    def insts(step):
+        b = corpus_batch(SEED, step, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                         dev)
+        return [{k: v[j * per:(j + 1) * per] for k, v in b.items()}
+                for j in range(TRAIN_INST)]
+
+    want = {"flash_attention_kernel": TRAIN_LAYERS * TRAIN_INST * 2,
+            "flash_dq_kernel": TRAIN_LAYERS * TRAIN_INST,
+            "flash_dkdv_kernel": TRAIN_LAYERS * TRAIN_INST}
+    steps, total = [], collections.Counter()
+    for step in range(TRAIN_STEPS):
+        batches = insts(step)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        params, state, m = train_step(params, state, batches, cfg, opt)
+        torch.cuda.synchronize()
+        m["seconds"] = time.perf_counter() - t0
+        got = read()
+        total.update(got)
+        w = dict(want)
+        w.update({k: 0 for k in got if k not in w})
+        check(got == w, f"step {step} launches {got}: K7 twice per layer "
+              "and institution (forward, remat), K8a and K8b once")
+        check(all(x == x and abs(x) < float("inf")
+                  for x in (m["loss"], m["grad_norm"])),
+              f"step {step}: loss {m['loss']} grad norm {m['grad_norm']}")
+        steps.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    moved = float((params["segments"][0]["wq"][0, :64].float()
+                   - watch.float()).abs().max())
+    check(moved > 0.0, "the parameters moved")
+    secs = [m["seconds"] for m in steps]
+    steady = statistics.median(secs[1:])
+    out = {
+        "arch": full.name, "num_layers": TRAIN_LAYERS,
+        "reduced": {"num_layers": f"{TRAIN_LAYERS} of {full.num_layers}"},
+        "params": TRAIN_PARAMS, "dtype": "bfloat16", "remat": cfg.remat,
+        "institutions": TRAIN_INST, "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "losses": [m["loss"] for m in steps],
+        "grad_norms": [m["grad_norm"] for m in steps],
+        "seconds_per_step": secs,
+        "median_seconds_per_step_after_the_first": steady,
+        "tokens_per_second": TRAIN_BATCH * TRAIN_SEQ / steady,
+        "launches_per_step": want, "launches": dict(total),
+        "peak_bytes_allocated": peak, "max_param_move": moved,
+        "card": smi,
+    }
+
+    def profiled_step():
+        nonlocal params, state
+        params, state, m = train_step(params, state, insts(0), cfg, opt)
+        return m
+
+    def adamw_only():
+        _, grads, _ = mean_gradients(params, insts(1), cfg)
+        torch.cuda.synchronize()
+        return lambda: adamw_update(grads, state, params, opt)
+
+    return out, profiled_step, adamw_only
+
+
+def secure_phase(dev, counts):
+    """Phase 13d: ``run_lm`` with Shamir gradient aggregation at the
+    smoke config; then the step-0 secure mean against the plain one."""
+    import math
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.collective import SecureCollective
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    reset, read = counts
+    cfg = smoke_config(TRAIN_ARCH)
+    args = train.parse_args(SECURE_ARGV + ["--device", str(dev)])
+    S_ = args.institutions
+    reset()
+    rep = train.run_lm(args)
+    torch.cuda.synchronize()
+    launches = read()
+    n = T.count_params(cfg)
+    rows = math.ceil(math.ceil(n / 128) / 8) * 8  # 128 lanes, rows in 8s
+    agg = SecureCollective(backend="kernel", overflow_check=True)
+    w, r = agg.scheme.num_shares, agg.scheme.field.num_residues
+    want_bytes = S_ * w * r * rows * 128 * 4
+    check(rep["loss_last"] < rep["loss_first"],
+          f"secure loss {rep['loss_first']} -> {rep['loss_last']}")
+    check(rep["bytes_per_step"] == [want_bytes] * args.steps,
+          f"secure bytes per step {rep['bytes_per_step']} != {want_bytes}")
+    L = cfg.num_layers * S_ * args.steps  # smoke config: no remat
+    want = {"encode_share_kernel": args.steps,
+            "reconstruct_kernel": args.steps,
+            "flash_attention_kernel": L, "flash_dq_kernel": L,
+            "flash_dkdv_kernel": L}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"secure training launches {launches}")
+    # step 0 again: the secure mean against the plain mean
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    b = train.corpus_batch(args.seed, 0, args.batch, args.seq_len,
+                           cfg.vocab_size, dev)
+    per = args.batch // S_
+    insts = [{k: v[j * per:(j + 1) * per] for k, v in b.items()}
+             for j in range(S_)]
+    _, plain, _ = train.mean_gradients(params, insts, cfg)
+    _, secure, nbytes = train.mean_gradients(
+        params, insts, cfg, agg, SecureCollective.round_key(args.seed, 0,
+                                                            dev))
+    err = max(float((a - p).abs().max()) for a, p in
+              zip(tree_flatten(secure)[0], tree_flatten(plain)[0]))
+    check(err <= S_ * 2.0**-FRAC_BITS, f"secure vs plain mean grads {err}")
+    check(nbytes == want_bytes, f"step-0 bytes {nbytes}")
+    return {"arch": cfg.name, "config": "smoke", "params": n,
+            "argv": SECURE_ARGV, "losses": rep["losses"],
+            "loss_first": rep["loss_first"], "loss_last": rep["loss_last"],
+            "bytes_per_step": want_bytes, "launches": launches,
+            "step0_secure_vs_plain_max_abs": err,
+            "quantization_bound": S_ * 2.0**-FRAC_BITS,
+            "seconds": rep["seconds"],
+            "reduced": "smoke config: the int32 shares of the full-width "
+                       "2-layer model would take 24 B a parameter per "
+                       "institution (122 GB for two)"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -891,6 +1195,8 @@ def main() -> int:
         reconstruct_plain
     from repro_torch.kernels.flash_attention import flash_attention_kernel, \
         flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
+        flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
 
     # full float32 products everywhere: the plain versions and the
     # library yardstick must not drop to TF32
@@ -1050,7 +1356,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counters = (encode_share_kernel, reconstruct_kernel, fused_irls_kernel,
                 fused_irls_cv_kernel, share_kernel, gram_hessian_kernel,
-                flash_attention_kernel)
+                flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
 
     def reset_counts():
         for k in counters:
@@ -1265,6 +1571,30 @@ def main() -> int:
             serve_run, lambda r: r[1]["batches"], "serve", args.repeats,
             categories=SERVE_CATEGORIES), "card": smi}))
 
+    # -- 13. training at Qwen2.5-32B's full width (K7, K8a, K8b) -----------
+    del serve_run  # the serving weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    k8_err, k8_args = check_k8(dev)
+    print(f"K8a/K8b vs plain: {[c[0] for c in K8_CASES]} within tolerance, "
+          f"max|d(dq, dk, dv)| {k8_err:.3e}")
+    grad_out = grad_check(dev)
+    print(json.dumps({"grad_check": grad_out, "card": smi}))
+    train_out, train_run, adamw_run = training_phase(dev, smi, counts)
+    print(json.dumps({"train": train_out}))
+    if args.profile:
+        print(json.dumps({"profile": profile_run(
+            train_run, lambda r: 1, "train_step", args.repeats,
+            categories=TRAIN_CATEGORIES), "card": smi}))
+        print(json.dumps({"profile": profile_run(
+            adamw_run(), lambda r: 1, "adamw_update", args.repeats,
+            categories=ADAMW_CATEGORIES), "card": smi}))
+    del train_run, adamw_run  # the training weights and moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    secure_out = secure_phase(dev, counts)
+    print(json.dumps({"secure_train": secure_out, "card": smi}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -1289,6 +1619,23 @@ def main() -> int:
     kvh7 = k7.shape[2]
     # SDPA on the same bf16 tensors, heads first (copied outside the timing)
     q7t, k7t, v7t = (t.transpose(1, 2).contiguous() for t in k7_args)
+    q8, k8, v8, do8 = k8_args[:4]
+    b8, s8, h8, d8 = q8.shape
+    kvh8 = k8.shape[2]
+    pairs8 = b8 * h8 * s8 * (s8 + 1) // 2  # allowed (query, key) pairs
+    in8 = ((2 * b8 * s8 * h8 * d8 + 2 * b8 * s8 * kvh8 * d8)
+           * q8.element_size() + 3 * b8 * h8 * s8 * 4)
+    # SDPA's backward on the same bf16 tensors, heads first: one call for
+    # both kernels (its forward runs once, outside the timing)
+    q8t, k8t, v8t = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                     for t in k8_args[:3])
+    do8t = do8.transpose(1, 2).contiguous()
+    o8t = torch.nn.functional.scaled_dot_product_attention(
+        q8t, k8t, v8t, is_causal=True, enable_gqa=True)
+
+    def sdpa_backward():
+        return torch.autograd.grad(o8t, (q8t, k8t, v8t), do8t,
+                                   retain_graph=True)
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
              path="secure_fit",
@@ -1379,12 +1726,37 @@ def main() -> int:
              bound=bound((2 * b7 * s7 * h7 * d7 + 2 * b7 * s7 * kvh7 * d7)
                          * q7.element_size() + 2 * b7 * h7 * s7 * 4,
                          bf16_ops=b7 * h7 * s7 * (s7 + 1) // 2 * 4 * d7)),
+        dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention_bwd.py:145",
+             run=lambda: flash_dq_kernel(*k8_args),
+             plain=lambda: flash_dq_plain(*k8_args),
+             library=sdpa_backward, library_covers="K8a + K8b",
+             err=k8_err,
+             # q, k, v, do read once (bf16), m, linv, delta (float32), dq
+             # written; per allowed pair 2 D for q.k, 2 D for do.v and 2 D
+             # for ds k, bf16 products at the tensor-core peak
+             bound=bound(in8 + b8 * s8 * h8 * d8 * q8.element_size(),
+                         bf16_ops=pairs8 * 6 * d8)),
+        dict(name="K8b flash_dkdv", fn=flash_dkdv_kernel, path="train",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention_bwd.py:188",
+             run=lambda: flash_dkdv_kernel(*k8_args),
+             plain=lambda: flash_dkdv_plain(*k8_args),
+             library=sdpa_backward, library_covers="K8a + K8b",
+             err=k8_err,
+             # the same reads, dk and dv written; per allowed pair q.k,
+             # do.v, p do and ds q, 2 D each
+             bound=bound(in8 + 2 * b8 * s8 * kvh8 * d8 * q8.element_size(),
+                         bf16_ops=pairs8 * 8 * d8)),
     ]
     by_path = {"secure_fit": launches, "lambda_path": path_launches,
                "leafwise": leaf_launches, "gram": gram_launches,
                "supervised_fit": sfit_launches,
                "multistudy": ms_out["launches"],
-               "serve": serve_out["launches"]}
+               "serve": serve_out["launches"],
+               "train": train_out["launches"],
+               "secure_train": secure_out["launches"]}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -1398,7 +1770,8 @@ def main() -> int:
             "replaces": e["replaces"],
             # each kernel's count on the path it was ported for: K1-K3
             # the secure_fit run, K5 the lambda path, K4 the leaf-wise
-            # shares, K6 the weighted Grams, K7 the serving run
+            # shares, K6 the weighted Grams, K7 the serving run, K8 the
+            # training run
             "launches": by_path[e["path"]][e["fn"].__name__],
             "launches_by_path": {k: v[e["fn"].__name__]
                                  for k, v in by_path.items()},
@@ -1406,7 +1779,13 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "call_ms": call_ms,
             **({"ms_by_shape": more} if more else {}),
+            **({"library_covers": e["library_covers"]}
+               if "library_covers" in e else {}),
         })
+    k8_ms = {k["name"]: k for k in kernels if k["name"].startswith("K8")}
+    print(f"K8a + K8b {k8_ms['K8a flash_dq']['ms'] + k8_ms['K8b flash_dkdv']['ms']:.5f} "
+          f"ms vs the SDPA backward {k8_ms['K8a flash_dq']['library_ms']:.5f} ms "
+          f"(B {b8}, S {s8}, H {h8}, KVH {kvh8}, D {d8}, bf16)")
     print(json.dumps({
         "kernels": kernels,
         "fit_seconds_per_iter": fit_s / res.iterations,
@@ -1422,6 +1801,11 @@ def main() -> int:
         "serve_prefill_tokens_per_second":
             serve_out["prefill_tokens_per_second"],
         "serve_decode_ms_per_step": serve_out["decode_ms_per_step"],
+        "train_seconds_per_step":
+            train_out["median_seconds_per_step_after_the_first"],
+        "train_tokens_per_second": train_out["tokens_per_second"],
+        "train_peak_bytes_allocated": train_out["peak_bytes_allocated"],
+        "grad_check_rel_err": grad_out["rel_err"],
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ from ._device import resolve_device
 
 __all__ = ["state_from_jax", "coordinator_state_from_jax",
            "selection_state_from_jax", "fold_parts_from_jax",
-           "lm_params_from_jax", "parts_from_numpy"]
+           "lm_params_from_jax", "parts_from_numpy", "adamw_state_from_jax"]
 
 # the JAX SecureFitDriver.state_dict() keys the port carries over
 _CARRIED = ("beta", "iteration", "obj_prev", "trace", "converged", "bytes",
@@ -100,3 +100,18 @@ def lm_params_from_jax(params, device=None):
         return _tensor_from_numpy(np.asarray(node), dev)
 
     return walk(params)
+
+
+def adamw_state_from_jax(state, device=None):
+    """Turn a JAX ``AdamWState`` (``step``, ``mu``, ``nu``; its leaves as
+    numpy arrays) into the port's: the step as an int32 scalar tensor and
+    the float32 moment trees as ``lm_params_from_jax`` carries
+    parameters, on ``device`` (``None``: the CUDA card)."""
+    from .optim.adamw import AdamWState
+
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(np.asarray(step), dtype=torch.int32, device=dev),
+        mu=lm_params_from_jax(mu, device=dev),
+        nu=lm_params_from_jax(nu, device=dev))

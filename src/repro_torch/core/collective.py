@@ -134,6 +134,15 @@ class FlatProtected:
     layout: FlatLayout
 
 
+def _wire_payload(buf: torch.Tensor) -> torch.Tensor:
+    """K1 encodes float32 or float64 payloads: a tree of narrower floats
+    (bf16 gradients, as the JAX package's batched round takes them)
+    widens exactly to float32."""
+    if buf.dtype in (torch.float32, torch.float64):
+        return buf
+    return buf.to(torch.float32)
+
+
 def _protect_flat(generator: torch.Generator, buf: torch.Tensor,
                   scheme: ShamirScheme, frac_bits: int, rows: int,
                   points: tuple[int, ...] | None = None) -> torch.Tensor:
@@ -229,6 +238,7 @@ class SecureCollective:
         """
         if self.backend == "kernel":
             buf, layout = pack_pytree(tree)
+            buf = _wire_payload(buf)
             if self.overflow_check:
                 self.codec.check_headroom(buf, what="protect")
             shares = _protect_flat(generator, buf, self.scheme,
@@ -251,6 +261,7 @@ class SecureCollective:
         if self.backend != "kernel":
             raise ValueError("protect_batched requires the kernel backend")
         buf, layout = pack_pytree_batched(tree)
+        buf = _wire_payload(buf)
         if self.overflow_check:
             self.codec.check_headroom(buf, num_addends=buf.shape[0],
                                       what="protect_batched")

@@ -30,35 +30,19 @@
 // warp with shuffles; P goes through shared memory (over the K tile,
 // whose scores are done) to feed P V.  Query blocks launch longest-first
 // so the last wave holds the short ones.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
-#define K7_THREADS 256
-#define K7_BQ 64
-#define K7_BK 64
-#define K7_MAX_D 128
-#define K7_NC (K7_MAX_D / 16)  // output columns per thread
-#define K7_NEG_INF (-1e30f)
+#define K7_THREADS FLASH_THREADS
+#define K7_BQ FLASH_ROWS
+#define K7_BK FLASH_ROWS
+#define K7_MAX_D FLASH_MAX_D
+#define K7_NC FLASH_NC
+#define K7_NEG_INF FLASH_NEG_INF
 
 struct K7Dims {
   int S, H, KVH, D, group;
   float scale;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // floats of the region that holds the K tile, then the P tile over it
 __host__ __device__ __forceinline__ int k7_kp_floats(int D) {
@@ -92,12 +76,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kg = k + (long long)b * P.S * kv_stride + (long long)kvh * P.D;
   const T* vg = v + (long long)b * P.S * kv_stride + (long long)kvh * P.D;
 
-  for (int idx = tid; idx < K7_BQ * P.D; idx += K7_THREADS) {
-    const int r = idx / P.D, c = idx - r * P.D;
-    const int s = q0 + r;
-    Qs[r * DP + c] =
-        s < P.S ? to_f32(qg[(long long)s * q_stride + c]) * P.scale : 0.f;
-  }
+  flash_load_tile(Qs, qg, q0, P.S, q_stride, P.D, P.scale);
 
   float m_i[4], l_i[4], acc[4][K7_NC];
 #pragma unroll
@@ -113,14 +92,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * K7_BK;
     __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < K7_BK * P.D; idx += K7_THREADS) {
-      const int r = idx / P.D, c = idx - r * P.D;
-      const int s = k0 + r;
-      const bool in = s < P.S;
-      const long long off = (long long)s * kv_stride + c;
-      Ks[r * DP + c] = in ? to_f32(kg[off]) : 0.f;
-      Vs[r * DP + c] = in ? to_f32(vg[off]) : 0.f;
-    }
+    flash_load_tile_pair(Ks, Vs, kg, vg, k0, P.S, kv_stride, P.D);
     __syncthreads();
 
     float sc[4][4];

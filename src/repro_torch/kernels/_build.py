@@ -24,7 +24,9 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
            "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu")
+# headers the sources include: part of the digest, not compiled alone
+HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +58,14 @@ _SIGNATURES = {
     # q, k, v, o, m, l, B, S, H, KVH, D, is_bf16, scale, stream
     "repro_k7_flash_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                                  _i, _i, _i, _d, _vp),
+    # q, k, v, do, m, linv, delta, dq, B, S, H, KVH, D, is_bf16, scale,
+    # stream
+    "repro_k8a_flash_dq": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                           _i, _i, _i, _i, _d, _vp),
+    # q, k, v, do, m, linv, delta, dk, dv, B, S, H, KVH, D, is_bf16, scale,
+    # stream
+    "repro_k8b_flash_dkdv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                             _i, _i, _i, _i, _i, _i, _d, _vp),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,7 +83,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -14,6 +14,11 @@ no padding of S or D; o comes back as (B, S, H, D) in q's dtype and m, l
 as (B, H, S) float32, which is the TPU kernel's (B*H, S) reshaped.  The
 scale is D**-0.5 with the true D, so m equals the JAX package's m (whose
 wrapper pads D to 128 and rescales q to the same effect).
+
+:class:`FlashAttention` makes K7 differentiable: its forward runs K7 and
+saves (q, k, v, o, m, l), its backward runs K8a and K8b
+(``flash_attention_bwd``).  ``flash_attention_kernel`` itself records no
+gradient, so it refuses inputs that require one.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 from . import _build
 from .ref import causal_scores
 
-__all__ = ["flash_attention_kernel", "flash_attention_plain"]
+__all__ = ["FlashAttention", "flash_attention_kernel",
+           "flash_attention_plain"]
 
 _MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -63,7 +69,16 @@ def flash_attention_plain(q, k, v):
 def flash_attention_kernel(q, k, v):
     """K7 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  q (B, S, H, D), k/v (B, S, KVH, D),
-    contiguous, float32 or bfloat16, D <= 128.  Returns (o, m, l)."""
+    contiguous, float32 or bfloat16, D <= 128.  Returns (o, m, l).
+
+    The outputs carry no gradient: with grad mode on, inputs that require
+    one raise (differentiate through :class:`FlashAttention`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_kernel records no gradient; call "
+            "ops.flash_attention (FlashAttention.apply) to differentiate "
+            "through K7")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
@@ -92,3 +107,24 @@ def flash_attention_kernel(q, k, v):
 
 
 flash_attention_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention o = softmax(q k^T scale) v with K7 forward and
+    K8a/K8b backward.  Under ``torch.inference_mode()`` or ``no_grad``
+    only K7 runs and nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, m, l = flash_attention_kernel(q, k, v)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        # imported here: flash_attention_bwd imports this module's checks
+        from .flash_attention_bwd import flash_attention_backward
+
+        q, k, v, o, m, l = ctx.saved_tensors
+        return flash_attention_backward(q, k, v, o, m, l, do.contiguous())

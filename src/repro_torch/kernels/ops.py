@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_kernel
+from .flash_attention import FlashAttention, flash_attention_kernel
+from .flash_attention_bwd import flash_attention_backward
 from .fused_irls import (
     fused_irls_cv_kernel,
     fused_irls_kernel,
@@ -19,7 +20,7 @@ from .fused_irls import (
 from .shamir_poly import encode_share_kernel, share_kernel
 from .shamir_reconstruct import reconstruct_kernel
 
-__all__ = ["flash_attention", "fused_irls", "fused_irls_cv", "gram_hessian",
+__all__ = ["flash_attention", "flash_attention_bwd", "fused_irls", "fused_irls_cv", "gram_hessian",
            "shamir_protect_flat", "shamir_reconstruct",
            "shamir_reveal_flat", "shamir_shares"]
 
@@ -32,9 +33,23 @@ def flash_attention(q, k, v):
     Same semantics as ``ref.flash_attention``.  The kernel reads the
     (B, S, heads, D) layout by stride and masks S itself, so nothing is
     padded or transposed; query head h reads KV head h // (H // KVH).
+    Differentiable: the backward runs K8a and K8b (``FlashAttention``).
     """
-    return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                  v.contiguous())[0]
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+
+
+def flash_attention_bwd(q, k, v, do):
+    """Flash backward: (dq, dk, dv) for causal GQA attention.
+
+    q/do: (B, S, H, D); k/v: (B, S, KVH, D).  Re-runs K7 for (o, m, l) —
+    in training those come from the saved forward (``FlashAttention``) —
+    then K8a and K8b.  Oracle: autograd of ``ref.flash_attention``.
+    """
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    with torch.no_grad():
+        o, m, l = flash_attention_kernel(q, k, v)
+        return flash_attention_backward(q, k, v, o, m, l, do)
 
 
 def gram_hessian(X, w):

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["causal_scores", "cv_masks", "flash_attention", "fused_irls",
+__all__ = ["causal_p_ds", "causal_scores", "cv_masks", "flash_attention", "fused_irls",
            "gram_hessian", "masked_cv_terms", "masked_irls_terms",
            "shamir_shares"]
 
@@ -112,6 +112,26 @@ def causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(torch.float32))
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     return torch.where(mask, s, NEG_INF)
+
+
+def causal_p_ds(q, k, v, do, m, linv, delta):
+    """The masked probabilities and score gradients of causal GQA
+    attention's backward, (p, ds) each (B, KVH, G, S, S) float32, from the
+    materialized scores: p = exp(s - m) * linv (0 above the diagonal) and
+    ds = p * (do v^T - delta).  q, do (B, S, H, D); k, v (B, S, KVH, D);
+    m, linv, delta (B, H, S) float32, K7's statistics and sum_d do * o."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+
+    def rows(t):  # (B, H, S) -> (B, KVH, G, S, 1)
+        return t.to(torch.float32).reshape(B, KVH, G, S)[..., None]
+
+    p = torch.exp(causal_scores(q, k) - rows(m)) * rows(linv)
+    dp = torch.einsum("bqkgd,btkd->bkgqt",
+                      do.to(torch.float32).reshape(B, S, KVH, G, D),
+                      v.to(torch.float32))
+    return p, p * (dp - rows(delta))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

@@ -1,12 +1,17 @@
-"""Attention for prefill and decode: causal GQA/MQA, full or windowed.
+"""Attention for training, prefill and decode: causal GQA/MQA, full or
+windowed.
 
-The JAX package's ``models/attention.py``.  Full-causal prefill attention
-(every query position sees every earlier key) runs K7
-(``kernels.ops.flash_attention``): on the card the CUDA kernel, on CPU
-tensors its plain version.  Windowed attention over a prompt longer than
+The JAX package's ``models/attention.py``.  Full-causal attention (every
+query position sees every earlier key) runs ``kernels.ops.flash_attention``:
+K7 forward and, when a gradient is taken, K8a/K8b backward — on the card
+the CUDA kernels, on CPU tensors their plain versions.  ``ModelConfig.
+flash_vjp`` is kept and ignored: in JAX it only picks which backward
+computes this same full-causal function, and here that backward is always
+K8.  Windowed attention over a prompt longer than
 the window keeps the JAX package's banded online-softmax scan, a Python
 loop over query blocks whose key span is constant (window + one block),
-in plain PyTorch.  Decode attends one token over the cache, in plain
+in plain PyTorch, differentiated by torch autograd as JAX differentiates
+``_online_block_scan``.  Decode attends one token over the cache, in plain
 PyTorch, as the JAX package does.  The JAX function's ``q_offset``
 (chunked prefill) and ``q_block`` options and MLA's Dv != Dk come with
 the first ported caller that needs them.
@@ -76,13 +81,13 @@ def attend(q, k, v, *, window: int = 0):
     Skv, KVH = k.shape[1], k.shape[2]
     if v.shape[-1] != Dk:
         raise NotImplementedError(
-            "Dv != Dk (MLA) comes with the MLA family, after the training "
-            "slice (ROADMAP slice F)")
+            "Dv != Dk (MLA) comes with the MLA family (ROADMAP slice F, the "
+            "kernel-less LM families)")
     if Sq != Skv:
         raise ValueError(f"q has {Sq} positions, k and v {Skv}")
 
     if not window or window >= Skv:
-        return ops.flash_attention(q, k, v)  # K7
+        return ops.flash_attention(q, k, v)  # K7, backward K8a/K8b
 
     # banded: constant KV span per q block = window rounded up + one block
     G = H // KVH

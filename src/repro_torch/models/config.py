@@ -48,8 +48,10 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 0
     # the JAX package's sharding and training knobs, kept so a config
-    # carries over unchanged; the serving path here reads none of them
+    # carries over unchanged; the port reads none of them
     rwkv_batch_parallel: bool = False
+    # ignored: it picks JAX's backward for full-causal attention, which
+    # in the port is always K8
     flash_vjp: bool = False
     fsdp_only: bool = False
     seq_parallel_prefill: bool = False

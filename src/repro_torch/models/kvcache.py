@@ -41,12 +41,12 @@ def init_segment_cache(kind, n_layers: int, batch: int, cache_len: int,
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if mixer == "mla":
         raise NotImplementedError(
-            "the MLA compressed cache comes with the MLA family, after the "
-            "training slice (ROADMAP slice F)")
+            "the MLA compressed cache comes with the MLA family (ROADMAP "
+            "slice F, the kernel-less LM families)")
     if mixer in ("rwkv6", "rglru"):
         raise NotImplementedError(
-            f"the {mixer} state cache comes with the recurrent families, "
-            "after the training slice (ROADMAP slice F)")
+            f"the {mixer} state cache comes with the recurrent families "
+            "(ROADMAP slice F, the kernel-less LM families)")
     raise ValueError(f"unknown mixer kind {mixer!r}")
 
 

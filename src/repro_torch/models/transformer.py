@@ -1,20 +1,24 @@
-"""Decoder-only LM: the serving path of the JAX package's
+"""Decoder-only LM: the serving and training paths of the JAX package's
 ``models/transformer.py``.
 
 One parameterized stack.  Layers are grouped into homogeneous segments
 (``config.segments``); each segment's parameters are stacked along a
 leading layer axis as in JAX, so a JAX parameter tree converts leaf for
 leaf (``convert.lm_params_from_jax``), and a Python loop runs a segment's
-layers in turn.  This slice serves the GQA/MQA families: mixers ``full``,
-``swa`` and ``local`` with dense SwiGLU or GELU FFNs.  MLA, MoE, RWKV6,
-RG-LRU and the ``embeddings`` frontend raise ``NotImplementedError``
-naming the slice that brings them.
+layers in turn.  The port serves and trains the GQA/MQA families: mixers
+``full``, ``swa`` and ``local`` with dense SwiGLU or GELU FFNs.  MLA, MoE,
+RWKV6, RG-LRU and the ``embeddings`` frontend raise
+``NotImplementedError`` naming the work that brings them.
 
 Entry points:
   * ``prefill``      — full-sequence pass filling a decode cache; its
     attention runs K7 (``attention.attend``);
   * ``decode_step``  — one token against the cache;
-  * ``forward``      — logits for every position (inference).
+  * ``forward``      — logits for every position and the aux loss
+    (training); with ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint``, so the backward re-runs its forward (K7
+    included) before K8a/K8b;
+  * ``loss_fn``      — masked next-token cross-entropy plus the aux loss.
 
 ``rules`` (the JAX package's mesh sharding rules) is not an argument:
 on one device it does nothing, and the multi-device slice brings
@@ -25,6 +29,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from .._device import resolve_device
 from .attention import attend, decode_attend
@@ -32,7 +37,7 @@ from .config import ModelConfig, segments
 from .kvcache import init_segment_cache, ring_positions, write_token
 from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
 
-__all__ = ["init_params", "count_params", "forward", "prefill",
+__all__ = ["init_params", "count_params", "forward", "loss_fn", "prefill",
            "decode_step", "init_cache"]
 
 _LATER = {
@@ -48,8 +53,9 @@ _LATER = {
 
 def _not_yet(what: str):
     return NotImplementedError(
-        f"{_LATER[what]}, after the training slice (ROADMAP slice F); this "
-        "slice serves the full/swa/local GQA mixers with dense FFNs")
+        f"{_LATER[what]} (ROADMAP slice F, the kernel-less LM families); "
+        "the port serves and trains the full/swa/local GQA mixers with "
+        "dense FFNs")
 
 
 # ============================================================ initialization
@@ -259,14 +265,23 @@ def _apply_block(kind, p, x, cfg, mode, cache, length):
 
 
 def _run_segments(params, x, cfg, mode, caches, length):
-    """Each segment's layers in turn; caches are updated in place."""
+    """Each segment's layers in turn; caches are updated in place.  In
+    ``train`` mode with ``cfg.remat`` every block runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` per
+    scanned block): its activations are recomputed in the backward."""
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for si, ((kind, n), p_seg) in enumerate(zip(segments(cfg),
                                                 params["segments"])):
         for i in range(n):
             p_l = {name: leaf[i] for name, leaf in p_seg.items()}
             c_l = ({name: leaf[i] for name, leaf in caches[si].items()}
                    if caches is not None else None)
-            x = _apply_block(kind, p_l, x, cfg, mode, c_l, length)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _apply_block, kind, p_l, x, cfg, mode, c_l, length,
+                    use_reentrant=False)
+            else:
+                x = _apply_block(kind, p_l, x, cfg, mode, c_l, length)
     return x
 
 
@@ -278,10 +293,28 @@ def _embed_tokens(params, cfg, tokens):
 
 
 def forward(params, cfg: ModelConfig, tokens):
-    """Logits (B, S, V) for every position of ``tokens`` (B, S)."""
+    """Training forward: (logits (B, S, V) for every position of
+    ``tokens`` (B, S), the aux loss).  The aux loss is the MoE balance
+    term in the JAX package; the ported dense families have none, so it
+    is a float32 zero."""
     x = _run_segments(params, _embed_tokens(params, cfg, tokens), cfg,
                       "train", None, None)
-    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    logits = rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01):
+    """(ce + aux_coef * aux, {"ce", "aux"}): next-token cross-entropy in
+    float32 over the positions whose label is >= 0, as the JAX package's
+    ``loss_fn``.  ``batch``: {"tokens" (B, S), "labels" (B, S)}."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    # a masked label (< 0) gathers column 0; the mask drops it
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):

@@ -1,0 +1,97 @@
+"""AdamW over a parameter tree: the JAX package's ``optim/adamw.py``.
+
+The tree is the port's (dicts and lists of tensors, flattened in sorted
+key order as ``jax.tree_util`` flattens dicts).  Moments are float32 and
+parameters keep their dtype (bf16 weights with float32 moments is
+mixed-precision training).  The order of operations is JAX's: the global
+float32 grad norm, the clip scale, the warm-up schedule, the float32 bias
+corrections, weight decay on every leaf, the new parameter cast back to
+its dtype.
+
+Unlike JAX, :func:`adamw_update` writes the new parameters and moments
+into the tensors it was given, one leaf at a time under
+``torch.no_grad()``: at Qwen2.5-32B's width a second copy of the moments
+alone would be 20 GB.  It returns the same tensors.  No ``_foreach`` or
+fused optimizer runs here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..core.flatbuf import tree_flatten, tree_unflatten
+
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32 scalar: updates taken
+    mu: dict
+    nu: dict
+
+
+def adamw_init(params) -> AdamWState:
+    """Zero float32 moments shaped like ``params``, on their devices."""
+    leaves, treedef = tree_flatten(params)
+    dev = leaves[0].device
+
+    def zeros():
+        return tree_unflatten(treedef, [
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves])
+
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=zeros(), nu=zeros())
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """lr * min(1, (step + 1) / warmup), in float32."""
+    warm = torch.clamp((step + 1) / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm.to(torch.float32)
+
+
+@torch.no_grad()
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
+    """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}):
+    ``params`` and the moments are updated in place."""
+    flat_p, treedef = tree_flatten(params)
+    flat_g = tree_flatten(grads)[0]
+    flat_m = tree_flatten(state.mu)[0]
+    flat_v = tree_flatten(state.nu)[0]
+    gnorm = torch.sqrt(sum(
+        torch.sum(torch.square(g.to(torch.float32))) for g in flat_g))
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                         max=1.0)
+             if cfg.grad_clip else 1.0)
+    step = state.step + 1
+    lr = _schedule(cfg, state.step)
+    stepf = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        g = g.to(torch.float32) * scale
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        del g
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        p32 = p.to(torch.float32)
+        p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
+        del delta, p32
+    return (tree_unflatten(treedef, flat_p), AdamWState(step, state.mu,
+                                                        state.nu),
+            {"grad_norm": gnorm, "lr": lr})

@@ -46,6 +46,33 @@ def test_secure_round_batched_reveal_bit_identical(points):
                                    atol=5 * 2.0**-28)
 
 
+
+def test_bf16_tree_reveals_bit_identical_to_jax():
+    """A bf16 gradient tree through the kernel wire (the JAX package's
+    batched round takes one; K1 encodes float32/float64, so the port
+    widens it exactly): both the batched round and the one-tree protect
+    reveal what the JAX package reveals, bit for bit."""
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.normal(size=(2, 5, 7)) * 0.1,
+            "b": [rng.normal(size=(2, 3)) * 0.01]}
+    mine = {"w": torch.as_tensor(tree["w"]).to(torch.bfloat16),
+            "b": [torch.as_tensor(tree["b"][0]).to(torch.bfloat16)]}
+    theirs = {"w": jnp.asarray(tree["w"]).astype(jnp.bfloat16),
+              "b": [jnp.asarray(tree["b"][0]).astype(jnp.bfloat16)]}
+    agg = SecureCollective(backend="kernel", overflow_check=True)
+    got = agg.secure_round_batched(torch.Generator().manual_seed(1), mine,
+                                   dtype=torch.float32)
+    want = JCollective(backend="pallas").secure_round_batched(
+        jax.random.PRNGKey(2), theirs, dtype=jnp.float32)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    one = agg.reveal(agg.protect(torch.Generator().manual_seed(3),
+                                 {"w": mine["w"][0]}), dtype=torch.float32)
+    np.testing.assert_array_equal(one["w"].numpy(),
+                                  mine["w"][0].float().numpy())
+
+
 @pytest.mark.parametrize("backend", ["reference", "kernel"])
 def test_loop_protect_aggregate_reveal_matches_sum(backend):
     """The per-institution chain (protect each, aggregate, reveal) on both

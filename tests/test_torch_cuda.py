@@ -18,6 +18,11 @@ flash tolerance, and 5e-3 absolute + 1e-2 relative in bfloat16 (set from
 the measured error, under one bf16 unit in the last place of |o| < 2; the
 CPU parity tests keep the JAX package's 2e-2); its m and l 1e-5 relative
 (m also 1e-6 absolute, for a row whose largest score is near zero).
+K8a/K8b hold 2e-5 of the larger of max|plain output| and max|do| in
+float32 (a one-token row's gradient is pure cancellation, so its own
+magnitude is no scale) and 5e-3 absolute + 1e-2 relative in bfloat16, as
+K7.  Gradients and training steps on the card hold 1e-4 max|g| per leaf
+of the same call on the CPU (float32, summation order).
 """
 import numpy as np
 import pytest
@@ -27,8 +32,11 @@ from repro_torch.configs import smoke_config
 from repro_torch.core.field import FIELD31, FIELD_WIDE
 from repro_torch.kernels import flash_attention as k7_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention_bwd as k8_mod
 from repro_torch.kernels.flash_attention import flash_attention_kernel, \
     flash_attention_plain
+from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
+    flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
 from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
     fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain, \
     gram_hessian_kernel, gram_hessian_plain
@@ -302,3 +310,137 @@ def test_prefill_on_the_card_matches_the_cpu(cuda):
     want, _, _ = T.decode_step(params, cw, nw, cfg, tok)
     got, _, _ = T.decode_step(on_card, cg, ng, cfg, tok.to(cuda))
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------------------- K8 (training)
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype", [
+    (1, 2048, 40, 8, 128, torch.bfloat16),  # the training shape
+    (1, 1000, 32, 8, 120, torch.bfloat16),  # H2O-like: ragged, D 120
+    (2, 384, 4, 1, 64, torch.float32),      # MQA
+    (1, 256, 2, 2, 32, torch.float32),      # many blocks
+    (1, 200, 2, 2, 16, torch.float32),      # ragged S, small D
+    (3, 1, 4, 2, 128, torch.float32),       # one token
+])
+def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + D + 1)
+    q, k, v, do = (torch.randn((B, S, n, D), generator=gen, device=cuda)
+                   .to(dtype) for n in (H, KVH, KVH, H))
+    with torch.no_grad():
+        o, m, l = flash_attention_kernel(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, m, 1.0 / torch.clamp(l, min=1e-30), delta)
+    before = (flash_dq_kernel.launches, flash_dkdv_kernel.launches)
+    got = (flash_dq_kernel(*args), *flash_dkdv_kernel(*args))
+    torch.cuda.synchronize()
+    assert (flash_dq_kernel.launches, flash_dkdv_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (flash_dq_plain(*args), *flash_dkdv_plain(*args))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        if dtype == torch.float32:
+            scale = max(float(w.abs().max()), float(do.abs().max()))
+            assert float(err.max()) <= 2e-5 * scale
+        else:
+            assert bool((err <= 5e-3 + 1e-2 * w.float().abs()).all()), \
+                float(err.max())
+
+
+def _smoke_f32(arch="qwen2_5_32b", remat=False):
+    import dataclasses
+
+    return dataclasses.replace(smoke_config(arch), dtype_str="float32",
+                               remat=remat)
+
+
+def _leaf_grads(params, cfg, batch):
+    from repro_torch.launch.train import _loss_and_grads
+
+    return _loss_and_grads(params, batch, cfg)
+
+
+def test_loss_grads_on_the_card_match_the_cpu(cuda):
+    """The repair of the serving slice: attention through K7 had no
+    gradient on the card, so wq, wk, wv and the QKV biases got none.  Every
+    leaf's gradient, through K7 + K8 on the card, against the plain
+    versions on the CPU."""
+    from repro_torch.core.flatbuf import tree_flatten
+
+    cfg = _smoke_f32()
+    params = T.init_params(cfg, seed=0, device="cpu")
+    for seg in params["segments"]:  # nonzero biases
+        for name in ("bq", "bk", "bv"):
+            seg[name] += 0.05
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want_loss, want = _leaf_grads(params, cfg, batch)
+    got_loss, got = _leaf_grads(_to(params, cuda), cfg, _to(batch, cuda))
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    leaves = tree_flatten(params)[0]
+    assert len(got) == len(want) == len(leaves)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert scale > 0.0
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launches_and_matches_the_cpu(cuda, remat):
+    """One smoke-config ``train_step`` with two institutions on the card
+    against the CPU (AdamW eps 1e-3, as in the CPU parity test, so the
+    update is Lipschitz in the gradient), and the launches per step: K7
+    once per layer and institution (twice with remat), K8a and K8b once."""
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _smoke_f32(remat=remat)
+    opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33),
+                         generator=torch.Generator().manual_seed(1))
+    insts = [{"tokens": toks[j:j + 1, :-1], "labels": toks[j:j + 1, 1:]}
+             for j in range(2)]
+    params = T.init_params(cfg, seed=1, device="cpu")
+    card = _to(params, cuda)
+    p_cpu, _, m_cpu = train_step(params, adamw_init(params), insts, cfg, opt)
+    counters = (flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
+    before = [c.launches for c in counters]
+    p_gpu, _, m_gpu = train_step(card, adamw_init(card),
+                                 [_to(b, cuda) for b in insts], cfg, opt)
+    torch.cuda.synchronize()
+    runs = [c.launches - b for c, b in zip(counters, before)]
+    L = cfg.num_layers
+    assert runs == [L * 2 * (2 if remat else 1), L * 2, L * 2]
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
+    assert abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= 1e-4 * \
+        m_cpu["grad_norm"]
+    for g, w in zip(tree_flatten(p_gpu)[0], tree_flatten(p_cpu)[0]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6
+
+
+def test_k8_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(k8_mod, "flash_dq_plain", refuse)
+    monkeypatch.setattr(k8_mod, "flash_dkdv_plain", refuse)
+    monkeypatch.setattr(k7_mod, "flash_attention_plain", refuse)
+    x = torch.randn((1, 64, 4, 32), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 64, 2, 32), device=cuda, requires_grad=True)
+    o = ops.flash_attention(x, kv, kv)
+    torch.autograd.grad(o.sum(), (x, kv))
+    ops.flash_attention_bwd(x.detach(), kv.detach(), kv.detach(),
+                            torch.ones_like(x))
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.flash_attention_bwd(x.detach().cpu(), kv.detach().cpu(),
+                                kv.detach().cpu(), torch.ones_like(x).cpu())

@@ -18,7 +18,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
         "repro_torch.convert, repro_torch.data, repro_torch.runtime, "
         "repro_torch.core.multistudy, repro_torch.selection, "
-        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve\n"
+        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve, "
+        "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
+        "repro_torch.data.datasets, repro_torch.kernels.flash_attention_bwd\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -151,3 +153,28 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert serve.main(argv + ["--device", "cpu"])["tokens_generated"] == 4
+
+
+def test_the_walk_reaches_the_training_modules():
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"launch/train.py", "optim/adamw.py", "optim/compression.py",
+            "checkpoint/checkpointer.py", "data/datasets.py",
+            "kernels/flash_attention_bwd.py"} <= walked
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    """``train.main`` and ``run_lm`` (and the logreg pipeline) default to
+    the card: without one they raise; ``--device cpu`` trains."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "qwen2_5_32b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq-len", "8", "--institutions", "2"]
+    logreg = ["--arch", "logreg_paper", "--study", "parkinsons.total",
+              "--scale", "0.02"]
+    for call in (lambda: train.main(argv),
+                 lambda: train.run_lm(train.parse_args(argv)),
+                 lambda: train.main(logreg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert train.main(argv + ["--device", "cpu"])["steps"] == 1

@@ -269,9 +269,11 @@ def test_forward_matches_jax():
     jcfg, cfg, jparams, params = _jax_model("qwen2_5_32b", "float32")
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
                                              (2, 20)).astype(np.int32)
-    want, _ = JT.forward(jparams, jcfg, RULES, tokens=jnp.asarray(toks))
-    got = T.forward(params, cfg, torch.from_numpy(toks))
+    want, want_aux = JT.forward(jparams, jcfg, RULES,
+                                tokens=jnp.asarray(toks))
+    got, aux = T.forward(params, cfg, torch.from_numpy(toks))
     assert got.shape == (2, 20, cfg.vocab_size)
+    assert aux.dtype == torch.float32 and float(aux) == float(want_aux)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0,
                                atol=1e-4 * float(np.abs(_np(want)).max()))
 

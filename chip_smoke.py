@@ -7,7 +7,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
-   one process per source, all started together);
+   one process per source, all started together), then a
+   ``{"flash_ptxas": ...}`` line: each of the 16 flash-attention kernel
+   instantiations (K7, K8a, K8b; bf16 on the tensor cores for K7 and K8b,
+   float32 and K8a on the CUDA cores) with its ptxas registers, spill
+   bytes and shared memory; the tensor-core kernels at D <= 128 must not
+   spill;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it: K1 encode+share and K2 reveal bit-identical,
    K3 summaries within the stated tolerances; K5 cross-validated
@@ -65,8 +70,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    10.9 GB, drawn on the card from a seed): first K7 (causal flash
    attention) against its plain version at the serving shape (B 4, S
    2048, H 40, KVH 8, D 128, bf16), an H2O-like ragged shape (1, 1000,
-   32, 8, 120, bf16), MQA (2, 384, 4, 1, 64, f32) and an f32 many-block
-   case with score outliers (o within 2e-5 f32, 5e-3 + 1e-2 relative
+   32, 8, 120, bf16), MQA (2, 384, 4, 1, 64, f32), an f32 many-block
+   case with score outliers and a recurrentgemma-like head_dim 256 shape
+   (1, 2048, 16, 1, 256, bf16) (o within 2e-5 f32, 5e-3 + 1e-2 relative
    bf16, m and l within 1e-5 relative); then 8 requests in batches of 4,
    prompts of 2048 tokens, 32 greedy new tokens each, through
    ``launch.serve.serve_requests`` (prefill -> KV-cache decode): 256
@@ -99,7 +105,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    the card): the loss falls, one K1 and one K2 a step, exact wire bytes,
    and the step-0 secure mean gradient within S * 2^-28 of the plain mean;
 12. (printed last) one JSON line with each kernel's time, bound and
-   launches, K8a/K8b with the SDPA backward as their one library call.
+   launches, K8a/K8b with the SDPA backward as their one library call;
+   K7, K8a and K8b also at the head_dim 256 shape (``at_shapes``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -180,15 +187,21 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 2048, 32
 CONT_TOL, CONT_TOL_F32 = 2e-2, 1e-4
 # K7 against its plain version: (B, S, H, KVH, D, dtype, score outliers)
 # K7's o against its plain version, (abs, rel): float32 the JAX tests' own;
-# bf16 set from the measured error (1.95e-3 at most over these shapes on
-# the H100, under one bf16 unit in the last place of |o| < 2)
+# bf16 set from the measured error of the first, CUDA-core kernel (1.95e-3
+# at most over these shapes on the H100, under one bf16 unit in the last
+# place of |o| < 2); the tensor-core kernel, which also rounds P to bf16,
+# stays inside it (1.56e-2 at most, on outputs with |o| > 1)
 K7_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-3, 1e-2)}
 K7_CASES = (
     ("serving", 4, 2048, 40, 8, 128, "bfloat16", False),
     ("h2o-like ragged", 1, 1000, 32, 8, 120, "bfloat16", False),
     ("mqa", 2, 384, 4, 1, 64, "float32", False),
     ("outliers many-block", 1, 256, 2, 2, 32, "float32", True),
+    # recurrentgemma-like local attention (head_dim 256, window >= S)
+    ("d256", 1, 2048, 16, 1, 256, "bfloat16", False),
 )
+# the shapes phase 12 times besides each flash kernel's own path shape
+FLASH_TIMED = ("d256",)
 # K8a/K8b against their plain versions: K7's shapes and the training
 # shape; bf16 as K7, float32 within 2e-5 of the larger of max|plain out|
 # and max|do|
@@ -286,7 +299,7 @@ CATEGORIES = (
 # the serving run's categories (first hit): cuBLAS names its bf16 matmuls
 # nvjet_*, and the float32 products of decode attention gemmSN_*/gemv*
 SERVE_CATEGORIES = (
-    ("K7 flash_attention", ("flash_attention_fwd",)),
+    ("K7 flash_attention", ("flash_attention_fwd", "flash_fwd_bf16")),
     ("decode attention products (float32)", ("gemmSN", "gemv")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
                          "splitKreduce")),
@@ -298,9 +311,9 @@ SERVE_CATEGORIES = (
 # a training step's categories (first hit); the AdamW update is profiled
 # on its own, where every kernel is its elementwise work
 TRAIN_CATEGORIES = (
-    ("K7 flash_attention", ("flash_attention_fwd",)),
+    ("K7 flash_attention", ("flash_attention_fwd", "flash_fwd_bf16")),
     ("K8a flash_dq", ("flash_dq_kernel",)),
-    ("K8b flash_dkdv", ("flash_dkdv_kernel",)),
+    ("K8b flash_dkdv", ("flash_dkdv_kernel", "flash_dkdv_bf16")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
                          "splitKreduce")),
     ("softmax / log_softmax", ("softmax",)),
@@ -767,15 +780,16 @@ def multistudy_phase(dev, agg, parts, counts):
 
 
 def check_k7(dev):
-    """K7 against its plain version on the card at the four shapes of
-    ``K7_CASES``; returns (the largest |o - plain o| over them, the
-    serving shape's (q, k, v) for timing)."""
+    """K7 against its plain version on the card at the shapes of
+    ``K7_CASES``; returns (the largest |o - plain o| over them, the (q, k,
+    v) of the serving shape and of ``FLASH_TIMED`` by name, for
+    timing)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel, \
         flash_attention_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    err, serving = 0.0, None
+    err, timed = 0.0, {}
     for name, B, S_, H, KVH, Dh, dt, outliers in K7_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((B, S_, n, Dh), generator=gen, device=dev)
@@ -795,11 +809,11 @@ def check_k7(dev):
         check(bool(((l - lp).abs() <= 1e-5 * lp).all()),
               f"K7 {name} l err {float((l - lp).abs().max())}")
         err = max(err, float(do.max()))
-        if serving is None:
-            serving = (q, k, v)
+        if name == "serving" or name in FLASH_TIMED:
+            timed[name] = (q, k, v)
         del op, mp, lp
     torch.cuda.synchronize()
-    return err, serving
+    return err, timed
 
 
 def serving_phase(dev, smi, counts):
@@ -913,15 +927,15 @@ def serving_phase(dev, smi, counts):
 def check_k8(dev):
     """K8a and K8b against their plain versions on the card at the shapes
     of ``K8_CASES``, from K7's statistics; returns (the largest |dq|, |dk|,
-    |dv| error over them, the training shape's (q, k, v, do, m, linv,
-    delta) for timing)."""
+    |dv| error over them, the (q, k, v, do, m, linv, delta) of the
+    training shape and of ``FLASH_TIMED`` by name, for timing)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
         flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    err, training = 0.0, None
+    err, timed = 0.0, {}
     for name, B, S_, H, KVH, Dh, dt, outliers in K8_CASES:
         dtype = getattr(torch, dt)
         q, k, v, do = (torch.randn((B, S_, n, Dh), generator=gen,
@@ -947,11 +961,127 @@ def check_k8(dev):
                 check(bool((d <= atol + rtol * w.float().abs()).all()),
                       f"K8 {name} {what} err {float(d.max())}")
             err = max(err, float(d.max()))
-        if name == "training":
-            training = args
+        if name == "training" or name in FLASH_TIMED:
+            timed[name] = args
         del got, want
     torch.cuda.synchronize()
-    return err, training
+    return err, timed
+
+
+def k7_timing(args):
+    """Phase 12's K7 row on one shape's (q, k, v): the kernel, its plain
+    version, SDPA on the same tensors heads first (copied outside the
+    timing) and the bound: q, k, v read once, o written, m and l
+    (float32); the causal half, each allowed (query, key) pair 2 D for
+    q.k and 2 D for p v, at the bf16 tensor-core peak."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, \
+        flash_attention_plain
+
+    q, k, v = args
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+    return dict(
+        run=lambda: flash_attention_kernel(q, k, v),
+        plain=lambda: flash_attention_plain(q, k, v),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        bound=bound((2 * b * s * h * d + 2 * b * s * kvh * d)
+                    * q.element_size() + 2 * b * h * s * 4,
+                    bf16_ops=b * h * s * (s + 1) // 2 * 4 * d))
+
+
+def k8_timing(args):
+    """Phase 12's K8a and K8b rows on one shape's (q, k, v, do, m, linv,
+    delta), with SDPA's backward on the same tensors heads first as the
+    one library call for both (its forward runs once, outside the
+    timing).  Bounds: q, k, v, do (input dtype) and m, linv, delta
+    (float32) read once, the outputs written; per allowed pair K8a 6 D
+    (q.k, do.v, ds k), K8b 8 D (q.k, do.v, p do, ds q) at the bf16
+    tensor-core peak."""
+    import torch
+    from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
+        flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
+
+    q, k, v, do = args[:4]
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
+    n_in = ((2 * b * s * h * d + 2 * b * s * kvh * d) * q.element_size()
+            + 3 * b * h * s * 4)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in args[:3])
+    dot = do.transpose(1, 2).contiguous()
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_backward():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    return {
+        "K8a": dict(run=lambda: flash_dq_kernel(*args),
+                    plain=lambda: flash_dq_plain(*args),
+                    library=sdpa_backward,
+                    bound=bound(n_in + b * s * h * d * q.element_size(),
+                                bf16_ops=pairs * 6 * d)),
+        "K8b": dict(run=lambda: flash_dkdv_kernel(*args),
+                    plain=lambda: flash_dkdv_plain(*args),
+                    library=sdpa_backward,
+                    bound=bound(n_in + 2 * b * s * kvh * d * q.element_size(),
+                                bf16_ops=pairs * 8 * d)),
+    }
+
+
+def flash_ptxas(log_text: str, lib) -> list:
+    """Each flash kernel's registers, spill bytes and shared memory from
+    the build's ptxas report (``-Xptxas -v``): static shared memory as
+    ptxas counts it, and the dynamic bytes a launch at the instantiation's
+    largest head dim asks for (``repro_k7_smem_bytes`` /
+    ``repro_k8_smem_bytes``)."""
+    import re
+
+    names = (  # mangled prefix -> (label, smem query(D), largest D)
+        (r"flash_fwd_bf16_kernelILi(\d+)E", "K7 bf16 tensor cores",
+         lambda d: lib.repro_k7_smem_bytes(d, 1)),
+        (r"flash_attention_fwd_kernelILi(\d+)E", "K7 f32 CUDA cores",
+         lambda d: lib.repro_k7_smem_bytes(d, 0)),
+        (r"flash_dq_kernelIfLi\d+ELi(\d+)E", "K8a f32 CUDA cores",
+         lambda d: lib.repro_k8_smem_bytes(0, d, 0)),
+        (r"flash_dq_kernelI13__nv_bfloat16Li\d+ELi(\d+)E",
+         "K8a bf16 CUDA cores", lambda d: lib.repro_k8_smem_bytes(0, d, 1)),
+        (r"flash_dkdv_bf16_kernelILi(\d+)E", "K8b bf16 tensor cores",
+         lambda d: lib.repro_k8_smem_bytes(1, d, 1)),
+        (r"flash_dkdv_kernelILi\d+ELi(\d+)E", "K8b f32 CUDA cores",
+         lambda d: lib.repro_k8_smem_bytes(1, d, 0)),
+    )
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            cur = None
+            for pat, label, smem in names:
+                hit = re.search(pat, m.group(1))
+                if hit:
+                    # the template argument: the tensor-core kernels' head
+                    # dim, the CUDA-core kernels' columns a thread (16 each)
+                    n = int(hit.group(1))
+                    d = n if "tensor" in label else 16 * n
+                    cur = {"kernel": f"{label}, D <= {d}", "registers": None,
+                           "spill_stores": None, "spill_loads": None,
+                           "smem_static": 0, "smem_dynamic": smem(d)}
+                    out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_static"] = int(m.group(1)) if m else 0
+    return out
 
 
 def grad_check(dev):
@@ -1221,6 +1351,15 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s; ptxas: "
           + " | ".join(ptxas))
+    flash = flash_ptxas(_build.build_log().read_text(), _build.library())
+    print(json.dumps({"flash_ptxas": flash}))
+    for r in flash:
+        check(r["registers"] is not None and r["spill_stores"] is not None,
+              f"no ptxas report for {r['kernel']}")
+        if "tensor" in r["kernel"] and r["kernel"].endswith("D <= 128"):
+            check(r["spill_stores"] == r["spill_loads"] == 0,
+                  f"{r['kernel']} spills: {r}")
+    check(len(flash) == 16, f"{len(flash)} flash kernels in the ptxas report")
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
     study = generate_synthetic(SEED, num_institutions=1,
@@ -1614,28 +1753,9 @@ def main() -> int:
     k4_r, k4_tm1, k4_n = k4_coeffs.shape
     X6, w6 = k6_args
     n6 = X6.shape[0]
-    q7, k7, v7 = k7_args
-    b7, s7, h7, d7 = q7.shape
-    kvh7 = k7.shape[2]
-    # SDPA on the same bf16 tensors, heads first (copied outside the timing)
-    q7t, k7t, v7t = (t.transpose(1, 2).contiguous() for t in k7_args)
-    q8, k8, v8, do8 = k8_args[:4]
-    b8, s8, h8, d8 = q8.shape
-    kvh8 = k8.shape[2]
-    pairs8 = b8 * h8 * s8 * (s8 + 1) // 2  # allowed (query, key) pairs
-    in8 = ((2 * b8 * s8 * h8 * d8 + 2 * b8 * s8 * kvh8 * d8)
-           * q8.element_size() + 3 * b8 * h8 * s8 * 4)
-    # SDPA's backward on the same bf16 tensors, heads first: one call for
-    # both kernels (its forward runs once, outside the timing)
-    q8t, k8t, v8t = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                     for t in k8_args[:3])
-    do8t = do8.transpose(1, 2).contiguous()
-    o8t = torch.nn.functional.scaled_dot_product_attention(
-        q8t, k8t, v8t, is_causal=True, enable_gqa=True)
-
-    def sdpa_backward():
-        return torch.autograd.grad(o8t, (q8t, k8t, v8t), do8t,
-                                   retain_graph=True)
+    k7_main = k7_timing(k7_args["serving"])
+    k8_main = k8_timing(k8_args["training"])
+    k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
              path="secure_fit",
@@ -1715,40 +1835,18 @@ def main() -> int:
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             run=lambda: flash_attention_kernel(q7, k7, v7),
-             plain=lambda: flash_attention_plain(q7, k7, v7),
-             library=lambda: torch.nn.functional.scaled_dot_product_attention(
-                 q7t, k7t, v7t, is_causal=True, enable_gqa=True),
-             err=k7_err,
-             # q, k, v read once, o written (bf16), m and l (float32); the
-             # causal half: each allowed (query, key) pair costs 2 D for
-             # q.k and 2 D for p v, bf16 products at the tensor-core peak
-             bound=bound((2 * b7 * s7 * h7 * d7 + 2 * b7 * s7 * kvh7 * d7)
-                         * q7.element_size() + 2 * b7 * h7 * s7 * 4,
-                         bf16_ops=b7 * h7 * s7 * (s7 + 1) // 2 * 4 * d7)),
+             err=k7_err, **k7_main,
+             shapes={n: k7_timing(k7_args[n]) for n in FLASH_TIMED}),
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:145",
-             run=lambda: flash_dq_kernel(*k8_args),
-             plain=lambda: flash_dq_plain(*k8_args),
-             library=sdpa_backward, library_covers="K8a + K8b",
-             err=k8_err,
-             # q, k, v, do read once (bf16), m, linv, delta (float32), dq
-             # written; per allowed pair 2 D for q.k, 2 D for do.v and 2 D
-             # for ds k, bf16 products at the tensor-core peak
-             bound=bound(in8 + b8 * s8 * h8 * d8 * q8.element_size(),
-                         bf16_ops=pairs8 * 6 * d8)),
+             library_covers="K8a + K8b", err=k8_err, **k8_main["K8a"],
+             shapes={n: k8_shapes[n]["K8a"] for n in FLASH_TIMED}),
         dict(name="K8b flash_dkdv", fn=flash_dkdv_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:188",
-             run=lambda: flash_dkdv_kernel(*k8_args),
-             plain=lambda: flash_dkdv_plain(*k8_args),
-             library=sdpa_backward, library_covers="K8a + K8b",
-             err=k8_err,
-             # the same reads, dk and dv written; per allowed pair q.k,
-             # do.v, p do and ds q, 2 D each
-             bound=bound(in8 + 2 * b8 * s8 * kvh8 * d8 * q8.element_size(),
-                         bf16_ops=pairs8 * 8 * d8)),
+             library_covers="K8a + K8b", err=k8_err, **k8_main["K8b"],
+             shapes={n: k8_shapes[n]["K8b"] for n in FLASH_TIMED}),
     ]
     by_path = {"secure_fit": launches, "lambda_path": path_launches,
                "leafwise": leaf_launches, "gram": gram_launches,
@@ -1765,6 +1863,14 @@ def main() -> int:
         bound_ms, bound_by = e["bound"]
         more = {k: cuda_times(fn, 30)[0]
                 for k, fn in e.get("more", {}).items()}
+        at_shapes = {}
+        for k, sh in e.get("shapes", {}).items():
+            b_ms, b_by = sh["bound"]
+            at_shapes[k] = {
+                "ms": cuda_times(sh["run"], 30)[0],
+                "plain_ms": cuda_times(sh["plain"], 20)[0],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_times(sh["library"], 20)[0]}
         kernels.append({
             "name": e["name"], "route": "cuda", "source": e["source"],
             "replaces": e["replaces"],
@@ -1779,13 +1885,16 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "call_ms": call_ms,
             **({"ms_by_shape": more} if more else {}),
+            **({"at_shapes": at_shapes} if at_shapes else {}),
             **({"library_covers": e["library_covers"]}
                if "library_covers" in e else {}),
         })
     k8_ms = {k["name"]: k for k in kernels if k["name"].startswith("K8")}
+    b8, s8, h8, d8 = k8_args["training"][0].shape
     print(f"K8a + K8b {k8_ms['K8a flash_dq']['ms'] + k8_ms['K8b flash_dkdv']['ms']:.5f} "
           f"ms vs the SDPA backward {k8_ms['K8a flash_dq']['library_ms']:.5f} ms "
-          f"(B {b8}, S {s8}, H {h8}, KVH {kvh8}, D {d8}, bf16)")
+          f"(B {b8}, S {s8}, H {h8}, KVH {k8_args['training'][1].shape[2]}, "
+          f"D {d8}, bf16)")
     print(json.dumps({
         "kernels": kernels,
         "fit_seconds_per_iter": fit_s / res.iterations,

@@ -10,41 +10,63 @@
 //   K8a:  dq_i = scale * sum_j ds_ij k_j
 //   K8b:  dk_j = scale * sum_{g, i} ds_ij q_i,   dv_j = sum_{g, i} p_ij do_i
 //
-// q, do (B, S, H, D) and k, v (B, S, KVH, D) in float32 or bfloat16 are
-// read by stride as they lie (no transpose, no padding of S or D); m,
-// linv, delta are (B, H, S) float32; dq comes back as (B, S, H, D) and dk,
-// dv as (B, S, KVH, D), in the input dtype, rounded once at the end.  All
-// arithmetic is float32; the scores never leave the block.
+// q, do (B, S, H, D) and k, v (B, S, KVH, D) in float32 or bfloat16, D <=
+// 256, are read by stride as they lie (no transpose, no padding of S or D
+// in device memory); m, linv, delta are (B, H, S) float32; dq comes back
+// as (B, S, H, D) and dk, dv as (B, S, KVH, D), in the input dtype,
+// rounded once at the end.  The scores never leave the block.
 //
 // What bounds them on the H100: operations.  Each allowed query-key pair
 // costs 6 D multiply-adds in K8a (q.k, do.v, ds k) and 8 D in K8b (q.k,
 // do.v, p do, ds q) against a few bytes per element of q, k, v, do and
-// the outputs.  These simple kernels run the products on CUDA cores
-// (no tensor cores, TMA or warp specialisation) and read both operands
-// of every multiply-add from shared memory, so they run well below the
-// float32 peak, like K7.
+// the outputs.
 //
-// Design.  The TPU kernels carried their accumulators in scratch across a
-// sequential grid axis; Hopper's blocks run in no order, so each block
-// owns its output rows and loops itself:
-//  * K8a: one block per (batch*head, 64-row query block), looping over
-//    the 64-row key blocks up to the diagonal, as K7 does.  It stages the
+// K8b in bfloat16 runs on the tensor cores (flash_dkdv_bf16_kernel):
+// mma.sync m16n8k16, bf16 in, float32 accumulate.  One block of 8 warps
+// per (batch*kv_head, key tile of BK = 64 keys, 32 at D 256) holds the K
+// and V tiles and loops over the G query heads of its group and, for
+// each, over the 64-row query tiles from the diagonal to S, so the group
+// sum stays in registers: no partials in device memory, no atomics.  The
+// q and do tiles and the rows of m, linv and delta go through a two-stage
+// cp.async ring across that loop (the loads of step t + 1 are issued
+// before step t is computed).  Each step:
+//  * S^T = K Q^T and dP^T = V dO^T (B from q and do with ldmatrix); the
+//    8 warps split the BK x 64 tile into 16-key x (64 / (8 / (BK / 16)))
+//    query patches, K and V as A fragments (kept in registers at D <=
+//    128);
+//  * P^T = exp(scale S^T - m) linv, masked only on the diagonal tile, and
+//    dS^T = P^T (dP^T - delta), in float32 on the C fragments;
+//  * dV += P^T dO and dK += dS^T Q, with dO and Q read by ldmatrix.trans.
+//    The dK and dV accumulators (2 x BK x D float32) are split across the
+//    warps by columns: the warp with key rows r and column slice c holds
+//    only that slice (64 floats a thread at D 128 and at D 256), so P^T and
+//    dS^T, which every column slice needs, go through shared memory.  They
+//    are stored as two bf16 terms each (x = hi + lo, lo the rounding rest),
+//    and both terms are multiplied: one bf16 rounding of P or dS alone
+//    misses the 5e-3 + 1e-2 relative tolerance on the sums over a long
+//    query range; the split error is ~2^-16.
+// dK is scaled once, in float32, in the epilogue.  Load balance: the key
+// tiles' lengths fall linearly (tile 0 runs G * S / 64 steps, the last G);
+// the grid dispatches every (batch, kv_head)'s longest tile first, so the
+// longest-processing-time order keeps the SMs busy to within about one
+// step of the mean at the training shape (256 blocks, one per SM).
+//
+// The other instantiations run on the CUDA cores with float32 tiles
+// (tensor cores would compute float32 in TF32, which breaks the float32
+// tolerance): 256 threads as a 16 x 16 grid each own a (ROWS / 16)^2
+// patch of a ROWS x ROWS tile and NC columns (tx + 16 c) of the
+// accumulator rows; ROWS is 64 for D <= 128 and 32 above, so the staged
+// tiles fit the 227 KB a block may use.
+//  * K8a (both dtypes): one block per (batch*head, query block), looping
+//    over the key blocks up to the diagonal as K7 does: it stages the
 //    scaled q tile and the do tile once, each k/v tile per key block,
-//    forms the 64 x 64 scores and do.v^T together, writes ds over the v
-//    tile (its reads are done) and accumulates ds k into registers.
-//  * K8b: one block per (batch*kv_head, 64-row key block), holding the k
-//    and v tiles and looping over the G query heads of its group and,
-//    for each, over the query blocks from the diagonal to S.  The group
-//    sum stays in the block's registers: no G x partials in device
-//    memory and no atomics.  It forms p^T and ds^T (keys x queries) in
-//    shared memory and accumulates p^T do and ds^T (scale q).
-// 256 threads as a 16 x 16 grid each own a 4 x 4 patch of a 64 x 64 tile
-// (rows ty + 16 i, columns tx + 16 j) and 4 rows x 8 columns (tx + 16 c)
-// of each accumulator.  K8b holds four staged tiles, p^T and ds^T (166 KB
-// of shared memory at D = 128) and K8a three tiles and ds (132 KB): both
-// run one block per SM.  The grid's x axis is the (batch, head) slice so
-// that every slice's longest block (K8a: the last query block; K8b: the
-// first key block) is dispatched before any shorter one.
+//    forms the scores and do.v^T together, writes ds over the v tile and
+//    accumulates ds k into registers.
+//  * K8b (float32): one block per (batch*kv_head, key block), looping over
+//    the group's heads and the query blocks from the diagonal, forming p^T
+//    and ds^T in shared memory and accumulating p^T do and ds^T (scale q).
+// Both put the (batch, head) slice on the grid's x axis, so every slice's
+// longest block is dispatched before any shorter one.
 #include "flash_common.cuh"
 
 struct K8Dims {
@@ -52,26 +74,30 @@ struct K8Dims {
   float scale;
 };
 
-// floats of a tile region that holds a D-wide tile or a 64 x 64 one
+// ------------------------------------------------ CUDA-core kernels
+
+// floats of a tile region that holds a D-wide tile or a ROWS x ROWS one
+template <int ROWS>
 __host__ __device__ __forceinline__ int k8_tile_floats(int D) {
-  const int w = (D + 1) > (FLASH_ROWS + 1) ? (D + 1) : (FLASH_ROWS + 1);
-  return FLASH_ROWS * w;
+  const int w = (D + 1) > (ROWS + 1) ? (D + 1) : (ROWS + 1);
+  return ROWS * w;
 }
 
-template <typename T>
+template <typename T, int ROWS, int NC>
 __global__ void __launch_bounds__(FLASH_THREADS, 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ m, const float* __restrict__ linv,
                 const float* __restrict__ delta, T* __restrict__ dq,
                 K8Dims P) {
+  constexpr int RI = ROWS / 16;  // patch rows and columns a thread owns
   extern __shared__ __align__(16) float smem[];
   const int DP = P.D + 1;
-  const int PS = FLASH_ROWS + 1;
-  float* Qs = smem;                      // 64 x DP, pre-scaled
-  float* dOs = Qs + FLASH_ROWS * DP;     // 64 x DP
-  float* Ks = dOs + FLASH_ROWS * DP;     // 64 x DP
-  float* Vs = Ks + FLASH_ROWS * DP;      // 64 x DP; then ds, 64 x PS
+  const int PS = ROWS + 1;
+  float* Qs = smem;                // ROWS x DP, pre-scaled
+  float* dOs = Qs + ROWS * DP;     // ROWS x DP
+  float* Ks = dOs + ROWS * DP;     // ROWS x DP
+  float* Vs = Ks + ROWS * DP;      // ROWS x DP; then ds, ROWS x PS
   float* dSs = Vs;
 
   const int bh = blockIdx.x;
@@ -79,58 +105,58 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / P.H, h = bh - b * P.H;
   const int kvh = h / P.group;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qb * FLASH_ROWS;
+  const int q0 = qb * ROWS;
   const long long q_stride = (long long)P.H * P.D;
   const long long kv_stride = (long long)P.KVH * P.D;
   const long long q_off = (long long)b * P.S * q_stride + (long long)h * P.D;
   const long long kv_off =
       (long long)b * P.S * kv_stride + (long long)kvh * P.D;
 
-  flash_load_tile(Qs, q + q_off, q0, P.S, q_stride, P.D, P.scale);
-  flash_load_tile(dOs, dout + q_off, q0, P.S, q_stride, P.D, 1.f);
+  flash_load_tile<ROWS>(Qs, q + q_off, q0, P.S, q_stride, P.D, P.scale);
+  flash_load_tile<ROWS>(dOs, dout + q_off, q0, P.S, q_stride, P.D, 1.f);
 
-  float m_i[4], li_i[4], dl_i[4], acc[4][FLASH_NC];
+  float m_i[RI], li_i[RI], dl_i[RI], acc[RI][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     const long long si = (long long)bh * P.S + qp;
     m_i[i] = qp < P.S ? m[si] : 0.f;
     li_i[i] = qp < P.S ? linv[si] : 0.f;
     dl_i[i] = qp < P.S ? delta[si] : 0.f;
 #pragma unroll
-    for (int c = 0; c < FLASH_NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int q_last = min(q0 + FLASH_ROWS, P.S) - 1;
-  const int nkb = q_last / FLASH_ROWS + 1;  // key blocks up to the diagonal
+  const int q_last = min(q0 + ROWS, P.S) - 1;
+  const int nkb = q_last / ROWS + 1;  // key blocks up to the diagonal
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * FLASH_ROWS;
+    const int k0 = kb * ROWS;
     __syncthreads();  // the previous key block's readers are done
-    flash_load_tile_pair(Ks, Vs, k + kv_off, v + kv_off, k0, P.S, kv_stride,
-                         P.D);
+    flash_load_tile_pair<ROWS>(Ks, Vs, k + kv_off, v + kv_off, k0, P.S,
+                               kv_stride, P.D);
     __syncthreads();
 
-    float sc[4][4], dp[4][4];
+    float sc[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) sc[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < P.D; ++d) {
-      float a[4], o[4], bk[4], bv[4];
+      float a[RI], o[RI], bk[RI], bv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         a[i] = Qs[(ty + 16 * i) * DP + d];
         o[i] = dOs[(ty + 16 * i) * DP + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         bk[j] = Ks[(tx + 16 * j) * DP + d];
         bv[j] = Vs[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
           dp[i][j] = fmaf(o[i], bv[j], dp[i][j]);
         }
@@ -138,10 +164,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every read of Vs is done: ds may overwrite it
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qp = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool allowed = kp <= qp && qp < P.S;
         const float p = allowed ? expf(sc[i][j] - m_i[i]) * li_i[i] : 0.f;
@@ -150,74 +176,76 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // the ds tile is complete
 
-    for (int t = 0; t < FLASH_ROWS; ++t) {
-      float ds[4];
+    for (int t = 0; t < ROWS; ++t) {
+      float ds[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * PS + t];
+      for (int i = 0; i < RI; ++i) ds[i] = dSs[(ty + 16 * i) * PS + t];
 #pragma unroll
-      for (int c = 0; c < FLASH_NC; ++c) {
+      for (int c = 0; c < NC; ++c) {
         const int col = tx + 16 * c;
         const float kk = col < P.D ? Ks[t * DP + col] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
+        for (int i = 0; i < RI; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= P.S) continue;
     T* row = dq + q_off + (long long)qp * q_stride;
 #pragma unroll
-    for (int c = 0; c < FLASH_NC; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < P.D) row[col] = from_f32<T>(acc[i][c] * P.scale);
     }
   }
 }
 
-template <typename T>
+template <int ROWS, int NC>
 __global__ void __launch_bounds__(FLASH_THREADS, 1)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
                   const float* __restrict__ m,
                   const float* __restrict__ linv,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, K8Dims P) {
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, K8Dims P) {
+  constexpr int RI = ROWS / 16;
   extern __shared__ __align__(16) float smem[];
   const int DP = P.D + 1;
-  const int PS = FLASH_ROWS + 1;
-  float* Ks = smem;                      // 64 x DP (keys)
-  float* Vs = Ks + FLASH_ROWS * DP;      // 64 x DP
-  float* Qs = Vs + FLASH_ROWS * DP;      // 64 x DP (queries), pre-scaled
-  float* dOs = Qs + FLASH_ROWS * DP;     // 64 x DP
-  float* PT = dOs + FLASH_ROWS * DP;     // 64 x PS: p^T (keys x queries)
-  float* dST = PT + FLASH_ROWS * PS;     // 64 x PS: ds^T
-  float* ms = dST + FLASH_ROWS * PS;     // 64: the query rows' m
-  float* ls = ms + FLASH_ROWS;           // 64: linv
-  float* dls = ls + FLASH_ROWS;          // 64: delta
+  const int PS = ROWS + 1;
+  float* Ks = smem;                // ROWS x DP (keys)
+  float* Vs = Ks + ROWS * DP;      // ROWS x DP
+  float* Qs = Vs + ROWS * DP;      // ROWS x DP (queries), pre-scaled
+  float* dOs = Qs + ROWS * DP;     // ROWS x DP
+  float* PT = dOs + ROWS * DP;     // ROWS x PS: p^T (keys x queries)
+  float* dST = PT + ROWS * PS;     // ROWS x PS: ds^T
+  float* ms = dST + ROWS * PS;     // ROWS: the query rows' m
+  float* ls = ms + ROWS;           // ROWS: linv
+  float* dls = ls + ROWS;          // ROWS: delta
 
   const int bkv = blockIdx.x;
   const int kb = blockIdx.y;  // key block 0 has the most query blocks
   const int b = bkv / P.KVH, kvh = bkv - b * P.KVH;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = kb * FLASH_ROWS;
+  const int k0 = kb * ROWS;
   const long long q_stride = (long long)P.H * P.D;
   const long long kv_stride = (long long)P.KVH * P.D;
   const long long kv_off =
       (long long)b * P.S * kv_stride + (long long)kvh * P.D;
 
-  flash_load_tile_pair(Ks, Vs, k + kv_off, v + kv_off, k0, P.S, kv_stride,
-                       P.D);
+  flash_load_tile_pair<ROWS>(Ks, Vs, k + kv_off, v + kv_off, k0, P.S,
+                             kv_stride, P.D);
 
-  float acc_k[4][FLASH_NC], acc_v[4][FLASH_NC];
+  float acc_k[RI][NC], acc_v[RI][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int c = 0; c < FLASH_NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  const int nqb = (P.S + FLASH_ROWS - 1) / FLASH_ROWS;
+  const int nqb = (P.S + ROWS - 1) / ROWS;
   for (int g = 0; g < P.group; ++g) {
     const int h = kvh * P.group + g;
     const long long bh = (long long)b * P.H + h;
@@ -226,11 +254,11 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // query blocks from the diagonal on (earlier ones see none of these
     // keys)
     for (int qb = kb; qb < nqb; ++qb) {
-      const int q0 = qb * FLASH_ROWS;
+      const int q0 = qb * ROWS;
       __syncthreads();  // the previous query block's readers are done
-      flash_load_tile(Qs, q + q_off, q0, P.S, q_stride, P.D, P.scale);
-      flash_load_tile(dOs, dout + q_off, q0, P.S, q_stride, P.D, 1.f);
-      for (int r = threadIdx.x; r < FLASH_ROWS; r += FLASH_THREADS) {
+      flash_load_tile<ROWS>(Qs, q + q_off, q0, P.S, q_stride, P.D, P.scale);
+      flash_load_tile<ROWS>(dOs, dout + q_off, q0, P.S, q_stride, P.D, 1.f);
+      for (int r = threadIdx.x; r < ROWS; r += FLASH_THREADS) {
         const int qp = q0 + r;
         const long long si = bh * P.S + qp;
         ms[r] = qp < P.S ? m[si] : 0.f;
@@ -239,37 +267,37 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      float st[4][4], dpt[4][4];
+      float st[RI][RI], dpt[RI][RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < RI; ++j) st[i][j] = dpt[i][j] = 0.f;
       for (int d = 0; d < P.D; ++d) {
-        float a[4], av[4], bq[4], bo[4];
+        float a[RI], av[RI], bq[RI], bo[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           a[i] = Ks[(ty + 16 * i) * DP + d];
           av[i] = Vs[(ty + 16 * i) * DP + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           bq[j] = Qs[(tx + 16 * j) * DP + d];
           bo[j] = dOs[(tx + 16 * j) * DP + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < RI; ++j) {
             st[i][j] = fmaf(a[i], bq[j], st[i][j]);
             dpt[i][j] = fmaf(av[i], bo[j], dpt[i][j]);
           }
       }
 
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int kp = k0 + ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int r = tx + 16 * j;
           const int qp = q0 + r;
           const bool allowed = kp <= qp && qp < P.S;
@@ -280,20 +308,20 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();  // p^T and ds^T are complete
 
-      for (int t = 0; t < FLASH_ROWS; ++t) {
-        float pt[4], dst[4];
+      for (int t = 0; t < ROWS; ++t) {
+        float pt[RI], dst[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           pt[i] = PT[(ty + 16 * i) * PS + t];
           dst[i] = dST[(ty + 16 * i) * PS + t];
         }
 #pragma unroll
-        for (int c = 0; c < FLASH_NC; ++c) {
+        for (int c = 0; c < NC; ++c) {
           const int col = tx + 16 * c;
           const float oo = col < P.D ? dOs[t * DP + col] : 0.f;
           const float qq = col < P.D ? Qs[t * DP + col] : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RI; ++i) {
             acc_v[i][c] = fmaf(pt[i], oo, acc_v[i][c]);
             acc_k[i][c] = fmaf(dst[i], qq, acc_k[i][c]);
           }
@@ -303,26 +331,262 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= P.S) continue;
     const long long off = kv_off + (long long)kp * kv_stride;
 #pragma unroll
-    for (int c = 0; c < FLASH_NC; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < P.D) {
         // q was staged pre-scaled, so acc_k already carries the scale
-        dk[off + col] = from_f32<T>(acc_k[i][c]);
-        dv[off + col] = from_f32<T>(acc_v[i][c]);
+        dk[off + col] = acc_k[i][c];
+        dv[off + col] = acc_v[i][c];
       }
     }
   }
 }
 
+// ------------------------------------------- K8b, bfloat16, tensor cores
+
+#define K8_TC_THREADS 256  // 8 warps
+#define K8_BQ 64           // query rows a step
+
+template <int DP>
+struct K8Tile {
+  static constexpr int BK = DP > 128 ? 32 : 64;  // key rows a block
+  static constexpr int LD = DP + 8;              // bf16 per q/do/k/v row
+  static constexpr int PLD = K8_BQ + 8;          // bf16 per P^T/dS^T row
+  // K, V; two stages of q and do; P^T and dS^T as hi and lo terms; two
+  // stages of (m, linv, delta) rows
+  static constexpr int smem_bytes =
+      (2 * BK * LD + 4 * K8_BQ * LD + 4 * BK * PLD) * 2 + 2 * 3 * K8_BQ * 4;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(K8_TC_THREADS, 1)
+flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ m,
+                       const float* __restrict__ linv,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       K8Dims P) {
+  constexpr int BQ = K8_BQ, BK = K8Tile<DP>::BK, LD = K8Tile<DP>::LD,
+                PLD = K8Tile<DP>::PLD;
+  constexpr int NT = K8_TC_THREADS;
+  constexpr int KG = BK / 16;    // 16-key row groups
+  constexpr int WG = 8 / KG;     // warps sharing a row group
+  constexpr int QW = BQ / WG;    // queries of a warp's score patch
+  constexpr int CW = DP / WG;    // accumulator columns a warp owns
+  constexpr int NQT = QW / 8;    // query n-tiles of the score patch
+  constexpr int NCT = CW / 8;    // column n-tiles of the accumulators
+  constexpr int KD = DP / 16;    // k-steps over the head dim
+  constexpr bool KV_IN_REGS = DP <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
+  bf16* Vs = Ks + BK * LD;                        // BK x LD
+  bf16* Qs = Vs + BK * LD;                        // 2 stages of BQ x LD
+  bf16* dOs = Qs + 2 * BQ * LD;                   // 2 stages of BQ x LD
+  bf16* PT = dOs + 2 * BQ * LD;                   // BK x PLD, hi then lo
+  bf16* dST = PT + 2 * BK * PLD;                  // BK x PLD, hi then lo
+  float* stats = reinterpret_cast<float*>(dST + 2 * BK * PLD);  // 2 x 3 x BQ
+
+  const int bkv = blockIdx.x;
+  const int kb = blockIdx.y;  // key tile 0 has the most query tiles
+  const int b = bkv / P.KVH, kvh = bkv - b * P.KVH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kr = 16 * (warp % KG);  // the warp's key rows in the tile
+  const int qc = QW * (warp / KG);  // its score patch's first query
+  const int cc = CW * (warp / KG);  // its accumulator columns
+  const int k0 = kb * BK;
+  const long long q_stride = (long long)P.H * P.D;
+  const long long kv_stride = (long long)P.KVH * P.D;
+  const long long kv_off =
+      (long long)b * P.S * kv_stride + (long long)kvh * P.D;
+  const bool vec = (P.D & 7) == 0;
+
+  // query tiles from the one holding key k0 to the end, for each head
+  const int qb0 = k0 / BQ;
+  const int nq = (P.S + BQ - 1) / BQ - qb0;
+  const int nsteps = P.group * nq;
+
+  // stage step t's q and do tiles and stat rows into ring slot ``slot``
+  auto prefetch = [&](int t, int slot) {
+    const int g = t / nq;
+    const int q0 = (qb0 + t - g * nq) * BQ;
+    const int h = kvh * P.group + g;
+    const long long q_off =
+        (long long)b * P.S * q_stride + (long long)h * P.D;
+    flash_stage_bf16<BQ, DP, LD, NT>(Qs + slot * BQ * LD, q + q_off, q0, P.S,
+                                     q_stride, P.D, vec);
+    flash_stage_bf16<BQ, DP, LD, NT>(dOs + slot * BQ * LD, dout + q_off, q0,
+                                     P.S, q_stride, P.D, vec);
+    const long long si = ((long long)b * P.H + h) * P.S;
+    for (int i = threadIdx.x; i < 3 * BQ; i += NT) {
+      const int which = i / BQ, r = i - which * BQ;
+      const float* src = which == 0 ? m : which == 1 ? linv : delta;
+      const bool in = q0 + r < P.S;
+      cp_async4(smem_u32(stats + (slot * 3 + which) * BQ + r),
+                in ? src + si + q0 + r : src, in ? 4 : 0);
+    }
+  };
+
+  flash_stage_bf16<BK, DP, LD, NT>(Ks, k + kv_off, k0, P.S, kv_stride, P.D,
+                                   vec);
+  flash_stage_bf16<BK, DP, LD, NT>(Vs, v + kv_off, k0, P.S, kv_stride, P.D,
+                                   vec);
+  prefetch(0, 0);
+  cp_async_commit();
+
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3),
+            b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3),
+            t_col = (lane >> 4) * 8;
+
+  float acc_k[NCT][4], acc_v[NCT][4];
+#pragma unroll
+  for (int n = 0; n < NCT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  uint32_t kf[KV_IN_REGS ? KD : 1][4], vf[KV_IN_REGS ? KD : 1][4];
+  const float sl2 = P.scale * FLASH_LOG2E;
+
+  for (int t = 0; t < nsteps; ++t) {
+    const int slot = t & 1;
+    if (t + 1 < nsteps) prefetch(t + 1, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step t's tiles (and K, V) have landed
+    __syncthreads();
+    if constexpr (KV_IN_REGS) {
+      if (t == 0) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          ldsm_x4(kf[kd], smem_u32(Ks + (kr + a_row) * LD + kd * 16 + a_col));
+          ldsm_x4(vf[kd], smem_u32(Vs + (kr + a_row) * LD + kd * 16 + a_col));
+        }
+      }
+    }
+    const bf16* Qt = Qs + slot * BQ * LD;
+    const bf16* dOt = dOs + slot * BQ * LD;
+    const float* m_s = stats + slot * 3 * BQ;
+    const float* li_s = m_s + BQ;
+    const float* dl_s = li_s + BQ;
+    const int q0 = (qb0 + t % nq) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T on the warp's 16 keys x QW queries
+    float s[NQT][4], dp[NQT][4];
+#pragma unroll
+    for (int n = 0; n < NQT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t ka[4], va[4];
+      if constexpr (KV_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ka[e] = kf[kd][e];
+          va[e] = vf[kd][e];
+        }
+      } else {
+        ldsm_x4(ka, smem_u32(Ks + (kr + a_row) * LD + kd * 16 + a_col));
+        ldsm_x4(va, smem_u32(Vs + (kr + a_row) * LD + kd * 16 + a_col));
+      }
+#pragma unroll
+      for (int np = 0; np < NQT / 2; ++np) {
+        const int off = (qc + np * 16 + b_row) * LD + kd * 16 + b_col;
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, smem_u32(Qt + off));
+        ldsm_x4(bo, smem_u32(dOt + off));
+        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * np], va, bo[0], bo[1]);
+        mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // P^T and dS^T in float32, stored as bf16 hi and lo terms
+    const bool diag = q0 < k0 + BK - 1;
+#pragma unroll
+    for (int n = 0; n < NQT; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = kr + gid + 8 * hr;
+        const int col = qc + n * 8 + 2 * tig;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col + e;
+          float x = fast_exp2(fmaf(s[n][2 * hr + e], sl2,
+                                   -m_s[c] * FLASH_LOG2E)) *
+                    li_s[c];
+          if (diag && k0 + row > q0 + c) x = 0.f;
+          p[e] = x;
+          ds[e] = x * (dp[n][2 * hr + e] - dl_s[c]);
+        }
+        const int at = row * PLD + col;
+        *reinterpret_cast<uint32_t*>(PT + at) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(PT + BK * PLD + at) =
+            pack_bf16_rest(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dST + at) = pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(dST + BK * PLD + at) =
+            pack_bf16_rest(ds[0], ds[1]);
+      }
+    __syncthreads();  // P^T and dS^T are complete
+
+    // dV += P^T dO and dK += dS^T Q on the warp's 16 keys x CW columns
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const int aoff = (kr + a_row) * PLD + kk * 16 + a_col;
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      ldsm_x4(ph, smem_u32(PT + aoff));
+      ldsm_x4(pl, smem_u32(PT + BK * PLD + aoff));
+      ldsm_x4(sh, smem_u32(dST + aoff));
+      ldsm_x4(sl, smem_u32(dST + BK * PLD + aoff));
+#pragma unroll
+      for (int cp = 0; cp < NCT / 2; ++cp) {
+        const int boff = (kk * 16 + t_row) * LD + cc + cp * 16 + t_col;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, smem_u32(dOt + boff));
+        ldsm_x4_t(bq, smem_u32(Qt + boff));
+        mma_bf16(acc_v[2 * cp], ph, bo[0], bo[1]);
+        mma_bf16(acc_v[2 * cp + 1], ph, bo[2], bo[3]);
+        mma_bf16(acc_v[2 * cp], pl, bo[0], bo[1]);
+        mma_bf16(acc_v[2 * cp + 1], pl, bo[2], bo[3]);
+        mma_bf16(acc_k[2 * cp], sh, bq[0], bq[1]);
+        mma_bf16(acc_k[2 * cp + 1], sh, bq[2], bq[3]);
+        mma_bf16(acc_k[2 * cp], sl, bq[0], bq[1]);
+        mma_bf16(acc_k[2 * cp + 1], sl, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // slot and P^T/dS^T are read: both may be refilled
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kp = k0 + kr + gid + 8 * hr;
+    if (kp >= P.S) continue;
+    const long long off = kv_off + (long long)kp * kv_stride;
+#pragma unroll
+    for (int n = 0; n < NCT; ++n) {
+      const int col = cc + n * 8 + 2 * tig;
+      flash_store_pair(dk + off, col, P.D, acc_k[n][2 * hr] * P.scale,
+                       acc_k[n][2 * hr + 1] * P.scale);
+      flash_store_pair(dv + off, col, P.D, acc_v[n][2 * hr],
+                       acc_v[n][2 * hr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------- launchers
+
 static bool k8_dims_ok(int B, int S, int H, int KVH, int D) {
   return B >= 1 && S >= 1 && KVH >= 1 && H % KVH == 0 && D >= 1 &&
-         D <= FLASH_MAX_D &&
-         (S + FLASH_ROWS - 1) / FLASH_ROWS <= 65535;
+         D <= FLASH_MAX_D && (S + 31) / 32 <= 65535;
 }
 
 static K8Dims k8_dims(int S, int H, int KVH, int D, double scale) {
@@ -336,44 +600,68 @@ static K8Dims k8_dims(int S, int H, int KVH, int D, double scale) {
   return P;
 }
 
-template <typename T>
+template <int ROWS>
+static int k8a_smem(int D) {
+  return (3 * ROWS * (D + 1) + k8_tile_floats<ROWS>(D)) * (int)sizeof(float);
+}
+
+template <int ROWS>
+static int k8b_f32_smem(int D) {
+  return (4 * ROWS * (D + 1) + 2 * ROWS * (ROWS + 1) + 3 * ROWS) *
+         (int)sizeof(float);
+}
+
+template <typename T, int ROWS, int NC>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* m, const float* linv,
                      const float* delta, void* dq, int B, const K8Dims& P,
                      cudaStream_t st) {
-  const size_t smem =
-      (size_t)(3 * FLASH_ROWS * (P.D + 1) + k8_tile_floats(P.D)) *
-      sizeof(float);
+  const int smem = k8a_smem<ROWS>(P.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_dq_kernel<T, ROWS, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(B * P.H),
-            (unsigned)((P.S + FLASH_ROWS - 1) / FLASH_ROWS));
-  flash_dq_kernel<T><<<grid, FLASH_THREADS, smem, st>>>(
+  dim3 grid((unsigned)(B * P.H), (unsigned)((P.S + ROWS - 1) / ROWS));
+  flash_dq_kernel<T, ROWS, NC><<<grid, FLASH_THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, linv, delta,
       (T*)dq, P);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_dkdv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* m, const float* linv,
-                       const float* delta, void* dk, void* dv, int B,
-                       const K8Dims& P, cudaStream_t st) {
-  const size_t smem = (size_t)(4 * FLASH_ROWS * (P.D + 1) +
-                               2 * FLASH_ROWS * (FLASH_ROWS + 1) +
-                               3 * FLASH_ROWS) *
-                      sizeof(float);
+template <int ROWS, int NC>
+static int launch_dkdv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* m,
+                           const float* linv, const float* delta, void* dk,
+                           void* dv, int B, const K8Dims& P,
+                           cudaStream_t st) {
+  const int smem = k8b_f32_smem<ROWS>(P.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_dkdv_kernel<ROWS, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(B * P.KVH),
-            (unsigned)((P.S + FLASH_ROWS - 1) / FLASH_ROWS));
-  flash_dkdv_kernel<T><<<grid, FLASH_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, linv, delta,
-      (T*)dk, (T*)dv, P);
+  dim3 grid((unsigned)(B * P.KVH), (unsigned)((P.S + ROWS - 1) / ROWS));
+  flash_dkdv_kernel<ROWS, NC><<<grid, FLASH_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      m, linv, delta, (float*)dk, (float*)dv, P);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+static int launch_dkdv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* m,
+                            const float* linv, const float* delta, void* dk,
+                            void* dv, int B, const K8Dims& P,
+                            cudaStream_t st) {
+  constexpr int smem = K8Tile<DP>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkdv_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BK = K8Tile<DP>::BK;
+  dim3 grid((unsigned)(B * P.KVH), (unsigned)((P.S + BK - 1) / BK));
+  flash_dkdv_bf16_kernel<DP><<<grid, K8_TC_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, m,
+      linv, delta, (bf16*)dk, (bf16*)dv, P);
   return (int)cudaGetLastError();
 }
 
@@ -386,10 +674,16 @@ extern "C" int repro_k8a_flash_dq(const void* q, const void* k,
   if (!k8_dims_ok(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
   const K8Dims P = k8_dims(S, H, KVH, D, scale);
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_dq<__nv_bfloat16>(q, k, v, dout, m, linv, delta,
-                                            dq, B, P, st)
-                 : launch_dq<float>(q, k, v, dout, m, linv, delta, dq, B, P,
-                                    st);
+  const bool small = D <= 16 * FLASH_NC_SMALL;
+  if (is_bf16)
+    return small ? launch_dq<bf16, 64, FLASH_NC_SMALL>(
+                       q, k, v, dout, m, linv, delta, dq, B, P, st)
+                 : launch_dq<bf16, 32, FLASH_NC_LARGE>(
+                       q, k, v, dout, m, linv, delta, dq, B, P, st);
+  return small ? launch_dq<float, 64, FLASH_NC_SMALL>(q, k, v, dout, m, linv,
+                                                      delta, dq, B, P, st)
+               : launch_dq<float, 32, FLASH_NC_LARGE>(q, k, v, dout, m, linv,
+                                                      delta, dq, B, P, st);
 }
 
 extern "C" int repro_k8b_flash_dkdv(const void* q, const void* k,
@@ -401,8 +695,43 @@ extern "C" int repro_k8b_flash_dkdv(const void* q, const void* k,
   if (!k8_dims_ok(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
   const K8Dims P = k8_dims(S, H, KVH, D, scale);
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, m, linv, delta,
-                                              dk, dv, B, P, st)
-                 : launch_dkdv<float>(q, k, v, dout, m, linv, delta, dk, dv,
-                                      B, P, st);
+  if (!is_bf16)
+    return D <= 16 * FLASH_NC_SMALL
+               ? launch_dkdv_f32<64, FLASH_NC_SMALL>(q, k, v, dout, m, linv,
+                                                     delta, dk, dv, B, P, st)
+               : launch_dkdv_f32<32, FLASH_NC_LARGE>(q, k, v, dout, m, linv,
+                                                     delta, dk, dv, B, P, st);
+  switch (flash_dp(D)) {
+    case 32:
+      return launch_dkdv_bf16<32>(q, k, v, dout, m, linv, delta, dk, dv, B,
+                                  P, st);
+    case 64:
+      return launch_dkdv_bf16<64>(q, k, v, dout, m, linv, delta, dk, dv, B,
+                                  P, st);
+    case 128:
+      return launch_dkdv_bf16<128>(q, k, v, dout, m, linv, delta, dk, dv, B,
+                                   P, st);
+    default:
+      return launch_dkdv_bf16<256>(q, k, v, dout, m, linv, delta, dk, dv, B,
+                                   P, st);
+  }
+}
+
+// the dynamic shared memory a K8a (which 0) or K8b (which 1) launch at
+// head dim D asks for (-1 if D is out of range)
+extern "C" int repro_k8_smem_bytes(int which, int D, int is_bf16) {
+  if (D < 1 || D > FLASH_MAX_D) return -1;
+  const bool small = D <= 16 * FLASH_NC_SMALL;
+  if (which == 0) return small ? k8a_smem<64>(D) : k8a_smem<32>(D);
+  if (!is_bf16) return small ? k8b_f32_smem<64>(D) : k8b_f32_smem<32>(D);
+  switch (flash_dp(D)) {
+    case 32:
+      return K8Tile<32>::smem_bytes;
+    case 64:
+      return K8Tile<64>::smem_bytes;
+    case 128:
+      return K8Tile<128>::smem_bytes;
+    default:
+      return K8Tile<256>::smem_bytes;
+  }
 }

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 _vp, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 # C signature of every entry point: (argtypes); each returns cudaError_t
+# unless noted
 _SIGNATURES = {
     # x, x_is_f64, coeffs, out, n, R, t-1, moduli*, points*, npoints,
     # lim, scale, stream
@@ -66,6 +67,10 @@ _SIGNATURES = {
     # stream
     "repro_k8b_flash_dkdv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                              _i, _i, _i, _i, _i, _i, _d, _vp),
+    # the dynamic shared memory a flash launch asks for: (D, is_bf16) and
+    # (0 = K8a or 1 = K8b, D, is_bf16); these return bytes, not an error
+    "repro_k7_smem_bytes": (_i, _i),
+    "repro_k8_smem_bytes": (_i, _i, _i),
 }
 
 _lib: ctypes.CDLL | None = None

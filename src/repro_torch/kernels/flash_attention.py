@@ -15,6 +15,10 @@ as (B, H, S) float32, which is the TPU kernel's (B*H, S) reshaped.  The
 scale is D**-0.5 with the true D, so m equals the JAX package's m (whose
 wrapper pads D to 128 and rescales q to the same effect).
 
+The CUDA kernel has two instantiations: bfloat16 on the tensor cores
+(mma.sync with cp.async staging) and float32 on the CUDA cores (tensor
+cores would round float32 to TF32).  Both take any head_dim up to 256.
+
 :class:`FlashAttention` makes K7 differentiable: its forward runs K7 and
 saves (q, k, v, o, m, l), its backward runs K8a and K8b
 (``flash_attention_bwd``).  ``flash_attention_kernel`` itself records no
@@ -30,7 +34,7 @@ from .ref import causal_scores
 __all__ = ["FlashAttention", "flash_attention_kernel",
            "flash_attention_plain"]
 
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -69,7 +73,7 @@ def flash_attention_plain(q, k, v):
 def flash_attention_kernel(q, k, v):
     """K7 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  q (B, S, H, D), k/v (B, S, KVH, D),
-    contiguous, float32 or bfloat16, D <= 128.  Returns (o, m, l).
+    contiguous, float32 or bfloat16, D <= 256.  Returns (o, m, l).
 
     The outputs carry no gradient: with grad mode on, inputs that require
     one raise (differentiate through :class:`FlashAttention`)."""

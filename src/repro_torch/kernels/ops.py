@@ -27,7 +27,7 @@ __all__ = ["flash_attention", "flash_attention_bwd", "fused_irls", "fused_irls_c
 
 def flash_attention(q, k, v):
     """Causal GQA flash attention (K7).  q: (B, S, H, D); k/v: (B, S, KVH,
-    D), float32 or bfloat16, D <= 128.  Returns o (B, S, H, D) in q's
+    D), float32 or bfloat16, D <= 256.  Returns o (B, S, H, D) in q's
     dtype.
 
     Same semantics as ``ref.flash_attention``.  The kernel reads the

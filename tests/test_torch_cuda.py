@@ -18,6 +18,10 @@ flash tolerance, and 5e-3 absolute + 1e-2 relative in bfloat16 (set from
 the measured error, under one bf16 unit in the last place of |o| < 2; the
 CPU parity tests keep the JAX package's 2e-2); its m and l 1e-5 relative
 (m also 1e-6 absolute, for a row whose largest score is near zero).
+K7 and K8b run bfloat16 on the tensor cores and float32 on the CUDA
+cores, K8a both on the CUDA cores; each takes any head_dim up to 256, and
+the cases cover both instantiations, D 256, D padded to the tensor-core
+kernels' 32 and D not a multiple of 8 (plain loads in place of cp.async).
 K8a/K8b hold 2e-5 of the larger of max|plain output| and max|do| in
 float32 (a one-token row's gradient is pure cancellation, so its own
 magnitude is no scale) and 5e-3 absolute + 1e-2 relative in bfloat16, as
@@ -232,6 +236,13 @@ def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     (1, 256, 2, 2, 32, torch.float32, True),       # outliers, many blocks
     (1, 200, 2, 2, 16, torch.float32, False),      # ragged S, small D
     (3, 1, 4, 2, 128, torch.float32, False),       # one token
+    (1, 2048, 16, 1, 256, torch.bfloat16, False),  # recurrentgemma-like
+    (1, 300, 4, 2, 256, torch.float32, False),     # D 256 on CUDA cores
+    (1, 200, 4, 2, 24, torch.bfloat16, False),     # D padded to 32
+    (2, 130, 2, 1, 16, torch.bfloat16, False),     # D padded to 32
+    (1, 100, 2, 1, 20, torch.bfloat16, False),     # D % 8 != 0: no cp.async
+    (1, 70, 2, 1, 7, torch.bfloat16, False),       # odd D: scalar stores
+    (3, 1, 4, 2, 128, torch.bfloat16, False),      # one token
 ])
 def test_k7_kernel_matches_plain(cuda, B, S, H, KVH, D, dtype, outliers):
     gen = torch.Generator(device=cuda).manual_seed(S + D)
@@ -280,6 +291,10 @@ def test_k7_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(k7_mod, "flash_attention_plain", refuse)
     x = torch.randn((1, 64, 4, 32), device=cuda)
     ops.flash_attention(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous())
+    for dtype in (torch.float32, torch.bfloat16):  # head_dim 256
+        y = torch.randn((1, 96, 4, 256), device=cuda).to(dtype)
+        ops.flash_attention(y, y[:, :, :1].contiguous(),
+                            y[:, :, 1:2].contiguous())
     cfg = smoke_config("qwen2_5_32b")
     T.prefill(T.init_params(cfg, seed=0, device=cuda), cfg,
               torch.zeros((1, 8), dtype=torch.long, device=cuda))
@@ -328,6 +343,13 @@ def _to(tree, dev):
     (1, 256, 2, 2, 32, torch.float32),      # many blocks
     (1, 200, 2, 2, 16, torch.float32),      # ragged S, small D
     (3, 1, 4, 2, 128, torch.float32),       # one token
+    (1, 2048, 16, 1, 256, torch.bfloat16),  # recurrentgemma-like
+    (1, 300, 4, 2, 256, torch.float32),     # D 256, 32-row tiles
+    (1, 200, 4, 2, 24, torch.bfloat16),     # D padded to 32
+    (2, 130, 2, 1, 16, torch.bfloat16),     # D padded to 32
+    (1, 100, 2, 1, 20, torch.bfloat16),     # D % 8 != 0: no cp.async
+    (1, 70, 2, 1, 7, torch.bfloat16),       # odd D: scalar stores
+    (3, 1, 4, 2, 128, torch.bfloat16),      # one token
 ])
 def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + D + 1)
@@ -344,6 +366,48 @@ def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype):
         before[0] + 1, before[1] + 1)
     want = (flash_dq_plain(*args), *flash_dkdv_plain(*args))
     for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        if dtype == torch.float32:
+            scale = max(float(w.abs().max()), float(do.abs().max()))
+            assert float(err.max()) <= 2e-5 * scale
+        else:
+            assert bool((err <= 5e-3 + 1e-2 * w.float().abs()).all()), \
+                float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attend_head_dim_256_matches_plain(cuda, dtype):
+    """recurrentgemma's local attention (head_dim 256) with a window of
+    at least S runs full-causal through K7, and its gradient through K8a
+    and K8b, on the card: forward and backward against the plain
+    versions, at the tolerances above."""
+    from repro_torch.models import attention
+
+    B, S, H, KVH, D = 1, 320, 16, 1, 256
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    q, k, v, do = (torch.randn((B, S, n, D), generator=gen, device=cuda)
+                   .to(dtype) for n in (H, KVH, KVH, H))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_attention_kernel.launches, flash_dq_kernel.launches,
+              flash_dkdv_kernel.launches)
+    o = attention.attend(*leaves, window=2048)
+    got = (o, *torch.autograd.grad(o, leaves, do))
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches, flash_dq_kernel.launches,
+            flash_dkdv_kernel.launches) == tuple(n + 1 for n in before)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (5e-3, 1e-2)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.detach().float(),
+                               flash_attention_plain(q, k, v)[0].float(),
+                               rtol=rtol, atol=atol)
+    # the plain backward from the statistics the Function saved
+    with torch.no_grad():
+        o, m, l = flash_attention_kernel(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, m, 1.0 / torch.clamp(l, min=1e-30), delta)
+    want = (flash_dq_plain(*args), *flash_dkdv_plain(*args))
+    for g, w in zip(got[1:], want):
         assert g.dtype == dtype and g.shape == w.shape
         err = (g.float() - w.float()).abs()
         if dtype == torch.float32:
@@ -440,6 +504,13 @@ def test_k8_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     torch.autograd.grad(o.sum(), (x, kv))
     ops.flash_attention_bwd(x.detach(), kv.detach(), kv.detach(),
                             torch.ones_like(x))
+    for dtype in (torch.float32, torch.bfloat16):  # head_dim 256
+        y = torch.randn((1, 96, 4, 256), device=cuda).to(dtype) \
+            .requires_grad_(True)
+        kv2 = torch.randn((1, 96, 1, 256), device=cuda).to(dtype) \
+            .requires_grad_(True)
+        o = ops.flash_attention(y, kv2, kv2)
+        torch.autograd.grad(o.float().sum(), (y, kv2))
     torch.cuda.synchronize()
     with pytest.raises(AssertionError, match="plain version"):
         ops.flash_attention_bwd(x.detach().cpu(), kv.detach().cpu(),

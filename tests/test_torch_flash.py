@@ -118,6 +118,43 @@ def test_flash_stats_match_pallas(B, S, H, KVH):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_head_dim_256_matches_jax(dtype, tol):
+    """head_dim 256, recurrentgemma's local attention (ragged S, MQA):
+    the port's K7 against JAX's ``ops.flash_attention``, whose wrapper
+    pads D to a multiple of 128 (here none) and S to the block."""
+    B, S, H, KVH, D = 1, 100, 2, 1, 256
+    (jq, jk, jv), (q, k, v) = _both(_qkv(D + S, B, S, H, KVH, D), dtype)
+    out = ops.flash_attention(q, k, v)
+    assert out.shape == (B, S, H, D) and out.dtype == dtype
+    want = jops.flash_attention(jq, jk, jv, block_q=32, block_k=32)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=tol, atol=tol)
+
+
+def test_flash_stats_head_dim_256_match_pallas():
+    """(o, m, l) at head_dim 256 against ``flash_attention_pallas`` called
+    directly (S a block multiple, D 256 needs no padding)."""
+    B, S, H, KVH, D = 1, 96, 2, 1, 256
+    (jq, jk, jv), (q, k, v) = _both(_qkv(S + 1, B, S, H, KVH, D),
+                                    torch.float32)
+
+    def heads_first(t, heads):
+        return jnp.moveaxis(t, 2, 1).reshape(B * heads, S, D)
+
+    o_j, m_j, l_j = flash_attention_pallas(
+        heads_first(jq, H), heads_first(jk, KVH), heads_first(jv, KVH),
+        group=H // KVH, seq_len=S, block_q=32, block_k=32)
+    o, m, l = flash_attention_kernel(q, k, v)
+    np.testing.assert_allclose(
+        _np(o), np.moveaxis(_np(o_j).reshape(B, H, S, D), 1, 2),
+        rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(m).reshape(B * H, S), _np(m_j),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(l).reshape(B * H, S), _np(l_j),
+                               rtol=1e-5)
+
+
 def test_ref_matches_jax_ref():
     (jq, jk, jv), (q, k, v) = _both(_qkv(11, 2, 40, 6, 3, 24),
                                     torch.float32)

@@ -98,8 +98,26 @@ def test_flash_bwd_bf16_matches_jax():
     _close(_autograd(q, k, v, do), _jax_grad(jq, jk, jv, jdo), 2e-2)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_bwd_head_dim_256_matches_jax(dtype, tol):
+    """head_dim 256, recurrentgemma's local attention (ragged S, MQA): the
+    port's backward (K7 then ``flash_dq_plain``/``flash_dkdv_plain`` on
+    the CPU) against JAX's ``ops.flash_attention_bwd`` and, through
+    ``FlashAttention``, against ``jax.grad``."""
+    B, S, H, KVH, D = 1, 100, 2, 1, 256
+    (jq, jk, jv, jdo), (q, k, v, do) = _both(
+        _inputs(D + S, B, S, H, KVH, D), dtype)
+    want = jops.flash_attention_bwd(jq, jk, jv, jdo, block_q=32, block_k=32)
+    got = ops.flash_attention_bwd(q, k, v, do)
+    assert [g.dtype for g in got] == [dtype] * 3
+    _close(got, want, tol)
+    _close(_autograd(q, k, v, do), _jax_grad(jq, jk, jv, jdo), tol)
+
+
 @pytest.mark.parametrize("B,S,H,KVH,D", [(1, 64, 2, 2, 128),
-                                         (2, 64, 4, 2, 32)])
+                                         (2, 64, 4, 2, 32),
+                                         (1, 64, 2, 1, 256)])
 def test_plain_kernels_match_pallas(B, S, H, KVH, D):
     """The plain K8a/K8b given JAX's (m, linv, delta) against
     ``flash_dq_pallas``/``flash_dkdv_pallas`` on the (B*H, S, D) layout."""

@@ -157,6 +157,29 @@ def test_attend_matches_jax(S, H, KVH, window):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [100, 2048])
+def test_attend_head_dim_256_matches_jax(window):
+    """recurrentgemma's local attention: head_dim 256 and a window of at
+    least S, which both packages run full-causal (the port through K7 and
+    K8, JAX through its plain scan), forward and gradient."""
+    B, S, H, KVH, D = 1, 100, 2, 1, 256
+    rng = np.random.default_rng(window)
+    arrays = [rng.standard_normal((B, S, n, D)).astype(np.float32)
+              for n in (H, KVH, KVH, H)]
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (_pair(a) for a in arrays)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = attention.attend(*leaves, window=window)
+    want = jatt.attend(jq, jk, jv, window=window)
+    np.testing.assert_allclose(_np(got.detach()), _np(want), rtol=2e-5,
+                               atol=2e-5)
+    grads = torch.autograd.grad(got, leaves, do)
+    jgrads = jax.grad(
+        lambda a, b, c: jnp.sum(jatt.attend(a, b, c, window=window) * jdo),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(grads, jgrads):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=3e-5, atol=3e-5)
+
+
 def test_full_causal_attend_runs_k7(monkeypatch):
     """Full-causal attention goes to ``ops.flash_attention``; banded
     attention does not, and Dv != Dk (MLA) is not ported yet."""

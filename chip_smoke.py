@@ -8,18 +8,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
    one process per source, all started together), then a
-   ``{"flash_ptxas": ...}`` line: each of the 16 flash-attention kernel
-   instantiations (K7, K8a, K8b; bf16 on the tensor cores for K7 and K8b,
-   float32 and K8a on the CUDA cores) with its ptxas registers, spill
-   bytes and shared memory; the tensor-core kernels at D <= 128 must not
-   spill;
+   ``{"flash_ptxas": ...}`` line: each of the 18 flash-attention kernel
+   instantiations (K7, K8a, K8b; bf16 on the tensor cores, float32 on the
+   CUDA cores) with its ptxas registers, spill bytes and shared memory,
+   none of which may spill; and a ``{"k5_ptxas": ...}`` line: the same for
+   K5's seven kernel instantiations (rows, Gram, reduce), with the launch
+   plan ``repro_k5_plan`` gives at d = 128;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it: K1 encode+share and K2 reveal bit-identical,
    K3 summaries within the stated tolerances; K5 cross-validated
    summaries at the λ-path's (5 folds) and refit's (fold -1) shapes and
    at a ragged shape with a count past N_max, H within 2e-5 max|H|, g and
    the deviances within 1e-10 of the sums of absolute terms, held-out
-   counts exact; K4 leaf-wise shares bit-identical at n = 1,000,000, R = 2,
+   counts exact, two calls bit-identical; K4 leaf-wise shares bit-identical at n = 1,000,000, R = 2,
    (t, w) = (2, 3) and (3, 5); K6 weighted Gram within 2e-5 max|H| at one
    institution's (25,000 x 128) and the pooled (200,000 x 128) shape;
 4. a full ``secure_fit`` at the acceptance configuration (S=8
@@ -93,7 +94,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    layers (2,532,350,976 parameters), after the serving weights are
    freed: (a) K8a/K8b (the flash-attention backward) against their plain
    versions at K7's shapes and the training shape (B 1, S 2048, H 40, KVH
-   8, D 128, bf16); (b) in float32 with remat, the central difference of
+   8, D 128, bf16), there also with q scaled by 4 (a peaked softmax); (b) in float32 with remat, the central difference of
    ``loss_fn`` along u = g / |g| (h = 1e-2) against |g| within 2e-2
    relative, one sequence of 2048 tokens; (c) 8 bf16 ``train_step`` calls
    (2 institutions of one 2048-token sequence, lr 3e-4, AdamW, remat),
@@ -127,10 +128,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, CUDA-core
-# float32 and float64 FLOP/s, tensor-core bfloat16 FLOP/s
+# float64 FLOP/s, tensor-core TF32 and bfloat16 FLOP/s
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 
 S, D, N, PROTECT, FRAC_BITS = 8, 128, 200_000, "both", 28
@@ -185,7 +186,9 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 2048, 32
 # decode vs prefill continuation: bf16 within 2e-2 max|logits| (the
 # port's bf16 tolerance against the JAX package), float32 within 1e-4
 CONT_TOL, CONT_TOL_F32 = 2e-2, 1e-4
-# K7 against its plain version: (B, S, H, KVH, D, dtype, score outliers)
+# K7 against its plain version: (B, S, H, KVH, D, dtype, what is done to
+# q: None, "outliers" (one query row scaled by 30) or "peaked" (q scaled
+# by 4, a peaked softmax, where K8a's dS cancels hardest))
 # K7's o against its plain version, (abs, rel): float32 the JAX tests' own;
 # bf16 set from the measured error of the first, CUDA-core kernel (1.95e-3
 # at most over these shapes on the H100, under one bf16 unit in the last
@@ -193,20 +196,22 @@ CONT_TOL, CONT_TOL_F32 = 2e-2, 1e-4
 # stays inside it (1.56e-2 at most, on outputs with |o| > 1)
 K7_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-3, 1e-2)}
 K7_CASES = (
-    ("serving", 4, 2048, 40, 8, 128, "bfloat16", False),
-    ("h2o-like ragged", 1, 1000, 32, 8, 120, "bfloat16", False),
-    ("mqa", 2, 384, 4, 1, 64, "float32", False),
-    ("outliers many-block", 1, 256, 2, 2, 32, "float32", True),
+    ("serving", 4, 2048, 40, 8, 128, "bfloat16", None),
+    ("h2o-like ragged", 1, 1000, 32, 8, 120, "bfloat16", None),
+    ("mqa", 2, 384, 4, 1, 64, "float32", None),
+    ("outliers many-block", 1, 256, 2, 2, 32, "float32", "outliers"),
     # recurrentgemma-like local attention (head_dim 256, window >= S)
-    ("d256", 1, 2048, 16, 1, 256, "bfloat16", False),
+    ("d256", 1, 2048, 16, 1, 256, "bfloat16", None),
 )
 # the shapes phase 12 times besides each flash kernel's own path shape
 FLASH_TIMED = ("d256",)
 # K8a/K8b against their plain versions: K7's shapes and the training
 # shape; bf16 as K7, float32 within 2e-5 of the larger of max|plain out|
 # and max|do|
-K8_CASES = K7_CASES + (("training", 1, 2048, 40, 8, 128, "bfloat16",
-                        False),)
+K8_CASES = K7_CASES + (
+    ("training", 1, 2048, 40, 8, 128, "bfloat16", None),
+    ("training peaked", 1, 2048, 40, 8, 128, "bfloat16", "peaked"),
+)
 K8_F32_TOL = 2e-5
 # training: Qwen2.5-32B at full width, depth cut to 2 of 64 layers
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "qwen2_5_32b", 2, 2_532_350_976
@@ -225,6 +230,15 @@ SECURE_ARGV = ["--arch", "qwen2_5_32b", "--smoke", "--secure-agg", "shamir",
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def shape_q(q, how):
+    """q as a flash case asks (``K7_CASES``' last field), in place."""
+    if how == "outliers":
+        q[:, 17] *= 30.0
+    elif how == "peaked":
+        q *= 4.0
+    return q
 
 
 def cuda_times(fn, reps: int) -> tuple[float, float]:
@@ -257,13 +271,15 @@ def cuda_times(fn, reps: int) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(call)
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0,
+def bound(nbytes: float, tf32_ops: float = 0.0, f64_ops: float = 0.0,
           bf16_ops: float = 0.0):
     """(least ms, what bounds it): the larger of the bytes' time and the
     operations' time; each type's operations run at its own peak on its
-    own pipe, so the operations take the longest of the three."""
+    own pipe, so the operations take the longest of the three.  A float32
+    Gram counts as three TF32 products (hi x hi, hi x lo, lo x hi), the
+    least work that keeps float32's precision on the tensor cores."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(f32_ops / PEAK_F32, f64_ops / PEAK_F64,
+    t_ops = max(tf32_ops / PEAK_TF32, f64_ops / PEAK_F64,
                 bf16_ops / PEAK_BF16)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -312,7 +328,7 @@ SERVE_CATEGORIES = (
 # on its own, where every kernel is its elementwise work
 TRAIN_CATEGORIES = (
     ("K7 flash_attention", ("flash_attention_fwd", "flash_fwd_bf16")),
-    ("K8a flash_dq", ("flash_dq_kernel",)),
+    ("K8a flash_dq", ("flash_dq_kernel", "flash_dq_bf16")),
     ("K8b flash_dkdv", ("flash_dkdv_kernel", "flash_dkdv_bf16")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
                          "splitKreduce")),
@@ -451,6 +467,9 @@ def check_k5(dev, gen, packed, beta):
     for name, args in (("path C=5", path), ("refit C=1", refit),
                        ("ragged C=5 d=130", ragged)):
         got = fused_irls_cv_kernel(*args)
+        again = fused_irls_cv_kernel(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 {name}: two calls bit-identical")
         want = fused_irls_cv_plain(*args)
         b, X, _, y, cnt, fid, fold_of = args
         n = X.shape[1]
@@ -790,13 +809,11 @@ def check_k7(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     err, timed = 0.0, {}
-    for name, B, S_, H, KVH, Dh, dt, outliers in K7_CASES:
+    for name, B, S_, H, KVH, Dh, dt, how in K7_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((B, S_, n, Dh), generator=gen, device=dev)
                    for n in (H, KVH, KVH))
-        if outliers:
-            q[:, 17] *= 30.0
-        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        q, k, v = shape_q(q, how).to(dtype), k.to(dtype), v.to(dtype)
         o, m, l = flash_attention_kernel(q, k, v)
         op, mp, lp = flash_attention_plain(q, k, v)
         atol, rtol = K7_TOL[dt]
@@ -936,12 +953,11 @@ def check_k8(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     err, timed = 0.0, {}
-    for name, B, S_, H, KVH, Dh, dt, outliers in K8_CASES:
+    for name, B, S_, H, KVH, Dh, dt, how in K8_CASES:
         dtype = getattr(torch, dt)
         q, k, v, do = (torch.randn((B, S_, n, Dh), generator=gen,
                                    device=dev) for n in (H, KVH, KVH, H))
-        if outliers:
-            q[:, 17] *= 30.0
+        shape_q(q, how)
         q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
         with torch.no_grad():
             o, m, l = flash_attention_kernel(q, k, v)
@@ -1032,44 +1048,28 @@ def k8_timing(args):
     }
 
 
-def flash_ptxas(log_text: str, lib) -> list:
-    """Each flash kernel's registers, spill bytes and shared memory from
-    the build's ptxas report (``-Xptxas -v``): static shared memory as
-    ptxas counts it, and the dynamic bytes a launch at the instantiation's
-    largest head dim asks for (``repro_k7_smem_bytes`` /
-    ``repro_k8_smem_bytes``)."""
+def ptxas_report(log_text: str, names) -> list:
+    """Registers, spill bytes and static shared memory of each kernel of
+    the build's ptxas report (``-Xptxas -v``) whose mangled name matches a
+    pattern of ``names``: (pattern, describe), where ``describe(match)``
+    gives the row's label and the dynamic shared memory a launch asks
+    for."""
     import re
 
-    names = (  # mangled prefix -> (label, smem query(D), largest D)
-        (r"flash_fwd_bf16_kernelILi(\d+)E", "K7 bf16 tensor cores",
-         lambda d: lib.repro_k7_smem_bytes(d, 1)),
-        (r"flash_attention_fwd_kernelILi(\d+)E", "K7 f32 CUDA cores",
-         lambda d: lib.repro_k7_smem_bytes(d, 0)),
-        (r"flash_dq_kernelIfLi\d+ELi(\d+)E", "K8a f32 CUDA cores",
-         lambda d: lib.repro_k8_smem_bytes(0, d, 0)),
-        (r"flash_dq_kernelI13__nv_bfloat16Li\d+ELi(\d+)E",
-         "K8a bf16 CUDA cores", lambda d: lib.repro_k8_smem_bytes(0, d, 1)),
-        (r"flash_dkdv_bf16_kernelILi(\d+)E", "K8b bf16 tensor cores",
-         lambda d: lib.repro_k8_smem_bytes(1, d, 1)),
-        (r"flash_dkdv_kernelILi\d+ELi(\d+)E", "K8b f32 CUDA cores",
-         lambda d: lib.repro_k8_smem_bytes(1, d, 0)),
-    )
     out, cur = [], None
     for ln in log_text.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
             cur = None
-            for pat, label, smem in names:
+            for pat, describe in names:
                 hit = re.search(pat, m.group(1))
                 if hit:
-                    # the template argument: the tensor-core kernels' head
-                    # dim, the CUDA-core kernels' columns a thread (16 each)
-                    n = int(hit.group(1))
-                    d = n if "tensor" in label else 16 * n
-                    cur = {"kernel": f"{label}, D <= {d}", "registers": None,
+                    label, smem = describe(hit)
+                    cur = {"kernel": label, "registers": None,
                            "spill_stores": None, "spill_loads": None,
-                           "smem_static": 0, "smem_dynamic": smem(d)}
+                           "smem_static": 0, "smem_dynamic": smem}
                     out.append(cur)
+                    break
             continue
         if cur is None:
             continue
@@ -1082,6 +1082,62 @@ def flash_ptxas(log_text: str, lib) -> list:
             m = re.search(r"(\d+) bytes smem", ln)
             cur["smem_static"] = int(m.group(1)) if m else 0
     return out
+
+
+def flash_ptxas(log_text: str, lib) -> list:
+    """Each flash kernel's ptxas row, with the dynamic bytes a launch at
+    the instantiation's largest head dim asks for (``repro_k7_smem_bytes``
+    / ``repro_k8_smem_bytes``).  The template argument is the tensor-core
+    kernels' head dim and the CUDA-core kernels' columns a thread (16
+    each)."""
+    def named(label, smem):
+        def describe(hit):
+            n = int(hit.group(1))
+            d = n if "tensor" in label else 16 * n
+            return f"{label}, D <= {d}", smem(d)
+        return describe
+
+    return ptxas_report(log_text, (  # mangled prefix -> row
+        (r"flash_fwd_bf16_kernelILi(\d+)E", named(
+            "K7 bf16 tensor cores", lambda d: lib.repro_k7_smem_bytes(d, 1))),
+        (r"flash_attention_fwd_kernelILi(\d+)E", named(
+            "K7 f32 CUDA cores", lambda d: lib.repro_k7_smem_bytes(d, 0))),
+        (r"flash_dq_bf16_kernelILi(\d+)E", named(
+            "K8a bf16 tensor cores",
+            lambda d: lib.repro_k8_smem_bytes(0, d, 1))),
+        (r"flash_dq_kernelILi\d+ELi(\d+)E", named(
+            "K8a f32 CUDA cores",
+            lambda d: lib.repro_k8_smem_bytes(0, d, 0))),
+        (r"flash_dkdv_bf16_kernelILi(\d+)E", named(
+            "K8b bf16 tensor cores",
+            lambda d: lib.repro_k8_smem_bytes(1, d, 1))),
+        (r"flash_dkdv_kernelILi\d+ELi(\d+)E", named(
+            "K8b f32 CUDA cores",
+            lambda d: lib.repro_k8_smem_bytes(1, d, 0))),
+    ))
+
+
+def k5_ptxas(log_text: str, lib) -> dict:
+    """K5's kernel instantiations' ptxas rows, and what ``repro_k5_plan``
+    gives at the path's d: configurations a rows block, the rows kernel's
+    tile rows, the Gram units a configuration and blocks an SM."""
+    import ctypes
+
+    cb, tn_r, units, per_sm = (ctypes.c_int() for _ in range(4))
+    check(lib.repro_k5_plan(D, *(ctypes.byref(v) for v in
+                                 (cb, tn_r, units, per_sm))) == 0,
+          "repro_k5_plan")
+    rows = ptxas_report(log_text, (
+        (r"irls_cv_rows_kernelILi(\d+)E", lambda h: (
+            f"K5 rows (float64 mma), {h.group(1)} column tiles a warp",
+            None)),
+        (r"irls_cv_gram_kernelILi(\d+)E", lambda h: (
+            f"K5 Gram (3xTF32 wgmma), {h.group(1)}-row tiles", None)),
+        (r"irls_cv_reduce_kernel", lambda h: ("K5 reduce", 0)),
+    ))
+    return {"kernels": rows, "d": D, "configs_per_rows_block": cb.value,
+            "rows_tile_rows": tn_r.value, "gram_units": units.value,
+            "gram_blocks_per_sm": per_sm.value}
 
 
 def grad_check(dev):
@@ -1351,15 +1407,20 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s; ptxas: "
           + " | ".join(ptxas))
-    flash = flash_ptxas(_build.build_log().read_text(), _build.library())
+    log_text = _build.build_log().read_text()
+    flash = flash_ptxas(log_text, _build.library())
     print(json.dumps({"flash_ptxas": flash}))
-    for r in flash:
+    k5_rep = k5_ptxas(log_text, _build.library())
+    print(json.dumps({"k5_ptxas": k5_rep}))
+    for r in flash + k5_rep["kernels"]:
         check(r["registers"] is not None and r["spill_stores"] is not None,
               f"no ptxas report for {r['kernel']}")
-        if "tensor" in r["kernel"] and r["kernel"].endswith("D <= 128"):
-            check(r["spill_stores"] == r["spill_loads"] == 0,
-                  f"{r['kernel']} spills: {r}")
-    check(len(flash) == 16, f"{len(flash)} flash kernels in the ptxas report")
+    for r in flash:
+        check(r["spill_stores"] == r["spill_loads"] == 0,
+              f"{r['kernel']} spills: {r}")
+    check(len(flash) == 18, f"{len(flash)} flash kernels in the ptxas report")
+    check(len(k5_rep["kernels"]) == 7,
+          "K5's seven kernel instantiations in the ptxas report")
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
     study = generate_synthetic(SEED, num_institutions=1,
@@ -1480,7 +1541,7 @@ def main() -> int:
           ", g/dev within 1e-12 of the abs sums; d=130 ok; K5 max|dH| "
           f"{k5_err:.3e} over the path (C=5), refit (C=1) and ragged "
           "(d=130, count > N_max) shapes, g/dev within 1e-10, held-out "
-          f"counts exact; K4 bit-identical (n={LEAF_N}, R=2, (t, w) = (2, "
+          "counts exact, two calls bit-identical; K4 bit-identical (n={LEAF_N}, R=2, (t, w) = (2, "
           f"3) and (3, 5)); K6 max|dH| {k6_err:.3e} at (25000 x 128) and "
           f"({N} x 128) (<= 2e-5 max|H|)")
     print("max|H - float64 sum of the float32 products| (kernel, plain): "
@@ -1788,8 +1849,9 @@ def main() -> int:
              err=k3_err,
              bound=bound(rows_total * (D * 12 + 8) + D * 8
                          + S * (D * D * 4 + D * 8 + 8),
-                         # the symmetric Gram: d (d + 1) / 2 entries
-                         f32_ops=rows_total * D * (D + 1),
+                         # the symmetric Gram, d (d + 1) / 2 entries, as
+                         # three TF32 products
+                         tf32_ops=3 * rows_total * D * (D + 1),
                          f64_ops=rows_total * (4 * D + 30))),
         dict(name="K5 fused_irls_cv", fn=fused_irls_cv_kernel,
              path="lambda_path",
@@ -1805,7 +1867,7 @@ def main() -> int:
              # terms over every valid row
              bound=bound(rows_total * (D * 12 + 8 + 4) + n_cfg * (D * 8 + 4)
                          + n_cfg * S * (D * D * 4 + D * 8 + 4 * 8),
-                         f32_ops=k5_train * D * (D + 1),
+                         tf32_ops=3 * k5_train * D * (D + 1),
                          f64_ops=n_cfg * rows_total * (2 * D + 30)
                          + k5_train * 2 * D)),
         dict(name="K4 leaf-wise share", fn=share_kernel, path="leafwise",
@@ -1828,9 +1890,10 @@ def main() -> int:
                                                             w6[:25_000])},
              library=lambda: torch.matmul((X6 * w6[:, None]).T, X6),
              err=k6_err,
-             # float32 X and w read once, H written; the symmetric Gram
+             # float32 X and w read once, H written; the symmetric Gram as
+             # three TF32 products
              bound=bound(n6 * (D + 1) * 4 + D * D * 4,
-                         f32_ops=n6 * D * (D + 1))),
+                         tf32_ops=3 * n6 * D * (D + 1))),
         dict(name="K7 flash_attention", fn=flash_attention_kernel,
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",

@@ -21,15 +21,45 @@
 // do.v, p do, ds q) against a few bytes per element of q, k, v, do and
 // the outputs.
 //
-// K8b in bfloat16 runs on the tensor cores (flash_dkdv_bf16_kernel):
-// mma.sync m16n8k16, bf16 in, float32 accumulate.  One block of 8 warps
-// per (batch*kv_head, key tile of BK = 64 keys, 32 at D 256) holds the K
-// and V tiles and loops over the G query heads of its group and, for
-// each, over the 64-row query tiles from the diagonal to S, so the group
-// sum stays in registers: no partials in device memory, no atomics.  The
-// q and do tiles and the rows of m, linv and delta go through a two-stage
-// cp.async ring across that loop (the loads of step t + 1 are issued
-// before step t is computed).  Each step:
+// In bfloat16 both run on the tensor cores: mma.sync m16n8k16, bf16 in,
+// float32 accumulate, operands staged with cp.async and read with
+// ldmatrix.  dS sums to zero along each query row, so dq = sum_j ds_ij k_j
+// cancels and dK, dV sum P and dS over up to G x S query rows: one bf16
+// rounding of P or dS misses the 5e-3 + 1e-2 relative tolerance (for dq
+// at a peaked softmax, q scaled by 4, in a CPU emulation of the kernel,
+// tests/test_torch_tc_numerics.py), so both kernels store P and dS as two
+// bf16 terms (x = hi + lo, lo the rounding rest) and multiply both; the
+// split error is ~2^-16.
+//
+// K8a in bfloat16 (flash_dq_bf16_kernel), K7's structure with one more
+// score product: one block of 4 warps per (batch*head, 64-row query
+// tile), each warp owning 16 query rows; every (batch, head)'s longest
+// tile is dispatched first.  The rows of m, linv and delta are read once
+// per tile into registers.  Q and dO are copied once with cp.async and
+// kept as A fragments in registers (D <= 128) or re-read with ldmatrix (D
+// 256).  K and V tiles (64 keys; 16 at D 256) sit in a two-stage cp.async
+// ring: tile j + 1 is issued before tile j is computed.  Each tile runs in
+// score steps of 32 keys (16 at D 256), so the S and dP fragments of a
+// step stay small beside the dQ accumulator (64 floats a thread at D 128,
+// 128 at D 256):
+//  * S = Q K^T and dP = dO V^T (B from K and V with ldmatrix);
+//  * P = exp2(S scale log2e - m log2e) linv, masked only where a key of
+//    the step can pass a row of the warp, and dS = P (dP - delta), in
+//    float32 on the C fragments;
+//  * dQ += dS K: dS packed from the C fragments straight into hi and lo
+//    bf16 A fragments (as K7 packs P), K read with ldmatrix.trans.
+// Steps wholly above the warp's rows are skipped.  dQ is scaled once, in
+// float32, in the epilogue.  Shared memory: 104,448 B at D 128, 101,376 B
+// at D 256 (two blocks an SM).
+//
+// K8b in bfloat16 (flash_dkdv_bf16_kernel): one block of 8 warps per
+// (batch*kv_head, key tile of BK = 64 keys, 32 at D 256) holds the K and V
+// tiles and loops over the G query heads of its group and, for each, over
+// the 64-row query tiles from the diagonal to S, so the group sum stays in
+// registers: no partials in device memory, no atomics.  The q and do tiles
+// and the rows of m, linv and delta go through a two-stage cp.async ring
+// across that loop (the loads of step t + 1 are issued before step t is
+// computed).  Each step:
 //  * S^T = K Q^T and dP^T = V dO^T (B from q and do with ldmatrix); the
 //    8 warps split the BK x 64 tile into 16-key x (64 / (8 / (BK / 16)))
 //    query patches, K and V as A fragments (kept in registers at D <=
@@ -40,31 +70,28 @@
 //    The dK and dV accumulators (2 x BK x D float32) are split across the
 //    warps by columns: the warp with key rows r and column slice c holds
 //    only that slice (64 floats a thread at D 128 and at D 256), so P^T and
-//    dS^T, which every column slice needs, go through shared memory.  They
-//    are stored as two bf16 terms each (x = hi + lo, lo the rounding rest),
-//    and both terms are multiplied: one bf16 rounding of P or dS alone
-//    misses the 5e-3 + 1e-2 relative tolerance on the sums over a long
-//    query range; the split error is ~2^-16.
+//    dS^T, which every column slice needs, go through shared memory as
+//    their hi and lo terms.
 // dK is scaled once, in float32, in the epilogue.  Load balance: the key
 // tiles' lengths fall linearly (tile 0 runs G * S / 64 steps, the last G);
 // the grid dispatches every (batch, kv_head)'s longest tile first, so the
 // longest-processing-time order keeps the SMs busy to within about one
 // step of the mean at the training shape (256 blocks, one per SM).
 //
-// The other instantiations run on the CUDA cores with float32 tiles
+// The float32 instantiations run on the CUDA cores with float32 tiles
 // (tensor cores would compute float32 in TF32, which breaks the float32
 // tolerance): 256 threads as a 16 x 16 grid each own a (ROWS / 16)^2
 // patch of a ROWS x ROWS tile and NC columns (tx + 16 c) of the
 // accumulator rows; ROWS is 64 for D <= 128 and 32 above, so the staged
 // tiles fit the 227 KB a block may use.
-//  * K8a (both dtypes): one block per (batch*head, query block), looping
-//    over the key blocks up to the diagonal as K7 does: it stages the
-//    scaled q tile and the do tile once, each k/v tile per key block,
-//    forms the scores and do.v^T together, writes ds over the v tile and
-//    accumulates ds k into registers.
-//  * K8b (float32): one block per (batch*kv_head, key block), looping over
-//    the group's heads and the query blocks from the diagonal, forming p^T
-//    and ds^T in shared memory and accumulating p^T do and ds^T (scale q).
+//  * K8a: one block per (batch*head, query block), looping over the key
+//    blocks up to the diagonal as K7 does: it stages the scaled q tile and
+//    the do tile once, each k/v tile per key block, forms the scores and
+//    do.v^T together, writes ds over the v tile and accumulates ds k into
+//    registers.
+//  * K8b: one block per (batch*kv_head, key block), looping over the
+//    group's heads and the query blocks from the diagonal, forming p^T and
+//    ds^T in shared memory and accumulating p^T do and ds^T (scale q).
 // Both put the (batch, head) slice on the grid's x axis, so every slice's
 // longest block is dispatched before any shorter one.
 #include "flash_common.cuh"
@@ -83,12 +110,12 @@ __host__ __device__ __forceinline__ int k8_tile_floats(int D) {
   return ROWS * w;
 }
 
-template <typename T, int ROWS, int NC>
+template <int ROWS, int NC>
 __global__ void __launch_bounds__(FLASH_THREADS, 1)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ m, const float* __restrict__ linv,
-                const float* __restrict__ delta, T* __restrict__ dq,
+                const float* __restrict__ delta, float* __restrict__ dq,
                 K8Dims P) {
   constexpr int RI = ROWS / 16;  // patch rows and columns a thread owns
   extern __shared__ __align__(16) float smem[];
@@ -194,11 +221,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= P.S) continue;
-    T* row = dq + q_off + (long long)qp * q_stride;
+    float* row = dq + q_off + (long long)qp * q_stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < P.D) row[col] = from_f32<T>(acc[i][c] * P.scale);
+      if (col < P.D) row[col] = acc[i][c] * P.scale;
     }
   }
 }
@@ -582,6 +609,211 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------- K8a, bfloat16, tensor cores
+
+#define K8A_TC_THREADS 128  // 4 warps x 16 query rows
+#define K8A_BQ 64           // query rows a block
+
+template <int DP>
+struct K8aTile {
+  static constexpr int BK = DP > 128 ? 16 : 64;  // keys a staged tile
+  static constexpr int KS = DP > 128 ? 16 : 32;  // keys a score step
+  static constexpr int LD = DP + 8;              // bf16 per row
+  // Q, dO; two stages of K and V
+  static constexpr int smem_bytes = (2 * K8A_BQ + 4 * BK) * LD * 2;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(K8A_TC_THREADS, 2)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ m,
+                     const float* __restrict__ linv,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     K8Dims P) {
+  constexpr int BQ = K8A_BQ, BK = K8aTile<DP>::BK, KS = K8aTile<DP>::KS,
+                LD = K8aTile<DP>::LD;
+  constexpr int NT = K8A_TC_THREADS;
+  constexpr int NKS = KS / 8;   // key n-tiles of a score step
+  constexpr int NDT = DP / 8;   // head-dim n-tiles of the accumulator
+  constexpr int KD = DP / 16;   // k-steps over the head dim
+  constexpr bool QO_IN_REGS = DP <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* dOs = Qs + BQ * LD;                       // BQ x LD
+  bf16* Ks = dOs + BQ * LD;                       // 2 stages of BK x LD
+  bf16* Vs = Ks + 2 * BK * LD;                    // 2 stages of BK x LD
+
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;  // longest tiles first
+  const int b = bh / P.H, h = bh - b * P.H;
+  const int kvh = h / P.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q0 = qb * BQ;
+  const int row0 = warp * 16;  // the warp's first row in the tile
+  const long long q_stride = (long long)P.H * P.D;
+  const long long kv_stride = (long long)P.KVH * P.D;
+  const long long q_off = (long long)b * P.S * q_stride + (long long)h * P.D;
+  const long long kv_off =
+      (long long)b * P.S * kv_stride + (long long)kvh * P.D;
+  const bf16* kg = k + kv_off;
+  const bf16* vg = v + kv_off;
+  const bool vec = (P.D & 7) == 0;
+
+  flash_stage_bf16<BQ, DP, LD, NT>(Qs, q + q_off, q0, P.S, q_stride, P.D,
+                                   vec);
+  flash_stage_bf16<BQ, DP, LD, NT>(dOs, dout + q_off, q0, P.S, q_stride,
+                                   P.D, vec);
+  flash_stage_bf16<BK, DP, LD, NT>(Ks, kg, 0, P.S, kv_stride, P.D, vec);
+  flash_stage_bf16<BK, DP, LD, NT>(Vs, vg, 0, P.S, kv_stride, P.D, vec);
+  cp_async_commit();
+
+  // the statistics of the thread's two C-fragment rows, gid and gid + 8
+  // (zero past S: such a row's P is exp2(0) * 0)
+  float mb[2], li[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = q0 + row0 + gid + 8 * hr;
+    const long long si = (long long)bh * P.S + qp;
+    const bool in = qp < P.S;
+    mb[hr] = in ? m[si] * FLASH_LOG2E : 0.f;
+    li[hr] = in ? linv[si] : 0.f;
+    dl[hr] = in ? delta[si] : 0.f;
+  }
+
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3),
+            b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3),
+            t_col = (lane >> 4) * 8;
+
+  float acc[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qf[QO_IN_REGS ? KD : 1][4], of[QO_IN_REGS ? KD : 1][4];
+  const float sl2 = P.scale * FLASH_LOG2E;
+
+  const int q_last = min(q0 + BQ, P.S) - 1;
+  const int nkb = q_last / BK + 1;  // key tiles up to the diagonal
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1;
+    if (kb + 1 < nkb) {
+      const int nst = st ^ 1;
+      flash_stage_bf16<BK, DP, LD, NT>(Ks + nst * BK * LD, kg, (kb + 1) * BK,
+                                       P.S, kv_stride, P.D, vec);
+      flash_stage_bf16<BK, DP, LD, NT>(Vs + nst * BK * LD, vg, (kb + 1) * BK,
+                                       P.S, kv_stride, P.D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kb (and Q, dO) have landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * BK * LD;
+    const bf16* Vt = Vs + st * BK * LD;
+    if constexpr (QO_IN_REGS) {
+      if (kb == 0) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          const int off = (row0 + a_row) * LD + kd * 16 + a_col;
+          ldsm_x4(qf[kd], smem_u32(Qs + off));
+          ldsm_x4(of[kd], smem_u32(dOs + off));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int ks = 0; ks < BK / KS; ++ks) {
+      const int kk0 = ks * KS;       // the step's first key in the tile
+      const int kp0 = kb * BK + kk0;  // and in the sequence
+      if (kp0 > q0 + row0 + 15) continue;  // every key past every row
+
+      // S = Q K^T and dP = dO V^T on the warp's 16 rows x KS keys
+      float s[NKS][4], dp[NKS][4];
+#pragma unroll
+      for (int n = 0; n < NKS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4], o[4];
+        if constexpr (QO_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[e] = qf[kd][e];
+            o[e] = of[kd][e];
+          }
+        } else {
+          const int off = (row0 + a_row) * LD + kd * 16 + a_col;
+          ldsm_x4(a, smem_u32(Qs + off));
+          ldsm_x4(o, smem_u32(dOs + off));
+        }
+#pragma unroll
+        for (int np = 0; np < NKS / 2; ++np) {
+          const int off = (kk0 + np * 16 + b_row) * LD + kd * 16 + b_col;
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, smem_u32(Kt + off));
+          ldsm_x4(bv, smem_u32(Vt + off));
+          mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+          mma_bf16(dp[2 * np], o, bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], o, bv[2], bv[3]);
+        }
+      }
+
+      // dS = P (dP - delta) in float32 on the C fragments: rows gid (e 0,
+      // 1) and gid + 8 (e 2, 3)
+      const bool mask = kp0 + KS - 1 > q0 + row0;
+#pragma unroll
+      for (int n = 0; n < NKS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float p = fast_exp2(fmaf(s[n][e], sl2, -mb[hr])) * li[hr];
+          if (mask && kp0 + n * 8 + 2 * tig + (e & 1) >
+                          q0 + row0 + gid + 8 * hr)
+            p = 0.f;
+          s[n][e] = p * (dp[n][e] - dl[hr]);
+        }
+
+      // dQ += dS K: dS as hi and lo bf16 A fragments, K by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* c = s[2 * kk + (e >> 1)] + 2 * (e & 1);
+          ah[e] = pack_bf16(c[0], c[1]);
+          al[e] = pack_bf16_rest(c[0], c[1]);
+        }
+#pragma unroll
+        for (int dt = 0; dt < DP / 16; ++dt) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, smem_u32(Kt + (kk0 + kk * 16 + t_row) * LD +
+                                  dt * 16 + t_col));
+          mma_bf16(acc[2 * dt], ah, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * dt + 1], ah, bfr[2], bfr[3]);
+          mma_bf16(acc[2 * dt], al, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * dt + 1], al, bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is read: the next prefetch may refill it
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = q0 + row0 + gid + 8 * hr;
+    if (qp >= P.S) continue;
+    bf16* row = dq + q_off + (long long)qp * q_stride;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+      flash_store_pair(row, n * 8 + 2 * tig, P.D, acc[n][2 * hr] * P.scale,
+                       acc[n][2 * hr + 1] * P.scale);
+  }
+}
+
 // ---------------------------------------------------------- launchers
 
 static bool k8_dims_ok(int B, int S, int H, int KVH, int D) {
@@ -611,20 +843,37 @@ static int k8b_f32_smem(int D) {
          (int)sizeof(float);
 }
 
-template <typename T, int ROWS, int NC>
-static int launch_dq(const void* q, const void* k, const void* v,
-                     const void* dout, const float* m, const float* linv,
-                     const float* delta, void* dq, int B, const K8Dims& P,
-                     cudaStream_t st) {
+template <int ROWS, int NC>
+static int launch_dq_f32(const void* q, const void* k, const void* v,
+                         const void* dout, const float* m, const float* linv,
+                         const float* delta, void* dq, int B,
+                         const K8Dims& P, cudaStream_t st) {
   const int smem = k8a_smem<ROWS>(P.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, ROWS, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_dq_kernel<ROWS, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(B * P.H), (unsigned)((P.S + ROWS - 1) / ROWS));
-  flash_dq_kernel<T, ROWS, NC><<<grid, FLASH_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, linv, delta,
-      (T*)dq, P);
+  flash_dq_kernel<ROWS, NC><<<grid, FLASH_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      m, linv, delta, (float*)dq, P);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+static int launch_dq_bf16(const void* q, const void* k, const void* v,
+                          const void* dout, const float* m, const float* linv,
+                          const float* delta, void* dq, int B,
+                          const K8Dims& P, cudaStream_t st) {
+  constexpr int smem = K8aTile<DP>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(B * P.H), (unsigned)((P.S + K8A_BQ - 1) / K8A_BQ));
+  flash_dq_bf16_kernel<DP><<<grid, K8A_TC_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, m,
+      linv, delta, (bf16*)dq, P);
   return (int)cudaGetLastError();
 }
 
@@ -674,16 +923,24 @@ extern "C" int repro_k8a_flash_dq(const void* q, const void* k,
   if (!k8_dims_ok(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
   const K8Dims P = k8_dims(S, H, KVH, D, scale);
   cudaStream_t st = (cudaStream_t)stream;
-  const bool small = D <= 16 * FLASH_NC_SMALL;
-  if (is_bf16)
-    return small ? launch_dq<bf16, 64, FLASH_NC_SMALL>(
-                       q, k, v, dout, m, linv, delta, dq, B, P, st)
-                 : launch_dq<bf16, 32, FLASH_NC_LARGE>(
-                       q, k, v, dout, m, linv, delta, dq, B, P, st);
-  return small ? launch_dq<float, 64, FLASH_NC_SMALL>(q, k, v, dout, m, linv,
-                                                      delta, dq, B, P, st)
-               : launch_dq<float, 32, FLASH_NC_LARGE>(q, k, v, dout, m, linv,
-                                                      delta, dq, B, P, st);
+  if (!is_bf16)
+    return D <= 16 * FLASH_NC_SMALL
+               ? launch_dq_f32<64, FLASH_NC_SMALL>(q, k, v, dout, m, linv,
+                                                   delta, dq, B, P, st)
+               : launch_dq_f32<32, FLASH_NC_LARGE>(q, k, v, dout, m, linv,
+                                                   delta, dq, B, P, st);
+  switch (flash_dp(D)) {
+    case 32:
+      return launch_dq_bf16<32>(q, k, v, dout, m, linv, delta, dq, B, P, st);
+    case 64:
+      return launch_dq_bf16<64>(q, k, v, dout, m, linv, delta, dq, B, P, st);
+    case 128:
+      return launch_dq_bf16<128>(q, k, v, dout, m, linv, delta, dq, B, P,
+                                 st);
+    default:
+      return launch_dq_bf16<256>(q, k, v, dout, m, linv, delta, dq, B, P,
+                                 st);
+  }
 }
 
 extern "C" int repro_k8b_flash_dkdv(const void* q, const void* k,
@@ -722,16 +979,18 @@ extern "C" int repro_k8b_flash_dkdv(const void* q, const void* k,
 extern "C" int repro_k8_smem_bytes(int which, int D, int is_bf16) {
   if (D < 1 || D > FLASH_MAX_D) return -1;
   const bool small = D <= 16 * FLASH_NC_SMALL;
-  if (which == 0) return small ? k8a_smem<64>(D) : k8a_smem<32>(D);
-  if (!is_bf16) return small ? k8b_f32_smem<64>(D) : k8b_f32_smem<32>(D);
+  if (!is_bf16) {
+    if (which == 0) return small ? k8a_smem<64>(D) : k8a_smem<32>(D);
+    return small ? k8b_f32_smem<64>(D) : k8b_f32_smem<32>(D);
+  }
   switch (flash_dp(D)) {
     case 32:
-      return K8Tile<32>::smem_bytes;
+      return which == 0 ? K8aTile<32>::smem_bytes : K8Tile<32>::smem_bytes;
     case 64:
-      return K8Tile<64>::smem_bytes;
+      return which == 0 ? K8aTile<64>::smem_bytes : K8Tile<64>::smem_bytes;
     case 128:
-      return K8Tile<128>::smem_bytes;
+      return which == 0 ? K8aTile<128>::smem_bytes : K8Tile<128>::smem_bytes;
     default:
-      return K8Tile<256>::smem_bytes;
+      return which == 0 ? K8aTile<256>::smem_bytes : K8Tile<256>::smem_bytes;
   }
 }

@@ -1,13 +1,13 @@
 // Helpers shared by K7 (flash_attention.cu) and K8 (flash_attention_bwd.cu).
 //
 // Two families of kernels use them:
-//  * the CUDA-core kernels (K7 and K8b in float32, K8a in both dtypes)
-//    stage tiles into shared memory as float32 (flash_load_tile*): a tile
-//    row r holds sequence position s0 + r, rows at or past S read as
-//    zeros, columns run to the true D, and rows are padded to D + 1 floats
-//    so that 16 threads reading one column hit 16 banks;
-//  * the tensor-core kernels (K7 and K8b in bfloat16) stage bf16 tiles with
-//    cp.async (flash_stage_bf16) and multiply them with mma.sync
+//  * the CUDA-core kernels (K7, K8a and K8b in float32) stage tiles into
+//    shared memory as float32 (flash_load_tile*): a tile row r holds
+//    sequence position s0 + r, rows at or past S read as zeros, columns
+//    run to the true D, and rows are padded to D + 1 floats so that 16
+//    threads reading one column hit 16 banks;
+//  * the tensor-core kernels (K7, K8a and K8b in bfloat16) stage bf16 tiles
+//    with cp.async (flash_stage_bf16) and multiply them with mma.sync
 //    m16n8k16 (bf16 in, float32 accumulate), reading operand fragments
 //    with ldmatrix.  Their rows are DP + 8 bf16 wide, DP the head dim
 //    rounded up to 32, 64, 128 or 256: a row stride of an odd number of
@@ -16,8 +16,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tc_common.cuh"
 
 #define FLASH_THREADS 256
 #define FLASH_MAX_D 256
@@ -29,25 +29,10 @@
 #define FLASH_NC_SMALL 8
 #define FLASH_NC_LARGE 16
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // dst[r * (D + 1) + c] = src[(s0 + r) * row_stride + c] * mul, zero past S.
 // ``src`` points at the (batch, head) slice's first element.
-template <int ROWS, typename T>
-__device__ __forceinline__ void flash_load_tile(float* dst, const T* src,
+template <int ROWS>
+__device__ __forceinline__ void flash_load_tile(float* dst, const float* src,
                                                 int s0, int S,
                                                 long long row_stride, int D,
                                                 float mul) {
@@ -56,16 +41,17 @@ __device__ __forceinline__ void flash_load_tile(float* dst, const T* src,
     const int r = idx / D, c = idx - r * D;
     const int s = s0 + r;
     dst[r * DP + c] =
-        s < S ? to_f32(src[(long long)s * row_stride + c]) * mul : 0.f;
+        s < S ? src[(long long)s * row_stride + c] * mul : 0.f;
   }
 }
 
 // Two tiles at the same positions of two tensors with one stride (k and
 // v), in one pass over the index space.
-template <int ROWS, typename T>
+template <int ROWS>
 __device__ __forceinline__ void flash_load_tile_pair(float* dst_a,
                                                      float* dst_b,
-                                                     const T* a, const T* b,
+                                                     const float* a,
+                                                     const float* b,
                                                      int s0, int S,
                                                      long long row_stride,
                                                      int D) {
@@ -75,23 +61,19 @@ __device__ __forceinline__ void flash_load_tile_pair(float* dst_a,
     const int s = s0 + r;
     const bool in = s < S;
     const long long off = (long long)s * row_stride + c;
-    dst_a[r * DP + c] = in ? to_f32(a[off]) : 0.f;
-    dst_b[r * DP + c] = in ? to_f32(b[off]) : 0.f;
+    dst_a[r * DP + c] = in ? a[off] : 0.f;
+    dst_b[r * DP + c] = in ? b[off] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------------
-// Tensor-core building blocks (sm_80+ PTX, run on sm_90a)
+// bf16 tensor-core building blocks (sm_80+ PTX, run on sm_90a)
 
 typedef __nv_bfloat16 bf16;
 
 // the head dim the tensor-core kernels are instantiated for
 __host__ __device__ __forceinline__ int flash_dp(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // four 8 x 8 b16 matrices; lane l gives the row address of matrix l / 8
@@ -139,32 +121,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// 16 bytes global -> shared; bytes = 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// 4 bytes global -> shared; bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // dst[r * LD + c] = src[(s0 + r) * row_stride + c] for r < ROWS, c < DP;

@@ -26,7 +26,7 @@ SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
            "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
 # headers the sources include: part of the digest, not compiled alone
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "tc_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _vp, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
+_pi = ctypes.POINTER(ctypes.c_int)
 # C signature of every entry point: (argtypes); each returns cudaError_t
 # unless noted
 _SIGNATURES = {
@@ -49,11 +50,14 @@ _SIGNATURES = {
     # stream
     "repro_k3_fused_irls": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                             _vp, _vp, _i, _ll, _i, _i, _i, _vp),
-    # betas, X, Xm, y, counts, fold_ids, fold_of, H, g, stats, Hp, gp, sp,
-    # S, n_max, d, Q, NSL, TN, stream
+    # betas, X, Xm, y, counts, fold_ids, fold_of, H, g, stats, w, Hp, gp,
+    # sp, S, n_max, d, Q, NSL rows, TN rows, NSL Gram, stream
     "repro_k5_fused_irls_cv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                               _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
-                               _vp),
+                               _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i,
+                               _i, _i, _vp),
+    # d; out: configurations a rows block, TN rows, Gram units a
+    # configuration, Gram blocks an SM
+    "repro_k5_plan": (_i, _pi, _pi, _pi, _pi),
     # X, w, H, Hp, n, d, C, TN, stream
     "repro_k6_gram_hessian": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _vp),
     # q, k, v, o, m, l, B, S, H, KVH, D, is_bf16, scale, stream

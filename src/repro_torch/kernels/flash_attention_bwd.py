@@ -16,9 +16,9 @@ D), in the input dtype.  :func:`flash_attention_backward` is the whole
 backward from K7's outputs, as the JAX wrapper (``ops.py:351-352``)
 computes delta and linv outside its kernels.
 
-Both kernels take any head_dim up to 256.  K8b in bfloat16 runs on the
-tensor cores (mma.sync with cp.async staging); K8b in float32 and K8a in
-both dtypes run on the CUDA cores.
+Both kernels take any head_dim up to 256.  In bfloat16 both run on the
+tensor cores (mma.sync with cp.async staging), with P and dS multiplied
+as two bf16 terms each (hi + lo); in float32 both run on the CUDA cores.
 """
 from __future__ import annotations
 

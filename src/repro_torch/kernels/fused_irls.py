@@ -17,8 +17,13 @@ contract:
 
 * z, p, the residual, g and dev in float64;
 * the IRLS weight w = p (1 - p) cast to float32;
-* H = Xm^T diag(w) Xm from the float32 operand ``Xm`` with float32
-  accumulation (no TF32).
+* H = Xm^T diag(w) Xm from the float32 operand ``Xm`` with float32 sums.
+  The plain versions, K3 and K6 multiply in exact float32 (no TF32).  K5
+  takes the products on the tensor cores as three TF32 products with
+  float32 accumulation: a = w Xm rounded to float32, each of a and Xm
+  split into TF32 terms hi + lo (hi = rna(x), lo = rna(x - hi)), and H =
+  a_hi^T x_hi + a_hi^T x_lo + a_lo^T x_hi, within ~2^-21 of each exact
+  product.
 
 Rows >= counts[s] are masked out of every sum; the kernel never reads
 them.  Per the sim, g/dev always accumulate in float64, which is also
@@ -26,6 +31,7 @@ what the H100 runs natively.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -149,27 +155,38 @@ def fused_irls_cv_plain(betas, X, Xm, y, counts, fold_ids, fold_of):
     return (H, *rest)
 
 
-def cv_launch_shape(pairs: int, d: int, device) -> tuple[int, int]:
-    """(row slices per institution, TN rows per staged tile) for K5 over
-    ``pairs`` (configuration, institution) pairs.
+def cv_launch_shape(c_dim: int, s_dim: int, n: int, d: int,
+                    device) -> dict:
+    """K5's launch shape for ``c_dim`` configurations x ``s_dim``
+    institutions of ``n`` rows at dimension ``d``.
 
-    One K5 block runs per SM (ptxas gives it 212 registers a thread on
-    sm_90a), so the grid runs in waves of ``multi_processor_count`` blocks
-    and a partial last wave idles the rest of the card.  Start from K3's
-    two blocks per SM and take the first slice count whose waves are at
-    least 95% full: at the λ path's 40 pairs, 13 slices (520 blocks, 3.94
-    waves of 132) where K3's rule gives 7 (280 blocks, 2.12 waves run as
-    3).  On an H100 80GB HBM3 at 700 W that took K5 at the path's shape
-    from 4.47 to 3.29 ms (``chip_smoke.py``, both versions in one run).
+    ``repro_k5_plan`` gives the configurations a rows block handles, the
+    rows kernel's rows a staged tile, the Gram units a configuration (a
+    unit is three 64 x 64 blocks of H's upper half: one at d <= 128) and
+    the blocks an SM the Gram kernel's registers and shared memory allow.
+    The rows kernel (grid: configuration chunks x slices x institutions)
+    takes about two blocks per SM, no slice shorter than a tile.  The Gram
+    kernel's grid has ``c_dim * s_dim * units`` blocks a slice and runs in
+    waves of its blocks an SM times ``multi_processor_count``: take the
+    first slice count, from one that fills a wave, whose waves are at
+    least 95% full.
     """
-    nsl, tn = launch_shape(pairs, d, device)
+    lib = _build.library()
+    cb, tn_r, units, per_sm = (ctypes.c_int() for _ in range(4))
+    _build.check(lib.repro_k5_plan(d, *(ctypes.byref(v) for v in
+                                        (cb, tn_r, units, per_sm))),
+                 "K5 repro_k5_plan")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_slice = pairs * (-(-d // 128)) ** 2
-    for cand in range(nsl, 4 * nsl + 1):
-        blocks = cand * per_slice
-        if blocks / (-(-blocks // sms) * sms) >= 0.95:
-            return cand, tn
-    return nsl, tn
+    chunks = -(-c_dim // cb.value)
+    nsl_r = max(1, min(math.ceil(2 * sms / (chunks * s_dim)),
+                       math.ceil(n / tn_r.value)))
+    wave = max(1, per_sm.value) * sms
+    per_slice = c_dim * s_dim * units.value
+    first = max(1, math.ceil(wave / per_slice))
+    nsl_g = next((c for c in range(first, 4 * first + 1)
+                  if c * per_slice / (-(-c * per_slice // wave) * wave)
+                  >= 0.95), first)
+    return dict(nsl_rows=nsl_r, tn_rows=tn_r.value, nsl_gram=nsl_g)
 
 
 def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
@@ -187,20 +204,26 @@ def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
         raise ValueError(f"K5 supports d <= {_MAX_DIM}, got {d}")
     betas, X, Xm, y, counts, fold_ids, fold_of = (
         t.contiguous() for t in (betas, X, Xm, y, counts, fold_ids, fold_of))
-    nsl, tn = cv_launch_shape(c_dim * s_dim, d, X.device)
+    shape = cv_launch_shape(c_dim, s_dim, n, d, X.device)
+    nsl_r, nsl_g = shape["nsl_rows"], shape["nsl_gram"]
     dev_ = X.device
     f32, f64 = torch.float32, torch.float64
     H = torch.empty((c_dim, s_dim, d, d), dtype=f32, device=dev_)
     g = torch.empty((c_dim, s_dim, d), dtype=f64, device=dev_)
     stats = torch.empty((4, c_dim, s_dim), dtype=f64, device=dev_)
-    Hp = torch.empty((c_dim, s_dim, nsl, d, d), dtype=f32, device=dev_)
-    gp = torch.empty((c_dim, s_dim, nsl, d), dtype=f64, device=dev_)
-    sp = torch.empty((c_dim, s_dim, nsl, 4), dtype=f64, device=dev_)
+    # scratch: the train weights the rows kernel hands the Gram kernel;
+    # per-slice partials, H's upper half packed row by row
+    w = torch.empty((c_dim, s_dim, n), dtype=f32, device=dev_)
+    Hp = torch.empty((c_dim, s_dim, nsl_g, d * (d + 1) // 2), dtype=f32,
+                     device=dev_)
+    gp = torch.empty((c_dim, s_dim, nsl_r, d), dtype=f64, device=dev_)
+    sp = torch.empty((c_dim, s_dim, nsl_r, 4), dtype=f64, device=dev_)
     err = _build.library().repro_k5_fused_irls_cv(
         betas.data_ptr(), X.data_ptr(), Xm.data_ptr(), y.data_ptr(),
         counts.data_ptr(), fold_ids.data_ptr(), fold_of.data_ptr(),
-        H.data_ptr(), g.data_ptr(), stats.data_ptr(), Hp.data_ptr(),
-        gp.data_ptr(), sp.data_ptr(), s_dim, n, d, c_dim, nsl, tn,
+        H.data_ptr(), g.data_ptr(), stats.data_ptr(), w.data_ptr(),
+        Hp.data_ptr(), gp.data_ptr(), sp.data_ptr(), s_dim, n, d, c_dim,
+        nsl_r, shape["tn_rows"], nsl_g,
         torch.cuda.current_stream(dev_).cuda_stream,
     )
     _build.check(err, "K5 fused_irls_cv")

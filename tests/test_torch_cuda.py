@@ -18,10 +18,13 @@ flash tolerance, and 5e-3 absolute + 1e-2 relative in bfloat16 (set from
 the measured error, under one bf16 unit in the last place of |o| < 2; the
 CPU parity tests keep the JAX package's 2e-2); its m and l 1e-5 relative
 (m also 1e-6 absolute, for a row whose largest score is near zero).
-K7 and K8b run bfloat16 on the tensor cores and float32 on the CUDA
-cores, K8a both on the CUDA cores; each takes any head_dim up to 256, and
-the cases cover both instantiations, D 256, D padded to the tensor-core
-kernels' 32 and D not a multiple of 8 (plain loads in place of cp.async).
+K5 takes its Gram's products as three TF32 products on the tensor cores
+and is deterministic: two calls give bit-identical outputs.  K7, K8a and
+K8b run bfloat16 on the tensor cores and float32 on the CUDA cores; each
+takes any head_dim up to 256, and the cases cover both instantiations, D
+256, D padded to the tensor-core kernels' 32 and D not a multiple of 8
+(plain loads in place of cp.async), and a peaked softmax (q scaled by 4),
+where dq = sum_j ds_ij k_j cancels hardest.
 K8a/K8b hold 2e-5 of the larger of max|plain output| and max|do| in
 float32 (a one-token row's gradient is pure cancellation, so its own
 magnitude is no scale) and 5e-3 absolute + 1e-2 relative in bfloat16, as
@@ -149,6 +152,14 @@ def test_k3_kernel_matches_plain(cuda, counts, n, d):
     ((26250, 23750), 26250, 128, (0, 1, 2, 3, 4)),
     ((0, 300), 300, 256, (-1, 1)),
     ((700, 90), 530, 12, (-1, 0, 1)),  # a count past N_max
+    ((40, 3, 17), 40, 1, (-1, 0, 1)),  # d 1
+    ((600, 411), 600, 1024, (-1, 2)),  # d 1024, the largest K5 takes
+    # the λ path's 40 pairs: 5 folds x 8 institutions, ragged
+    ((2500, 2375, 2625, 2400, 2600, 2450, 2550, 2500), 2625, 128,
+     (0, 1, 2, 3, 4)),
+    # 8 λs x 5 folds x 8 institutions: few, long slices a pair
+    ((6000, 5700, 6300, 5760, 6240, 5880, 6120, 6000), 6300, 128,
+     (0, 1, 2, 3, 4) * 8),
 ])
 def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
     gen = torch.Generator(device=cuda).manual_seed(sum(counts) + d)
@@ -187,6 +198,28 @@ def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
                      + 1e-300).all())
     for k in (4, 5):
         assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("d", [128, 130])
+def test_k5_two_calls_are_bit_identical(cuda, d):
+    """No float atomics: the slices' partials are summed in slice order,
+    so the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    counts = torch.tensor([3000, 2811, 2950], dtype=torch.int32, device=cuda)
+    X = torch.randn((3, 3000, d), generator=gen, device=cuda,
+                    dtype=torch.float64)
+    y = (torch.rand((3, 3000), generator=gen, device=cuda) < 0.5).double()
+    betas = 0.05 * torch.randn((5, d), generator=gen, device=cuda,
+                               dtype=torch.float64)
+    fids = torch.randint(0, 5, (3, 3000), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    fold = torch.arange(5, dtype=torch.int32, device=cuda)
+    args = (betas, X, X.float(), y, counts, fids, fold)
+    first = fused_irls_cv_kernel(*args)
+    second = fused_irls_cv_kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
@@ -289,12 +322,19 @@ def test_k7_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(k7_mod, "flash_attention_plain", refuse)
+    monkeypatch.setattr(k8_mod, "flash_dq_plain", refuse)
     x = torch.randn((1, 64, 4, 32), device=cuda)
     ops.flash_attention(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous())
     for dtype in (torch.float32, torch.bfloat16):  # head_dim 256
         y = torch.randn((1, 96, 4, 256), device=cuda).to(dtype)
         ops.flash_attention(y, y[:, :, :1].contiguous(),
                             y[:, :, 1:2].contiguous())
+    for d in (128, 256):  # K8a's tensor-core kernel under the gradient
+        y = torch.randn((1, 96, 4, d), device=cuda).to(torch.bfloat16) \
+            .requires_grad_(True)
+        kv = torch.randn((1, 96, 2, d), device=cuda).to(torch.bfloat16)
+        o = ops.flash_attention(y, kv, kv)
+        torch.autograd.grad(o.float().sum(), (y,))
     cfg = smoke_config("qwen2_5_32b")
     T.prefill(T.init_params(cfg, seed=0, device=cuda), cfg,
               torch.zeros((1, 8), dtype=torch.long, device=cuda))
@@ -336,25 +376,31 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-@pytest.mark.parametrize("B,S,H,KVH,D,dtype", [
-    (1, 2048, 40, 8, 128, torch.bfloat16),  # the training shape
-    (1, 1000, 32, 8, 120, torch.bfloat16),  # H2O-like: ragged, D 120
-    (2, 384, 4, 1, 64, torch.float32),      # MQA
-    (1, 256, 2, 2, 32, torch.float32),      # many blocks
-    (1, 200, 2, 2, 16, torch.float32),      # ragged S, small D
-    (3, 1, 4, 2, 128, torch.float32),       # one token
-    (1, 2048, 16, 1, 256, torch.bfloat16),  # recurrentgemma-like
-    (1, 300, 4, 2, 256, torch.float32),     # D 256, 32-row tiles
-    (1, 200, 4, 2, 24, torch.bfloat16),     # D padded to 32
-    (2, 130, 2, 1, 16, torch.bfloat16),     # D padded to 32
-    (1, 100, 2, 1, 20, torch.bfloat16),     # D % 8 != 0: no cp.async
-    (1, 70, 2, 1, 7, torch.bfloat16),       # odd D: scalar stores
-    (3, 1, 4, 2, 128, torch.bfloat16),      # one token
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype,q_scale", [
+    (1, 2048, 40, 8, 128, torch.bfloat16, 1.0),  # the training shape
+    (1, 1000, 32, 8, 120, torch.bfloat16, 1.0),  # H2O-like: ragged, D 120
+    (2, 384, 4, 1, 64, torch.float32, 1.0),      # MQA
+    (1, 256, 2, 2, 32, torch.float32, 1.0),      # many blocks
+    (1, 200, 2, 2, 16, torch.float32, 1.0),      # ragged S, small D
+    (3, 1, 4, 2, 128, torch.float32, 1.0),       # one token
+    (1, 2048, 16, 1, 256, torch.bfloat16, 1.0),  # recurrentgemma-like
+    (1, 300, 4, 2, 256, torch.float32, 1.0),     # D 256, 32-row tiles
+    (1, 200, 4, 2, 24, torch.bfloat16, 1.0),     # D padded to 32
+    (2, 130, 2, 1, 16, torch.bfloat16, 1.0),     # D padded to 32
+    (1, 100, 2, 1, 20, torch.bfloat16, 1.0),     # D % 8 != 0: no cp.async
+    (1, 70, 2, 1, 7, torch.bfloat16, 1.0),       # odd D: scalar stores
+    (3, 1, 4, 2, 128, torch.bfloat16, 1.0),      # one token
+    # a peaked softmax (q scaled by 4): dq = sum_j ds_ij k_j, whose dS sums
+    # to zero along the row, cancels hardest
+    (1, 2048, 40, 8, 128, torch.bfloat16, 4.0),
+    (1, 1000, 16, 1, 256, torch.bfloat16, 4.0),
+    (2, 300, 8, 2, 64, torch.bfloat16, 4.0),
 ])
-def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype):
+def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype, q_scale):
     gen = torch.Generator(device=cuda).manual_seed(S + D + 1)
     q, k, v, do = (torch.randn((B, S, n, D), generator=gen, device=cuda)
-                   .to(dtype) for n in (H, KVH, KVH, H))
+                   for n in (H, KVH, KVH, H))
+    q, k, v, do = (t.to(dtype) for t in (q_scale * q, k, v, do))
     with torch.no_grad():
         o, m, l = flash_attention_kernel(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -504,10 +550,11 @@ def test_k8_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     torch.autograd.grad(o.sum(), (x, kv))
     ops.flash_attention_bwd(x.detach(), kv.detach(), kv.detach(),
                             torch.ones_like(x))
-    for dtype in (torch.float32, torch.bfloat16):  # head_dim 256
-        y = torch.randn((1, 96, 4, 256), device=cuda).to(dtype) \
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 256),
+                     (torch.bfloat16, 128)):
+        y = torch.randn((1, 96, 4, d), device=cuda).to(dtype) \
             .requires_grad_(True)
-        kv2 = torch.randn((1, 96, 1, 256), device=cuda).to(dtype) \
+        kv2 = torch.randn((1, 96, 1, d), device=cuda).to(dtype) \
             .requires_grad_(True)
         o = ops.flash_attention(y, kv2, kv2)
         torch.autograd.grad(o.float().sum(), (y, kv2))

@@ -11,18 +11,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``{"flash_ptxas": ...}`` line: each of the 18 flash-attention kernel
    instantiations (K7, K8a, K8b; bf16 on the tensor cores, float32 on the
    CUDA cores) with its ptxas registers, spill bytes and shared memory,
-   none of which may spill; and a ``{"k5_ptxas": ...}`` line: the same for
-   K5's seven kernel instantiations (rows, Gram, reduce), with the launch
-   plan ``repro_k5_plan`` gives at d = 128;
+   none of which may spill; and a ``{"irls_ptxas": ...}`` line: the same
+   for the 17 instantiations of the IRLS kernels that K3, K5 (rows, Gram,
+   reduce: 7 each) and K6 (Gram, reduce: 3) wrap around the shared bodies
+   of ``csrc/irls_tc.cuh``, with the launch plan each entry's
+   ``repro_k*_plan`` gives at d = 128;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it: K1 encode+share and K2 reveal bit-identical,
-   K3 summaries within the stated tolerances; K5 cross-validated
-   summaries at the λ-path's (5 folds) and refit's (fold -1) shapes and
-   at a ragged shape with a count past N_max, H within 2e-5 max|H|, g and
-   the deviances within 1e-10 of the sums of absolute terms, held-out
-   counts exact, two calls bit-identical; K4 leaf-wise shares bit-identical at n = 1,000,000, R = 2,
-   (t, w) = (2, 3) and (3, 5); K6 weighted Gram within 2e-5 max|H| at one
-   institution's (25,000 x 128) and the pooled (200,000 x 128) shape;
+   K3 summaries within the stated tolerances, two calls bit-identical;
+   K5 cross-validated summaries at the λ-path's (5 folds) and refit's
+   (fold -1) shapes and at a ragged shape with a count past N_max, H
+   within 2e-5 max|H|, g and the deviances within 1e-10 of the sums of
+   absolute terms, held-out counts exact, two calls bit-identical; K4
+   leaf-wise shares bit-identical at n = 1,000,000, R = 2, (t, w) = (2,
+   3) and (3, 5); K6 weighted Gram within 2e-5 max|H| at one
+   institution's (25,000 x 128) and the pooled (200,000 x 128) shape, two
+   calls bit-identical; for K3, K5 and K6 the distance of the kernel's
+   and of the plain version's H to the float64 sum of the float32
+   products is printed, and the kernel's may be no larger;
 4. a full ``secure_fit`` at the acceptance configuration (S=8
    institutions, d=128, N=200,000 rows split +-5%, protect="both", 2-of-3
    Shamir over the (2^31-1, 2^31-19) CRT pair, 28 fractional bits)
@@ -88,7 +94,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    λ path, the multi-study rounds and the serving run, then one of each
    under ``torch.profiler`` (device time
    per kernel name, the union of device-busy intervals over the run's
-   wall window, so the card's idle share), as ``profile`` JSON lines;
+   wall window, so the card's idle share), as ``profile`` JSON lines; a
+   fit and a multi-study round must attribute time to K3 and none to K5,
+   a path round to K5 and none to K3; then K6 alone at 25,000 x 128 and
+   200,000 x 128, 20 calls a run (its Gram kernel beside its reduce);
    ``--trace`` also writes the fit's Chrome trace;
 13. training at Qwen2.5-32B's full width with its depth cut to 2 of 64
    layers (2,532,350,976 parameters), after the serving weights are
@@ -107,7 +116,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    and the step-0 secure mean gradient within S * 2^-28 of the plain mean;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
-   K7, K8a and K8b also at the head_dim 256 shape (``at_shapes``).
+   K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
+   institution's 25,000 x 128 (``at_shapes``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -299,12 +309,14 @@ def _union_us(intervals) -> float:
 
 # device-time categories of a round, by kernel-name substring (first hit)
 CATEGORIES = (
-    ("K5 fused_irls_cv", ("irls_cv_",)),
-    ("K3 fused_irls", ("irls_partial", "irls_reduce")),
+    ("K5 fused_irls_cv", ("irls_cv_rows_kernel", "irls_cv_gram_kernel",
+                          "irls_cv_reduce_kernel")),
+    ("K3 fused_irls", ("k3_rows_kernel", "k3_gram_kernel",
+                       "k3_reduce_kernel")),
     ("K1 encode_share", ("encode_share",)),
     ("K2 reconstruct", ("reconstruct_kernel",)),
     ("K4 leaf-wise share", ("leafwise_share",)),
-    ("K6 gram_hessian", ("gram_partial", "gram_reduce")),
+    ("K6 gram_hessian", ("k6_gram_kernel", "k6_reduce_kernel")),
     ("solve (LU, cuBLAS/cuSOLVER)", ("getrf", "getrs", "laswp", "trsm",
                                      "trsv", "ipiv", "lu_", "magma",
                                      "solve", "gemv", "batch_")),
@@ -539,6 +551,7 @@ def check_k6(X_all, w_all):
     and the pooled (200,000 x 128) shape; returns (max|dH|, per shape the
     largest |H - float64 sum of the float32 products| of the kernel and of
     the plain version, the pooled float32 arguments)."""
+    import torch
     from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
         gram_hessian_plain
 
@@ -547,6 +560,8 @@ def check_k6(X_all, w_all):
     for rows in (25_000, X32.shape[0]):
         Xr, wr = X32[:rows], w32[:rows]
         H = gram_hessian_kernel(Xr, wr)
+        check(torch.equal(H, gram_hessian_kernel(Xr, wr)),
+              f"K6 ({rows} x {Xr.shape[1]}): two calls bit-identical")
         Hp = gram_hessian_plain(Xr, wr)
         dH = float((H - Hp).abs().max())
         check(dH <= 2e-5 * float(Hp.abs().max()),
@@ -1008,6 +1023,23 @@ def k7_timing(args):
                     bf16_ops=b * h * s * (s + 1) // 2 * 4 * d))
 
 
+def k6_timing(X, w):
+    """Phase 12's K6 row on one (X, w) float32 pair: the kernel, its plain
+    version, ``torch.matmul`` of (X w)^T and X, and the bound: X and w read
+    once, H written; the symmetric Gram as three TF32 products."""
+    import torch
+    from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
+        gram_hessian_plain
+
+    n, d = X.shape
+    return dict(
+        run=lambda: gram_hessian_kernel(X, w),
+        plain=lambda: gram_hessian_plain(X, w),
+        library=lambda: torch.matmul((X * w[:, None]).T, X),
+        bound=bound(n * (d + 1) * 4 + d * d * 4,
+                    tf32_ops=3 * n * d * (d + 1)))
+
+
 def k8_timing(args):
     """Phase 12's K8a and K8b rows on one shape's (q, k, v, do, m, linv,
     delta), with SDPA's backward on the same tensors heads first as the
@@ -1117,27 +1149,34 @@ def flash_ptxas(log_text: str, lib) -> list:
     ))
 
 
-def k5_ptxas(log_text: str, lib) -> dict:
-    """K5's kernel instantiations' ptxas rows, and what ``repro_k5_plan``
-    gives at the path's d: configurations a rows block, the rows kernel's
-    tile rows, the Gram units a configuration and blocks an SM."""
+def irls_ptxas(log_text: str, lib) -> dict:
+    """The IRLS kernels' instantiations' ptxas rows (K3, K5 and K6 wrap
+    the bodies of ``csrc/irls_tc.cuh`` in kernels of their own names), and
+    what each entry's plan gives at the path's d: configurations a rows
+    block, the rows and Gram kernels' tile rows, the Gram units a
+    configuration and blocks an SM."""
     import ctypes
 
-    cb, tn_r, units, per_sm = (ctypes.c_int() for _ in range(4))
-    check(lib.repro_k5_plan(D, *(ctypes.byref(v) for v in
-                                 (cb, tn_r, units, per_sm))) == 0,
-          "repro_k5_plan")
-    rows = ptxas_report(log_text, (
-        (r"irls_cv_rows_kernelILi(\d+)E", lambda h: (
-            f"K5 rows (float64 mma), {h.group(1)} column tiles a warp",
-            None)),
-        (r"irls_cv_gram_kernelILi(\d+)E", lambda h: (
-            f"K5 Gram (3xTF32 wgmma), {h.group(1)}-row tiles", None)),
-        (r"irls_cv_reduce_kernel", lambda h: ("K5 reduce", 0)),
-    ))
-    return {"kernels": rows, "d": D, "configs_per_rows_block": cb.value,
-            "rows_tile_rows": tn_r.value, "gram_units": units.value,
-            "gram_blocks_per_sm": per_sm.value}
+    plans = {}
+    for k in ("k3", "k5", "k6"):
+        out = (ctypes.c_int * 5)()
+        check(getattr(lib, f"repro_{k}_plan")(D, out) == 0,
+              f"repro_{k}_plan")
+        plans[k.upper()] = dict(zip(
+            ("configs_per_rows_block", "rows_tile_rows", "gram_tile_rows",
+             "gram_units", "gram_blocks_per_sm"), out))
+    rows = ptxas_report(log_text, tuple(
+        pat for name, prefix in (("K5", "irls_cv_"), ("K3", "k3_"),
+                                 ("K6", "k6_"))
+        for pat in (
+            (rf"{prefix}rows_kernelILi(\d+)E", lambda h, n=name: (
+                f"{n} rows (float64 mma), {h.group(1)} column tiles a warp",
+                None)),
+            (rf"{prefix}gram_kernelILi(\d+)E", lambda h, n=name: (
+                f"{n} Gram (3xTF32 wgmma), {h.group(1)}-row tiles", None)),
+            (rf"{prefix}reduce_kernel", lambda h, n=name: (
+                f"{n} reduce", 0)))))
+    return {"kernels": rows, "d": D, "plans": plans}
 
 
 def grad_check(dev):
@@ -1373,8 +1412,7 @@ def main() -> int:
     from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
         fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain
     from repro_torch.selection import SelectionCoordinator, secure_cv_path
-    from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
-        gram_hessian_plain
+    from repro_torch.kernels.fused_irls import gram_hessian_kernel
     from repro_torch.kernels.shamir_poly import encode_share_kernel, \
         encode_share_plain, share_kernel, share_plain
     from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
@@ -1410,17 +1448,18 @@ def main() -> int:
     log_text = _build.build_log().read_text()
     flash = flash_ptxas(log_text, _build.library())
     print(json.dumps({"flash_ptxas": flash}))
-    k5_rep = k5_ptxas(log_text, _build.library())
-    print(json.dumps({"k5_ptxas": k5_rep}))
-    for r in flash + k5_rep["kernels"]:
+    irls_rep = irls_ptxas(log_text, _build.library())
+    print(json.dumps({"irls_ptxas": irls_rep}))
+    for r in flash + irls_rep["kernels"]:
         check(r["registers"] is not None and r["spill_stores"] is not None,
               f"no ptxas report for {r['kernel']}")
-    for r in flash:
         check(r["spill_stores"] == r["spill_loads"] == 0,
               f"{r['kernel']} spills: {r}")
     check(len(flash) == 18, f"{len(flash)} flash kernels in the ptxas report")
-    check(len(k5_rep["kernels"]) == 7,
-          "K5's seven kernel instantiations in the ptxas report")
+    # rows 4, Gram 2 and the reduce for K3 and K5; K6 has no rows kernel
+    check(len(irls_rep["kernels"]) == 17,
+          f"{len(irls_rep['kernels'])} IRLS kernel instantiations (K3 7, "
+          "K5 7, K6 3) in the ptxas report")
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
     study = generate_synthetic(SEED, num_institutions=1,
@@ -1435,6 +1474,9 @@ def main() -> int:
     # -- 3. kernels vs plain versions --------------------------------------
     k3_args = (beta, packed.X, packed.X32, packed.y, packed.counts)
     H, g, dv = fused_irls_kernel(*k3_args)
+    check(all(torch.equal(a, b) for a, b in
+              zip((H, g, dv), fused_irls_kernel(*k3_args))),
+          "K3: two calls bit-identical")
     Hp, gp, dvp = fused_irls_plain(*k3_args)
     n_max = packed.X.shape[1]
     mask = (torch.arange(n_max, device=dev)[None, :]
@@ -1538,14 +1580,23 @@ def main() -> int:
     print("kernels vs plain: K1 bit-identical (2 fields, f32/f64, points, "
           f"edges); K2 bit-identical (3 point sets, R=1 and 2, residues); "
           f"K3 max|dH| {dH:.3e} (<= 2e-5 max|H| {float(Hp.abs().max()):.4e})"
-          ", g/dev within 1e-12 of the abs sums; d=130 ok; K5 max|dH| "
+          ", g/dev within 1e-12 of the abs sums, two calls bit-identical; "
+          "d=130 ok; K5 max|dH| "
           f"{k5_err:.3e} over the path (C=5), refit (C=1) and ragged "
           "(d=130, count > N_max) shapes, g/dev within 1e-10, held-out "
-          "counts exact, two calls bit-identical; K4 bit-identical (n={LEAF_N}, R=2, (t, w) = (2, "
-          f"3) and (3, 5)); K6 max|dH| {k6_err:.3e} at (25000 x 128) and "
-          f"({N} x 128) (<= 2e-5 max|H|)")
+          "counts exact, two calls bit-identical; K4 bit-identical "
+          f"(n={LEAF_N}, R=2, (t, w) = (2, 3) and (3, 5)); K6 max|dH| "
+          f"{k6_err:.3e} at (25000 x 128) and "
+          f"({N} x 128) (<= 2e-5 max|H|), two calls bit-identical")
     print("max|H - float64 sum of the float32 products| (kernel, plain): "
           f"K3 {k3_vs_f64}; K5 {k5_vs_f64}; K6 {k6_vs_f64}")
+    # the tensor-core Gram is no farther from the float64 sum than the
+    # plain version's exact float32 products
+    for name, (kern, plain) in [("K3", k3_vs_f64), *(
+            (f"K5 {k}", v) for k, v in k5_vs_f64.items()), *(
+            (f"K6 {k}", v) for k, v in k6_vs_f64.items())]:
+        check(kern <= plain, f"{name}: H {kern} from the float64 sum, the "
+              f"plain version's {plain}")
 
     # -- 4. the main path: secure_fit at the acceptance config --------------
     agg = SecureCollective(backend="kernel")
@@ -1757,15 +1808,37 @@ def main() -> int:
 
     # -- 11. where the time goes (--profile) --------------------------------
     if args.profile:
-        print(json.dumps({"profile": profile_run(
-            lambda: secure_fit(parts, **fit_kw), lambda r: r.iterations,
-            "secure_fit", args.repeats, args.trace), "card": smi}))
-        print(json.dumps({"profile": profile_run(
-            run_path, lambda r: r.rounds_total, "lambda_path",
-            args.repeats), "card": smi}))
-        print(json.dumps({"profile": profile_run(
-            ms_run, lambda r: MS_ROUNDS, "multistudy", args.repeats),
-            "card": smi}))
+        profiles = {
+            "secure_fit": profile_run(
+                lambda: secure_fit(parts, **fit_kw), lambda r: r.iterations,
+                "secure_fit", args.repeats, args.trace),
+            "lambda_path": profile_run(
+                run_path, lambda r: r.rounds_total, "lambda_path",
+                args.repeats),
+            "multistudy": profile_run(
+                ms_run, lambda r: MS_ROUNDS, "multistudy", args.repeats)}
+        for prof in profiles.values():
+            print(json.dumps({"profile": prof, "card": smi}))
+        # each summaries kernel's time lands in its own category only: a
+        # fit or multi-study round runs K3 and never K5, a path round K5
+        # and never K3
+        for run, (want, never) in {
+                "secure_fit": ("K3", "K5"), "multistudy": ("K3", "K5"),
+                "lambda_path": ("K5", "K3")}.items():
+            cats = [c.split()[0] for c in
+                    profiles[run]["device_us_per_round_by_category"]]
+            check(want in cats and never not in cats,
+                  f"{run} profile categories {cats}: {want} without {never}")
+        # K6 alone at one institution's shape and the pooled one, 20 calls
+        # a run: its Gram kernel beside its reduce (the share of the
+        # slices' partials)
+        X6, w6 = k6_args
+        for rows6 in (25_000, X6.shape[0]):
+            print(json.dumps({"profile": profile_run(
+                lambda n=rows6: [gram_hessian_kernel(X6[:n], w6[:n])
+                                 for _ in range(20)],
+                len, f"gram_hessian {rows6}x{D}", args.repeats),
+                "card": smi}))
         # a round is one batch: its prefill and its decode steps
         print(json.dumps({"profile": profile_run(
             serve_run, lambda r: r[1]["batches"], "serve", args.repeats,
@@ -1813,7 +1886,6 @@ def main() -> int:
     k4_secret, k4_coeffs, k4_moduli, k4_w = k4_args
     k4_r, k4_tm1, k4_n = k4_coeffs.shape
     X6, w6 = k6_args
-    n6 = X6.shape[0]
     k7_main = k7_timing(k7_args["serving"])
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
@@ -1883,17 +1955,9 @@ def main() -> int:
         dict(name="K6 gram_hessian", fn=gram_hessian_kernel, path="gram",
              source="src/repro_torch/csrc/gram_hessian.cu",
              replaces="src/repro/kernels/fused_irls.py:387",
-             run=lambda: gram_hessian_kernel(X6, w6),
-             plain=lambda: gram_hessian_plain(X6, w6),
+             err=k6_err, **k6_timing(X6, w6),
              # one institution's shape, beside the pooled one
-             more={"25000x128": lambda: gram_hessian_kernel(X6[:25_000],
-                                                            w6[:25_000])},
-             library=lambda: torch.matmul((X6 * w6[:, None]).T, X6),
-             err=k6_err,
-             # float32 X and w read once, H written; the symmetric Gram as
-             # three TF32 products
-             bound=bound(n6 * (D + 1) * 4 + D * D * 4,
-                         tf32_ops=3 * n6 * D * (D + 1))),
+             shapes={"25000x128": k6_timing(X6[:25_000], w6[:25_000])}),
         dict(name="K7 flash_attention", fn=flash_attention_kernel,
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1924,8 +1988,6 @@ def main() -> int:
         plain_ms, _ = cuda_times(e["plain"], 20)
         lib_ms = cuda_times(e["library"], 20)[0] if e["library"] else None
         bound_ms, bound_by = e["bound"]
-        more = {k: cuda_times(fn, 30)[0]
-                for k, fn in e.get("more", {}).items()}
         at_shapes = {}
         for k, sh in e.get("shapes", {}).items():
             b_ms, b_by = sh["bound"]
@@ -1947,7 +2009,6 @@ def main() -> int:
             "max_abs_err": e["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "call_ms": call_ms,
-            **({"ms_by_shape": more} if more else {}),
             **({"at_shapes": at_shapes} if at_shapes else {}),
             **({"library_covers": e["library_covers"]}
                if "library_covers" in e else {}),

@@ -26,7 +26,7 @@ SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
            "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
 # headers the sources include: part of the digest, not compiled alone
-HEADERS = ("flash_common.cuh", "tc_common.cuh")
+HEADERS = ("flash_common.cuh", "tc_common.cuh", "irls_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,20 +46,23 @@ _SIGNATURES = {
     "repro_k4_share": (_vp, _vp, _vp, _ll, _i, _i, _vp, _i, _vp),
     # shares, out, n, k, R, lams*, moduli*, decode, scale, stream
     "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _i, _d, _vp),
-    # beta, X, Xm, y, counts, H, g, dev, Hp, gp, devp, S, n_max, d, C, TN,
-    # stream
+    # beta, X, Xm, y, counts, H, g, dev, w, Hp, gp, sp, S, n_max, d, NSL
+    # rows, TN rows, NSL Gram, stream
     "repro_k3_fused_irls": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _vp, _vp, _i, _ll, _i, _i, _i, _vp),
+                            _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i, _vp),
     # betas, X, Xm, y, counts, fold_ids, fold_of, H, g, stats, w, Hp, gp,
     # sp, S, n_max, d, Q, NSL rows, TN rows, NSL Gram, stream
     "repro_k5_fused_irls_cv": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i,
                                _i, _i, _vp),
-    # d; out: configurations a rows block, TN rows, Gram units a
-    # configuration, Gram blocks an SM
-    "repro_k5_plan": (_i, _pi, _pi, _pi, _pi),
-    # X, w, H, Hp, n, d, C, TN, stream
-    "repro_k6_gram_hessian": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _vp),
+    # d, out (5 ints): configurations a rows block, TN rows, TN Gram, Gram
+    # units a configuration, Gram blocks an SM; one plan per entry, each
+    # asking about its own Gram kernel
+    "repro_k3_plan": (_i, _pi),
+    "repro_k5_plan": (_i, _pi),
+    "repro_k6_plan": (_i, _pi),
+    # X, w, H, Hp, n, d, NSL Gram, stream
+    "repro_k6_gram_hessian": (_vp, _vp, _vp, _vp, _ll, _i, _i, _vp),
     # q, k, v, o, m, l, B, S, H, KVH, D, is_bf16, scale, stream
     "repro_k7_flash_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                                  _i, _i, _i, _d, _vp),

@@ -11,27 +11,35 @@
   weights, the port of ``gram_hessian_pallas`` (CUDA in
   ``csrc/gram_hessian.cu``).
 
-Each has its plain PyTorch version beside it (``*_plain``) — the CPU path
-and the kernel's oracle.  All keep the JAX ``fused_irls_sim`` precision
-contract:
+The three CUDA entries launch kernels built from one shared source of the
+rows, Gram and reduce code (``csrc/irls_tc.cuh``): K3 is K5 with one
+configuration and no folds, K6 is K5's Gram and reduce with the caller's
+weights.  Each wrapper has its plain PyTorch version beside it
+(``*_plain``) — the CPU path and the kernel's oracle.  All keep the JAX
+``fused_irls_sim`` precision contract:
 
-* z, p, the residual, g and dev in float64;
+* z, p, the residual, g and dev in float64 (in the kernels on the float64
+  tensor cores: float64 products and sums);
 * the IRLS weight w = p (1 - p) cast to float32;
 * H = Xm^T diag(w) Xm from the float32 operand ``Xm`` with float32 sums.
-  The plain versions, K3 and K6 multiply in exact float32 (no TF32).  K5
-  takes the products on the tensor cores as three TF32 products with
-  float32 accumulation: a = w Xm rounded to float32, each of a and Xm
-  split into TF32 terms hi + lo (hi = rna(x), lo = rna(x - hi)), and H =
-  a_hi^T x_hi + a_hi^T x_lo + a_lo^T x_hi, within ~2^-21 of each exact
-  product.
+  The plain versions multiply in exact float32 (no TF32).  The kernels
+  take the products on the tensor cores as three TF32 products with
+  float32 sums: a = w Xm rounded to float32, each of a and Xm split into
+  TF32 terms hi + lo (hi = rna(x), lo = rna(x - hi)), and H = a_hi^T x_hi
+  + a_hi^T x_lo + a_lo^T x_hi over the upper half, mirrored, within
+  ~2^-21 of each exact product.  Each 32-row tile's products are summed
+  from zero and added to the running sum with round to nearest, and the
+  slices' partial sums are added in slice order: H lies within 2e-5
+  max|H| of the plain version, and two calls give the same bits.
 
-Rows >= counts[s] are masked out of every sum; the kernel never reads
+Rows >= counts[s] are masked out of every sum; the kernels never read
 them.  Per the sim, g/dev always accumulate in float64, which is also
 what the H100 runs natively.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -42,8 +50,6 @@ from .ref import gram_hessian, masked_cv_terms, masked_irls_terms
 __all__ = ["fused_irls_kernel", "fused_irls_plain", "fused_irls_cv_kernel",
            "fused_irls_cv_plain", "gram_hessian_kernel", "gram_hessian_plain"]
 
-_SMEM_BUDGET = 200 * 1024  # bytes of dynamic shared memory per block
-_MAX_TILE_ROWS = 32
 _MAX_DIM = 1024
 
 
@@ -74,19 +80,8 @@ def fused_irls_plain(beta, X, Xm, y, counts):
     return H, g, dev
 
 
-def launch_shape(s_dim: int, d: int, device) -> tuple[int, int]:
-    """(C row slices per institution, TN rows per staged tile)."""
-    dpad = -(-d // 128) * 128
-    tiles = (dpad // 128) ** 2
-    per_row = dpad * 12 + 12  # X f64 + Xm f32 + residual + weight
-    tn = min(_MAX_TILE_ROWS, (_SMEM_BUDGET - dpad * 8 - 64) // per_row)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    c = max(1, math.ceil(2 * sms / (s_dim * tiles)))
-    return c, tn
-
-
 def fused_irls_kernel(beta, X, Xm, y, counts):
-    """K3 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    """K3 on the tensors' device: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  Returns (H f32, g f64, dev f64)."""
     if X.device.type == "cpu":
         return fused_irls_plain(beta, X, Xm, y, counts)
@@ -98,18 +93,25 @@ def fused_irls_kernel(beta, X, Xm, y, counts):
         raise ValueError(f"K3 supports d <= {_MAX_DIM}, got {d}")
     beta, X, Xm, y, counts = (t.contiguous() for t in (beta, X, Xm, y,
                                                         counts))
-    c, tn = launch_shape(s_dim, d, X.device)
+    shape = cv_launch_shape(1, s_dim, n, d, X.device, kernel="k3")
+    nsl_r, nsl_g = shape["nsl_rows"], shape["nsl_gram"]
     dev_ = X.device
-    H = torch.empty((s_dim, d, d), dtype=torch.float32, device=dev_)
-    g = torch.empty((s_dim, d), dtype=torch.float64, device=dev_)
-    dev = torch.empty((s_dim,), dtype=torch.float64, device=dev_)
-    Hp = torch.empty((s_dim, c, d, d), dtype=torch.float32, device=dev_)
-    gp = torch.empty((s_dim, c, d), dtype=torch.float64, device=dev_)
-    devp = torch.empty((s_dim, c), dtype=torch.float64, device=dev_)
+    f32, f64 = torch.float32, torch.float64
+    H = torch.empty((s_dim, d, d), dtype=f32, device=dev_)
+    g = torch.empty((s_dim, d), dtype=f64, device=dev_)
+    dev = torch.empty((s_dim,), dtype=f64, device=dev_)
+    # scratch, as K5's for one configuration: the weights, the per-slice
+    # partials (H's upper half packed row by row)
+    w = torch.empty((s_dim, n), dtype=f32, device=dev_)
+    Hp = torch.empty((s_dim, nsl_g, d * (d + 1) // 2), dtype=f32,
+                     device=dev_)
+    gp = torch.empty((s_dim, nsl_r, d), dtype=f64, device=dev_)
+    sp = torch.empty((s_dim, nsl_r, 4), dtype=f64, device=dev_)
     err = _build.library().repro_k3_fused_irls(
         beta.data_ptr(), X.data_ptr(), Xm.data_ptr(), y.data_ptr(),
         counts.data_ptr(), H.data_ptr(), g.data_ptr(), dev.data_ptr(),
-        Hp.data_ptr(), gp.data_ptr(), devp.data_ptr(), s_dim, n, d, c, tn,
+        w.data_ptr(), Hp.data_ptr(), gp.data_ptr(), sp.data_ptr(), s_dim, n,
+        d, nsl_r, shape["tn_rows"], nsl_g,
         torch.cuda.current_stream(dev_).cuda_stream,
     )
     _build.check(err, "K3 fused_irls")
@@ -155,38 +157,51 @@ def fused_irls_cv_plain(betas, X, Xm, y, counts, fold_ids, fold_of):
     return (H, *rest)
 
 
-def cv_launch_shape(c_dim: int, s_dim: int, n: int, d: int,
-                    device) -> dict:
-    """K5's launch shape for ``c_dim`` configurations x ``s_dim``
-    institutions of ``n`` rows at dimension ``d``.
+@functools.lru_cache(maxsize=None)
+def irls_plan(kernel: str, d: int, device) -> dict:
+    """What ``repro_<kernel>_plan`` (``kernel`` is "k3", "k5" or "k6")
+    reports at dimension ``d``: configurations a rows block, the rows
+    kernel's and the Gram kernel's tile rows, the Gram units a
+    configuration (a unit is three 64 x 64 blocks of H's upper half: one at
+    d <= 128) and the blocks an SM the Gram kernel's registers and shared
+    memory allow; with the device's SM count."""
+    out = (ctypes.c_int * 5)()
+    _build.check(getattr(_build.library(), f"repro_{kernel}_plan")(d, out),
+                 f"repro_{kernel}_plan")
+    plan = dict(zip(("cb", "tn_rows", "tn_gram", "units", "gram_per_sm"),
+                    out))
+    plan["sms"] = torch.cuda.get_device_properties(device) \
+        .multi_processor_count
+    return plan
 
-    ``repro_k5_plan`` gives the configurations a rows block handles, the
-    rows kernel's rows a staged tile, the Gram units a configuration (a
-    unit is three 64 x 64 blocks of H's upper half: one at d <= 128) and
-    the blocks an SM the Gram kernel's registers and shared memory allow.
-    The rows kernel (grid: configuration chunks x slices x institutions)
-    takes about two blocks per SM, no slice shorter than a tile.  The Gram
-    kernel's grid has ``c_dim * s_dim * units`` blocks a slice and runs in
-    waves of its blocks an SM times ``multi_processor_count``: take the
-    first slice count, from one that fills a wave, whose waves are at
-    least 95% full.
-    """
-    lib = _build.library()
-    cb, tn_r, units, per_sm = (ctypes.c_int() for _ in range(4))
-    _build.check(lib.repro_k5_plan(d, *(ctypes.byref(v) for v in
-                                        (cb, tn_r, units, per_sm))),
-                 "K5 repro_k5_plan")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = -(-c_dim // cb.value)
-    nsl_r = max(1, min(math.ceil(2 * sms / (chunks * s_dim)),
-                       math.ceil(n / tn_r.value)))
-    wave = max(1, per_sm.value) * sms
-    per_slice = c_dim * s_dim * units.value
+
+def _gram_slices(per_slice: int, n: int, plan: dict) -> int:
+    """Row slices of a Gram launch of ``per_slice`` blocks a slice over
+    ``n`` rows.  The Gram kernel runs in waves of its blocks an SM times
+    the SM count: the first slice count, from one that fills a wave,
+    whose waves are at least 95% full, and no slice shorter than a tile."""
+    wave = max(1, plan["gram_per_sm"]) * plan["sms"]
     first = max(1, math.ceil(wave / per_slice))
-    nsl_g = next((c for c in range(first, 4 * first + 1)
-                  if c * per_slice / (-(-c * per_slice // wave) * wave)
-                  >= 0.95), first)
-    return dict(nsl_rows=nsl_r, tn_rows=tn_r.value, nsl_gram=nsl_g)
+    nsl = next((c for c in range(first, 4 * first + 1)
+                if c * per_slice / (-(-c * per_slice // wave) * wave)
+                >= 0.95), first)
+    return max(1, min(nsl, math.ceil(n / plan["tn_gram"])))
+
+
+def cv_launch_shape(c_dim: int, s_dim: int, n: int, d: int, device,
+                    kernel: str = "k5") -> dict:
+    """K5's (or, ``kernel="k3"``, K3's) launch shape for ``c_dim``
+    configurations x ``s_dim`` institutions of ``n`` rows at dimension
+    ``d``: the rows kernel (grid: configuration chunks x slices x
+    institutions) takes about two blocks per SM, no slice shorter than a
+    tile; the Gram kernel's grid has ``c_dim * s_dim * units`` blocks a
+    slice (:func:`_gram_slices`)."""
+    plan = irls_plan(kernel, d, device)
+    chunks = -(-c_dim // plan["cb"])
+    nsl_r = max(1, min(math.ceil(2 * plan["sms"] / (chunks * s_dim)),
+                       math.ceil(n / plan["tn_rows"])))
+    nsl_g = _gram_slices(c_dim * s_dim * plan["units"], n, plan)
+    return dict(nsl_rows=nsl_r, tn_rows=plan["tn_rows"], nsl_gram=nsl_g)
 
 
 def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
@@ -236,10 +251,6 @@ fused_irls_cv_kernel.launches = 0
 
 # -- K6: the weighted Gram for caller-given weights --------------------------
 
-_K6_SMEM_BUDGET = 100 * 1024  # two blocks per SM fit in shared memory
-_K6_MAX_TILE_ROWS = 64
-
-
 def _check_gram_args(X, w):
     if X.dim() != 2 or w.dim() != 1 or w.shape[0] != X.shape[0]:
         raise ValueError(f"X must be (N, d) and w (N,), got "
@@ -258,19 +269,8 @@ def gram_hessian_plain(X, w):
     return gram_hessian(X, w)
 
 
-def gram_launch_shape(n: int, d: int, device) -> tuple[int, int]:
-    """(C row slices, TN rows per staged tile) for K6: about two blocks
-    per SM over the (C, H tiles) grid, and no slice shorter than a tile."""
-    dpad = -(-d // 128) * 128
-    tn = min(_K6_MAX_TILE_ROWS, _K6_SMEM_BUDGET // ((dpad + 1) * 4))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    c = max(1, min(math.ceil(2 * sms / (dpad // 128) ** 2),
-                   math.ceil(n / tn)))
-    return c, tn
-
-
 def gram_hessian_kernel(X, w):
-    """K6 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    """K6 on the tensors' device: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  X (N, d) and w (N,) of any float
     dtype are cast to float32 once; returns H (d, d) float32."""
     if X.device.type == "cpu":
@@ -283,12 +283,15 @@ def gram_hessian_kernel(X, w):
         raise ValueError(f"K6 supports d <= {_MAX_DIM}, got {d}")
     Xm = X.to(torch.float32).contiguous()
     w32 = w.to(torch.float32).contiguous()
-    c, tn = gram_launch_shape(n, d, X.device)
+    plan = irls_plan("k6", d, X.device)
+    nsl = _gram_slices(plan["units"], n, plan)
     H = torch.empty((d, d), dtype=torch.float32, device=X.device)
-    Hp = torch.empty((c, d, d), dtype=torch.float32, device=X.device)
+    # scratch: the per-slice partials, H's upper half packed row by row
+    Hp = torch.empty((nsl, d * (d + 1) // 2), dtype=torch.float32,
+                     device=X.device)
     err = _build.library().repro_k6_gram_hessian(
-        Xm.data_ptr(), w32.data_ptr(), H.data_ptr(), Hp.data_ptr(), n, d, c,
-        tn, torch.cuda.current_stream(X.device).cuda_stream,
+        Xm.data_ptr(), w32.data_ptr(), H.data_ptr(), Hp.data_ptr(), n, d,
+        nsl, torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "K6 gram_hessian")
     gram_hessian_kernel.launches += 1

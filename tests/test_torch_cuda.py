@@ -9,7 +9,8 @@ no JAX it runs on its own:
 Tolerances: K1 and K2 are exact field arithmetic (bit-identical); K3's
 float32 Gram differs from the plain version's in summation order
 (|dH| <= 2e-5 max|H|), its float64 g and dev to 1e-12 of the sums of
-absolute terms.  K5 holds the same H bound, g and the deviances to 1e-10
+absolute terms.  K3 and K6 run K5's kernels (three TF32 products on the
+tensor cores, fixed-order sums) and are deterministic as K5 is.  K5 holds the same H bound, g and the deviances to 1e-10
 relative (of the sums of absolute terms), and its held-out counts exactly.
 K4 is exact field arithmetic (bit-identical); K6's float32 Gram holds
 |dH| <= 2e-5 max|H| against the plain version (summation order).  K7's
@@ -38,6 +39,7 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.core.field import FIELD31, FIELD_WIDE
 from repro_torch.kernels import flash_attention as k7_mod
+from repro_torch.kernels import fused_irls as k3_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention_bwd as k8_mod
 from repro_torch.kernels.flash_attention import flash_attention_kernel, \
@@ -119,6 +121,8 @@ def test_k2_kernel_matches_plain(cuda, field, points, decode):
     ((26250, 23750), 26250, 128),
     ((0, 300), 300, 256),
     ((700, 90), 530, 12),  # a count past N_max reads no row beyond it
+    ((40, 3, 17), 40, 1),  # d 1
+    ((600, 411), 600, 1024),  # d 1024, the largest K3 takes
 ])
 def test_k3_kernel_matches_plain(cuda, counts, n, d):
     gen = torch.Generator(device=cuda).manual_seed(sum(counts) + d)
@@ -131,8 +135,10 @@ def test_k3_kernel_matches_plain(cuda, counts, n, d):
                               dtype=torch.float64)
     cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
     Xm = X.to(torch.float32)
+    before = fused_irls_kernel.launches
     H, g, dev = fused_irls_kernel(beta, X, Xm, y, cnt)
     torch.cuda.synchronize()
+    assert fused_irls_kernel.launches == before + 1
     Hp, gp, devp = fused_irls_plain(beta, X, Xm, y, cnt)
     assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())
     mask = (torch.arange(n, device=cuda)[None, :] < cnt[:, None]).double()
@@ -248,6 +254,7 @@ def test_k4_kernel_matches_plain(cuda, field, t, w, n):
     (25_000, 128, torch.float32),
     (4097, 256, torch.bfloat16),
     (0, 8, torch.float32),
+    (3000, 1024, torch.float32),  # d 1024, the largest K6 takes
 ])
 def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(n + d)
@@ -260,6 +267,45 @@ def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     Hp = gram_hessian_plain(X, w)
     assert H.dtype == torch.float32 and tuple(H.shape) == (d, d)
     assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())
+
+
+@pytest.mark.parametrize("d", [128, 130])
+def test_k3_and_k6_two_calls_are_bit_identical(cuda, d):
+    """K3 and K6 run K5's kernels: fixed-order sums, no float atomics, so
+    the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 3)
+    counts = torch.tensor([26250, 23750, 3000], dtype=torch.int32,
+                          device=cuda)
+    X = torch.randn((3, 26250, d), generator=gen, device=cuda,
+                    dtype=torch.float64)
+    y = (torch.rand((3, 26250), generator=gen, device=cuda) < 0.5).double()
+    beta = 0.05 * torch.randn((d,), generator=gen, device=cuda,
+                              dtype=torch.float64)
+    args = (beta, X, X.float(), y, counts)
+    for a, b in zip(fused_irls_kernel(*args), fused_irls_kernel(*args)):
+        assert torch.equal(a, b)
+    w = torch.rand((26250,), generator=gen, device=cuda)
+    assert torch.equal(gram_hessian_kernel(X[0], w),
+                       gram_hessian_kernel(X[0], w))
+
+
+def test_k3_and_k6_cuda_tensors_never_reach_the_plain_versions(
+        cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k3_mod, "fused_irls_plain", refuse)
+    monkeypatch.setattr(k3_mod, "gram_hessian_plain", refuse)
+    X = torch.randn((2, 300, 12), device=cuda, dtype=torch.float64)
+    y = (torch.rand((2, 300), device=cuda) < 0.5).double()
+    beta = torch.zeros((12,), device=cuda, dtype=torch.float64)
+    ops.fused_irls(beta, X, y)
+    ops.gram_hessian(X[0], torch.rand((300,), device=cuda))
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.fused_irls(beta.cpu(), X.cpu(), y.cpu())
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.gram_hessian(X[0].cpu(), torch.rand((300,)))
 
 
 @pytest.mark.parametrize("B,S,H,KVH,D,dtype,outliers", [

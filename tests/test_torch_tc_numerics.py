@@ -1,13 +1,16 @@
 """The roundings of the port's two tensor-core numerics choices, emulated
 in torch on the CPU and held against the JAX package.
 
-* K5 (``csrc/fused_irls_cv.cu``) takes its float32 Gram's products as
-  three TF32 products: a = (w Xm) rounded to float32, each of a and Xm
-  split as x = hi + lo with hi = rna(x) and lo = rna(x - hi), rna being
-  ``cvt.rna.tf32.f32`` (round to nearest, ties away from zero, to 10
-  stored mantissa bits), and H = a_hi^T x_hi + a_hi^T x_lo + a_lo^T x_hi
-  summed in float32.  Held against the JAX ``fused_irls_cv_sim`` H within
-  2e-5 max|H|, the kernel's tolerance against its plain version.
+* K3, K5 and K6 (one Gram, ``csrc/irls_tc.cuh``) take their float32
+  Gram's products as three TF32 products: a = (w Xm) rounded to float32,
+  each of a and Xm split as x = hi + lo with hi = rna(x) and lo = rna(x -
+  hi), rna being ``cvt.rna.tf32.f32`` (round to nearest, ties away from
+  zero, to 10 stored mantissa bits), and H = a_hi^T x_hi + a_hi^T x_lo +
+  a_lo^T x_hi summed in float32.  Held within 2e-5 max|H|, the kernels'
+  tolerance against their plain versions: K5's against the JAX
+  ``fused_irls_cv_sim`` H, K3's (the IRLS weights, no folds) against
+  ``fused_irls_sim``, K6's (the caller's weights) against the JAX
+  package's ``ops.gram_hessian`` in interpret mode.
 * K8a in bfloat16 (``csrc/flash_attention_bwd.cu``) computes S and dP in
   float32 from bf16 inputs, dS = P (dP - delta) in float32, and dq = dS K
   with dS as two bf16 terms (hi = bf16(dS), lo = bf16(dS - hi)).  Held
@@ -25,10 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention_bwd import flash_dq_pallas
-from repro.kernels.fused_irls import fused_irls_cv_sim
-from repro_torch.kernels.ref import masked_cv_terms
+from repro.kernels.fused_irls import fused_irls_cv_sim, fused_irls_sim
+from repro_torch.kernels.ref import masked_cv_terms, masked_irls_terms
 
 LOG2E = 1.4426950408889634
 BF16_TOL = (5e-3, 1e-2)  # (abs, rel), as K7 and K8 on the card
@@ -47,8 +51,8 @@ def tf32_split(x: torch.Tensor):
 
 
 def gram_3xtf32(Xm: torch.Tensor, w32: torch.Tensor) -> torch.Tensor:
-    """(d, d) H of one (configuration, institution) pair as K5 forms it:
-    Xm (N, d) float32, w32 (N,) float32 train weights."""
+    """(d, d) H of one (configuration, institution) pair as K3, K5 and K6
+    form it: Xm (N, d) float32, w32 (N,) float32 weights."""
     a_hi, a_lo = tf32_split(Xm * w32[:, None])
     x_hi, x_lo = tf32_split(Xm)
     return a_lo.T @ x_hi + a_hi.T @ x_lo + a_hi.T @ x_hi
@@ -92,6 +96,43 @@ def test_k5_3xtf32_gram_matches_fused_irls_cv_sim(d):
         (tf32_rna(t[2][j] * w32[c, j][:, None]).T @ tf32_rna(t[2][j]))
         for j in range(s_dim)]) for c in range(len(fold_of))]).numpy()
     assert np.abs(one - want).max() > 2e-5 * scale
+
+
+@pytest.mark.parametrize("d", [8, 130, 256])
+def test_k3_3xtf32_gram_matches_fused_irls_sim(d):
+    """K3 is K5 with one configuration and no folds: the weights are the
+    IRLS weights of every valid row; ragged counts, one past N_max (all
+    N_max rows count) and one zero."""
+    rng = np.random.default_rng(29 + d)
+    counts = np.array([300, 123, 420, 0], np.int32)
+    s_dim, n = len(counts), 300
+    X = rng.normal(size=(s_dim, n, d))
+    y = (rng.random((s_dim, n)) < 0.4).astype(np.float64)
+    beta = 0.3 * rng.normal(size=(d,)) / np.sqrt(d)
+    args = (beta, X, X.astype(np.float32), y, counts)
+    want = np.asarray(fused_irls_sim(*(jnp.asarray(a) for a in args))[0])
+    t = [torch.as_tensor(a) for a in args]
+    w32 = masked_irls_terms(t[0], t[1], t[3], t[4])[0].float()
+    got = torch.stack([gram_3xtf32(t[2][j], w32[j])
+                       for j in range(s_dim)]).numpy()
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    assert not got[3].any()  # count 0: H is zero
+
+
+@pytest.mark.parametrize("n", [8, 100, 1000])
+@pytest.mark.parametrize("d", [3, 84, 200])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k6_3xtf32_gram_matches_jax_gram_hessian(n, d, dtype):
+    """K6's products from X and w cast to float32 once, a = x_i w rounded
+    to float32 before the split, at ``tests/test_torch_gram.py``'s
+    shapes, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n * 1000 + d)
+    X = rng.normal(size=(n, d)).astype(dtype)
+    w = rng.uniform(0.0, 0.25, size=(n,)).astype(dtype)
+    want = np.asarray(jops.gram_hessian(jnp.asarray(X), jnp.asarray(w)))
+    got = gram_3xtf32(torch.as_tensor(X).float(),
+                      torch.as_tensor(w).float()).numpy()
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
 
 
 def emulate_dq(q, k, v, do, m, linv, delta, split=True):

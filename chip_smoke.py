@@ -15,7 +15,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
    for the 17 instantiations of the IRLS kernels that K3, K5 (rows, Gram,
    reduce: 7 each) and K6 (Gram, reduce: 3) wrap around the shared bodies
    of ``csrc/irls_tc.cuh``, with the launch plan each entry's
-   ``repro_k*_plan`` gives at d = 128;
+   ``repro_k*_plan`` gives at d = 128; and a ``{"shamir_ptxas": ...}``
+   line: K1's two instantiations (f32/f64 payload) and K2's with
+   registers, spills and stack frame, none of which may spill or keep a local array, and each one's
+   emulated-division instructions in its SASS (``cuobjdump -sass``:
+   ``MUFU.RCP*`` and ``CALL``), which must be none (their field
+   arithmetic is Barrett's, ``csrc/field_arith.cuh``);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it: K1 encode+share and K2 reveal bit-identical,
    K3 summaries within the stated tolerances, two calls bit-identical;
@@ -117,7 +122,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
    K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
-   institution's 25,000 x 128 (``at_shapes``).
+   institution's 25,000 x 128, K1 and K2 also at the λ path's round (K1
+   over 5 x 8 slices of 136 rows, K2 over the 5 aggregates) and at 2^24
+   elements, each held bit-identical to its plain version there
+   (``at_shapes``); before it, the event floor: an empty launch
+   (``torch.cuda._sleep(0)``) timed as the kernels are.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero before printing any result.
@@ -215,6 +224,9 @@ K7_CASES = (
 )
 # the shapes phase 12 times besides each flash kernel's own path shape
 FLASH_TIMED = ("d256",)
+# K1 and K2 also at slice D's scale: 2^24 elements (a secure training
+# step at full width runs ~2.5e9), where the bytes, not the launch, bound
+BIG_ELEMENTS = 2**24
 # K8a/K8b against their plain versions: K7's shapes and the training
 # shape; bf16 as K7, float32 within 2e-5 of the larger of max|plain out|
 # and max|do|
@@ -1081,11 +1093,11 @@ def k8_timing(args):
 
 
 def ptxas_report(log_text: str, names) -> list:
-    """Registers, spill bytes and static shared memory of each kernel of
-    the build's ptxas report (``-Xptxas -v``) whose mangled name matches a
-    pattern of ``names``: (pattern, describe), where ``describe(match)``
-    gives the row's label and the dynamic shared memory a launch asks
-    for."""
+    """Registers, spill bytes, stack frame (local memory) and static
+    shared memory of each kernel of the build's ptxas report (``-Xptxas
+    -v``) whose mangled name matches a pattern of ``names``: (pattern,
+    describe), where ``describe(match)`` gives the row's label and the
+    dynamic shared memory a launch asks for."""
     import re
 
     out, cur = [], None
@@ -1099,6 +1111,7 @@ def ptxas_report(log_text: str, names) -> list:
                     label, smem = describe(hit)
                     cur = {"kernel": label, "registers": None,
                            "spill_stores": None, "spill_loads": None,
+                           "stack_frame": None,
                            "smem_static": 0, "smem_dynamic": smem}
                     out.append(cur)
                     break
@@ -1108,6 +1121,8 @@ def ptxas_report(log_text: str, names) -> list:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"(\d+) bytes stack frame", ln)
+            cur["stack_frame"] = int(m.group(1)) if m else 0
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             cur["registers"] = int(m.group(1))
@@ -1177,6 +1192,56 @@ def irls_ptxas(log_text: str, lib) -> dict:
             (rf"{prefix}reduce_kernel", lambda h, n=name: (
                 f"{n} reduce", 0)))))
     return {"kernels": rows, "d": D, "plans": plans}
+
+
+# K1's instantiations (payload dtype) and K2
+SHAMIR_KERNELS = r"(encode_share_kernel|reconstruct_kernel)(I([df])E)?"
+
+
+def _shamir_label(hit) -> str:
+    if hit.group(1) == "reconstruct_kernel":
+        return "K2"
+    if hit.group(3) is None:
+        return "K1"
+    return f"K1 {'f64' if hit.group(3) == 'd' else 'f32'} payload"
+
+
+def shamir_sass(lib_path) -> dict:
+    """The emulated-division instructions in each K1 and K2 kernel of a
+    built library's SASS (``cuobjdump -sass``), by kernel: ``MUFU.RCP*``
+    (the reciprocal a 64-bit integer remainder and a float64 division
+    start from) and ``CALL`` (the call to their slow-path routine), beside
+    the kernel's instruction count."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            hit = re.search(SHAMIR_KERNELS, m.group(1))
+            cur = out.setdefault(_shamir_label(hit), {
+                "instructions": 0, "mufu_rcp": 0, "calls": 0}) if hit \
+                else None
+            continue
+        if cur is None or not re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            continue
+        cur["instructions"] += 1
+        cur["mufu_rcp"] += "MUFU.RCP" in ln
+        cur["calls"] += bool(re.search(r"\bCALL\b", ln))
+    return out
+
+
+def shamir_ptxas(log_text: str, lib_path) -> dict:
+    """K1's and K2's instantiations: ptxas registers and spills, and the
+    emulated-division instructions in their SASS."""
+    rows = ptxas_report(log_text, (
+        (SHAMIR_KERNELS, lambda h: (_shamir_label(h), 0)),))
+    return {"kernels": rows, "division_sass": shamir_sass(lib_path)}
 
 
 def grad_check(dev):
@@ -1455,6 +1520,20 @@ def main() -> int:
               f"no ptxas report for {r['kernel']}")
         check(r["spill_stores"] == r["spill_loads"] == 0,
               f"{r['kernel']} spills: {r}")
+    shamir_rep = shamir_ptxas(log_text, _build.build())
+    print(json.dumps({"shamir_ptxas": shamir_rep}))
+    for r in shamir_rep["kernels"]:
+        check(r["registers"] is not None and r["spill_stores"] is not None,
+              f"no ptxas report for {r['kernel']}")
+        check(r["spill_stores"] == r["spill_loads"] == r["stack_frame"] == 0,
+              f"{r['kernel']} spills or keeps a local array: {r}")
+    # K1 f32/f64 and K2, none with a division sequence
+    check(len(shamir_rep["kernels"]) == 3
+          and len(shamir_rep["division_sass"]) == 3,
+          f"K1/K2 instantiations in the ptxas report and SASS: {shamir_rep}")
+    for name, c in shamir_rep["division_sass"].items():
+        check(c["instructions"] > 0 and c["mufu_rcp"] == c["calls"] == 0,
+              f"{name}: an emulated division in its SASS: {c}")
     check(len(flash) == 18, f"{len(flash)} flash kernels in the ptxas report")
     # rows 4, Gram 2 and the reduce for K3 and K5; K6 has no rows kernel
     check(len(irls_rep["kernels"]) == 17,
@@ -1886,6 +1965,65 @@ def main() -> int:
     k4_secret, k4_coeffs, k4_moduli, k4_w = k4_args
     k4_r, k4_tm1, k4_n = k4_coeffs.shape
     X6, w6 = k6_args
+    # K1 and K2 at the lambda path's round (C = 5 configurations x S
+    # slices of 136 rows; K2 over the C aggregates) and at 2^24 elements,
+    # each held bit-identical to its plain version there
+    c_path = FOLDS * LAM_BLOCK
+    x_path = x.repeat(c_path, 1).contiguous()  # (5440, 128) float64
+    co_path = coeffs_for(FIELD_WIDE, 2, c_path * S * rows)
+    sh_path = encode_share_kernel(x_path, co_path, FIELD_WIDE.moduli,
+                                  FRAC_BITS, (1, 2, 3))
+    k2_path = fsum(sh_path.reshape(3, 2, c_path, S, rows, 128), FIELD_WIDE,
+                   axis=3, residue_axis=1)[[0, 1]].reshape(
+                       2, 2, c_path * rows, 128).contiguous()
+    big_rows = BIG_ELEMENTS // 128
+    x_big = 3.0 * torch.randn((big_rows, 128), generator=gen,
+                              dtype=torch.float64, device=dev)
+    co_big = coeffs_for(FIELD_WIDE, 2, big_rows)
+    k2_big = torch.empty((2, 2, big_rows, 128), dtype=torch.int32,
+                         device=dev)
+    for r, p_r in enumerate(FIELD_WIDE.moduli):
+        k2_big[:, r].random_(0, p_r, generator=gen)
+
+    def k1_shape(xs, cs):
+        def run():
+            return encode_share_kernel(xs, cs, FIELD_WIDE.moduli, FRAC_BITS,
+                                       (1, 2, 3))
+
+        def plain():
+            return encode_share_plain(xs, cs, FIELD_WIDE.moduli, FRAC_BITS,
+                                      (1, 2, 3))
+
+        check(torch.equal(run(), plain()),
+              f"K1 at {xs.numel()} elements vs its plain version")
+        n = xs.numel()
+        # payload and coefficients read once, three points' shares written
+        return dict(run=run, plain=plain, library=None,
+                    bound=bound(n * (8 + 2 * 4 + 3 * 2 * 4), f64_ops=n))
+
+    def k2_shape(shs):
+        def run():
+            return reconstruct_kernel(shs, (1, 2), FIELD_WIDE.moduli,
+                                      FRAC_BITS)
+
+        def plain():
+            return reconstruct_plain(shs, (1, 2), FIELD_WIDE.moduli,
+                                     FRAC_BITS)
+
+        check(torch.equal(run(), plain()),
+              f"K2 at {shs[0, 0].numel()} elements vs its plain version")
+        n = shs[0, 0].numel()
+        # k R int32 shares read once, the float64 aggregate written
+        return dict(run=run, plain=plain, library=None,
+                    bound=bound(n * (2 * 2 * 4 + 8), f64_ops=n))
+
+    k1_shapes = {"lambda_path": k1_shape(x_path, co_path),
+                 "2^24": k1_shape(x_big, co_big)}
+    k2_shapes = {"lambda_path": k2_shape(k2_path), "2^24": k2_shape(k2_big)}
+    # an empty launch timed as the kernels are: what the events add
+    event_floor_ms = cuda_times(lambda: torch.cuda._sleep(0), 30)[0]
+    print(f"event floor (an empty launch, CUDA events): {event_floor_ms:.6f}"
+          " ms")
     k7_main = k7_timing(k7_args["serving"])
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
@@ -1898,7 +2036,7 @@ def main() -> int:
                                              FRAC_BITS, (1, 2, 3)),
              plain=lambda: encode_share_plain(x, coeffs, FIELD_WIDE.moduli,
                                               FRAC_BITS, (1, 2, 3)),
-             library=None, err=k1_err,
+             library=None, err=k1_err, shapes=k1_shapes,
              bound=bound(n1 * 8 + n1 * 2 * 4 + n1 * 3 * 2 * 4,
                          f64_ops=n1)),
         dict(name="K2 reconstruct", fn=reconstruct_kernel, path="secure_fit",
@@ -1908,7 +2046,7 @@ def main() -> int:
                                             FRAC_BITS),
              plain=lambda: reconstruct_plain(k2_in, (1, 2),
                                              FIELD_WIDE.moduli, FRAC_BITS),
-             library=None, err=k2_err,
+             library=None, err=k2_err, shapes=k2_shapes,
              bound=bound(k2_in.numel() * 4 + rows * 128 * 8,
                          f64_ops=rows * 128)),
         dict(name="K3 fused_irls", fn=fused_irls_kernel, path="secure_fit",
@@ -1995,7 +2133,8 @@ def main() -> int:
                 "ms": cuda_times(sh["run"], 30)[0],
                 "plain_ms": cuda_times(sh["plain"], 20)[0],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": cuda_times(sh["library"], 20)[0]}
+                "library_ms": (cuda_times(sh["library"], 20)[0]
+                               if sh["library"] else None)}
         kernels.append({
             "name": e["name"], "route": "cuda", "source": e["source"],
             "replaces": e["replaces"],
@@ -2010,6 +2149,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "call_ms": call_ms,
             **({"at_shapes": at_shapes} if at_shapes else {}),
+            **({"event_floor_ms": event_floor_ms}
+               if e["name"][:2] in ("K1", "K2") else {}),
             **({"library_covers": e["library_covers"]}
                if "library_covers" in e else {}),
         })
@@ -2021,6 +2162,7 @@ def main() -> int:
           f"D {d8}, bf16)")
     print(json.dumps({
         "kernels": kernels,
+        "event_floor_ms": event_floor_ms,
         "fit_seconds_per_iter": fit_s / res.iterations,
         "fit_iterations": res.iterations,
         "scan_fit_seconds_per_iter": scan_s / scan.iterations,

@@ -153,8 +153,8 @@ def _protect_flat(generator: torch.Generator, buf: torch.Tensor,
     field = scheme.field
     coeffs = random_elements(
         generator, (scheme.threshold - 1, rows, LANES), field,
-        device=buf.device,
-    ).to(torch.int32)  # (R, t-1, rows, 128)
+        device=buf.device, dtype=torch.int32,
+    )  # (R, t-1, rows, 128)
     return ops.shamir_protect_flat(buf, coeffs, scheme.num_shares,
                                    field.moduli, frac_bits, points=points)
 

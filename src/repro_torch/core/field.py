@@ -124,19 +124,20 @@ def finv_host(x: int, p: int) -> int:
 
 def random_elements(
     generator: torch.Generator, shape: tuple[int, ...], field: FieldSpec,
-    device=None,
+    device=None, dtype: torch.dtype = torch.int64,
 ) -> torch.Tensor:
-    """Uniform random field elements, shape (R, *shape), int64.
+    """Uniform random field elements, shape (R, *shape), int64 or ``dtype``
+    (int32 holds them too: every p_r < 2**31).
 
-    Drawn independently per residue with ``torch.randint`` in [0, p_r) on
-    the generator's device (exact uniform).
+    Drawn independently per residue in [0, p_r) (exact uniform, the values
+    ``torch.randint`` gives) straight into its slice of one buffer, on the
+    generator's device.
     """
     dev = generator.device if device is None else device
-    return torch.stack([
-        torch.randint(0, p, tuple(shape), generator=generator,
-                      dtype=torch.int64, device=dev)
-        for p in field.moduli
-    ])
+    out = torch.empty((field.num_residues, *shape), dtype=dtype, device=dev)
+    for r, p in enumerate(field.moduli):
+        out[r].random_(0, p, generator=generator)
+    return out
 
 
 def crt_combine_signed(residues: torch.Tensor,

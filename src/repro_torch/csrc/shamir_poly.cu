@@ -13,12 +13,24 @@
 // 128) layout the protocol ships, so no transpose follows the launch.
 //
 // What bounds it on the H100: bytes.  Each element reads 8 B of payload
-// and R*(t-1)*4 B of coefficients and writes len(points)*R*4 B of shares;
-// the arithmetic is a few 64-bit multiply/modulo steps per share.  The
-// design is one thread per element with coalesced loads and stores: the
-// TPU kernel's 16-bit-limb mulmod and its float hi/lo split existed only
-// because the TPU vector unit has no 64-bit integer multiply, and Hopper
-// has one, so |s| mod p is a plain 64-bit `%`.
+// and R*(t-1)*4 B of coefficients and writes len(points)*R*4 B of shares.
+// The arithmetic is a few reductions a share, and every one is a Barrett
+// reduction (csrc/field_arith.cuh): Hopper has no integer divider, and the
+// 64-bit `%` this kernel used to run was an emulated sequence that left it
+// at ~10x its bound.  The operands are |s| <= max_signed < 2^62 for the
+// encode and acc * j + c < 2^36 for a Horner step.  The TPU kernel's
+// 16-bit-limb mulmod and float hi/lo split existed only because the TPU
+// vector unit has no 64-bit integer multiply; Hopper has one.
+//
+// Design: a thread takes four consecutive elements at a time, so the
+// payload, each coefficient row and each share row move as 16-byte
+// accesses (plain ones when a pointer is not 16-byte aligned; the element
+// count is a multiple of 128, so a group is never cut), in a grid-stride
+// loop whose grid comes from the SM count.  The first Horner step, c_{t-2}
+// mod p, does not depend on the point and runs once a residue; each later
+// step reads its coefficient row in the Horner loop (the L1 cache serves
+// the later points), so no dynamically indexed array spills to local
+// memory.  At t = 2 (every path of the protocol) that loop runs no step.
 //
 // Bit parity with the JAX kernel: rint() rounds half to even like
 // jnp.round (CUDA's round() would round ties away from zero).  An f32
@@ -28,84 +40,142 @@
 // kernel clips against.
 #include <cuda_runtime.h>
 
+#include "field_arith.cuh"
+
 #define K1_MAX_R 2
 #define K1_MAX_TM1 15
 #define K1_MAX_POINTS 16
-#define K1_THREADS 256
+#define K1_THREADS 128
 
 struct K1Params {
-  unsigned long long mod[K1_MAX_R];
-  int points[K1_MAX_POINTS];
+  Barrett mod[K1_MAX_R];
+  unsigned points[K1_MAX_POINTS];
   int npoints;
   int R;
   int tm1;  // t - 1 coefficients per residue
+  int vec;  // every pointer 16-byte aligned
   double lim;
   double scale;
 };
 
-__device__ __forceinline__ long long encode_value(double x, const K1Params& P) {
-  double s = rint(x * P.scale);
-  s = fmin(fmax(s, -P.lim), P.lim);
+__device__ __forceinline__ long long encode_value(double x, double scale,
+                                                  double lim) {
+  double s = rint(x * scale);
+  s = fmin(fmax(s, -lim), lim);
   return (long long)s;
 }
 
-__device__ __forceinline__ long long encode_value(float x, const K1Params& P) {
-  const float lim = (float)P.lim;
-  float s = rintf(x * (float)P.scale);
-  s = fminf(fmaxf(s, -lim), lim);
+__device__ __forceinline__ long long encode_value(float x, double scale,
+                                                  double lim) {
+  const float flim = (float)lim;
+  float s = rintf(x * (float)scale);
+  s = fminf(fmaxf(s, -flim), flim);
   return (long long)(double)s;
 }
 
+// A coefficient as the field arithmetic takes it (int32 -> 64 bits).
+__device__ __forceinline__ unsigned long long coeff64(int c) {
+  return (unsigned long long)(long long)c;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(K1_THREADS)
+__global__ void __launch_bounds__(K1_THREADS, 8)
 encode_share_kernel(const T* __restrict__ x, const int* __restrict__ coeffs,
                     int* __restrict__ out, long long n, K1Params P) {
-  const long long e = (long long)blockIdx.x * K1_THREADS + threadIdx.x;
-  if (e >= n) return;
-  const long long s = encode_value(x[e], P);
-  const bool neg = s < 0;
-  const unsigned long long mag =
-      neg ? (unsigned long long)(-s) : (unsigned long long)s;
-  for (int r = 0; r < P.R; ++r) {
-    const unsigned long long p = P.mod[r];
-    const unsigned long long m = mag % p;
-    const unsigned long long secret = (neg && m) ? p - m : m;
-    unsigned long long c[K1_MAX_TM1];
-    for (int k = 0; k < P.tm1; ++k)
-      c[k] = (unsigned long long)coeffs[(long long)(r * P.tm1 + k) * n + e];
-    for (int o = 0; o < P.npoints; ++o) {
-      const unsigned long long xj = (unsigned long long)P.points[o];
-      unsigned long long acc = 0;
-      for (int k = P.tm1 - 1; k >= 0; --k) acc = (acc * xj + c[k]) % p;
-      out[(long long)(o * P.R + r) * n + e] = (int)((acc * xj + secret) % p);
+  // the points in shared memory: indexing the parameter struct's array by
+  // a run-time index would make the compiler copy the struct to local
+  // memory, a 128-byte stack frame a thread
+  __shared__ unsigned points[K1_MAX_POINTS];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int o = 0; o < K1_MAX_POINTS; ++o) points[o] = P.points[o];
+  }
+  __syncthreads();
+  const bool vec = P.vec != 0;
+  const int tm1 = P.tm1;
+  const long long groups = n >> 2;
+  for (long long g = (long long)blockIdx.x * K1_THREADS + threadIdx.x;
+       g < groups; g += (long long)gridDim.x * K1_THREADS) {
+    const long long e = g << 2;
+    T xv[4];
+    load4(x + e, vec, xv);
+    unsigned long long mag[4];
+    bool neg[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const long long s = encode_value(xv[v], P.scale, P.lim);
+      neg[v] = s < 0;
+      mag[v] = neg[v] ? (unsigned long long)(-s) : (unsigned long long)s;
+    }
+#pragma unroll
+    for (int r = 0; r < K1_MAX_R; ++r) {
+      if (r >= P.R) break;
+      const Barrett m = P.mod[r];
+      unsigned secret[4], top[4];
+      const int* c = coeffs + (long long)r * tm1 * n + e;
+      int ct[4] = {0, 0, 0, 0};  // t = 1: no coefficients, the share is s
+      if (tm1 > 0) load4(c + (long long)(tm1 - 1) * n, vec, ct);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const unsigned sm = barrett_reduce(mag[v], m);
+        secret[v] = (neg[v] && sm) ? m.p - sm : sm;
+        top[v] = barrett_reduce(coeff64(ct[v]), m);  // the first Horner step
+      }
+      for (int o = 0; o < P.npoints; ++o) {
+        const unsigned long long j = points[o];
+        unsigned acc[4] = {top[0], top[1], top[2], top[3]};
+        for (int k = tm1 - 2; k >= 0; --k) {
+          int ck[4];
+          load4(c + (long long)k * n, vec, ck);
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            acc[v] = barrett_reduce(acc[v] * j + coeff64(ck[v]), m);
+        }
+        unsigned share[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          share[v] = barrett_reduce(acc[v] * j + secret[v], m);
+        store4(out + (long long)(o * P.R + r) * n + e, vec, share);
+      }
     }
   }
 }
 
+template <typename T>
+static int launch(const T* x, const int* coeffs, int* out, long long n,
+                  const K1Params& P, cudaStream_t st) {
+  static FieldGrid grid;
+  const unsigned blocks = grid.blocks((const void*)encode_share_kernel<T>,
+                                      K1_THREADS, n >> 2);
+  encode_share_kernel<T><<<blocks, K1_THREADS, 0, st>>>(x, coeffs, out, n, P);
+  return (int)cudaGetLastError();
+}
+
+// barrett: (mu, p) per residue, from kernels/field_consts.py
 extern "C" int repro_k1_encode_share(const void* x, int x_is_f64,
                                      const int* coeffs, int* out, long long n,
-                                     int R, int tm1, const long long* moduli,
+                                     int R, int tm1,
+                                     const unsigned long long* barrett,
                                      const int* points, int npoints,
                                      double lim, double scale, void* stream) {
   if (R < 1 || R > K1_MAX_R || tm1 < 0 || tm1 > K1_MAX_TM1 || npoints < 1 ||
-      npoints > K1_MAX_POINTS || n < 0)
+      npoints > K1_MAX_POINTS || n < 0 || n % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   K1Params P;
-  for (int r = 0; r < R; ++r) P.mod[r] = (unsigned long long)moduli[r];
-  for (int o = 0; o < npoints; ++o) P.points[o] = points[o];
+  for (int r = 0; r < R; ++r) {
+    P.mod[r].mu = barrett[2 * r];
+    P.mod[r].p = (unsigned)barrett[2 * r + 1];
+  }
+  for (int o = 0; o < K1_MAX_POINTS; ++o)
+    P.points[o] = o < npoints ? (unsigned)points[o] : 0u;
   P.npoints = npoints;
   P.R = R;
   P.tm1 = tm1;
+  P.vec = aligned16(x) && (tm1 == 0 || aligned16(coeffs)) && aligned16(out);
   P.lim = lim;
   P.scale = scale;
-  const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_is_f64)
-    encode_share_kernel<double><<<blocks, K1_THREADS, 0, st>>>(
-        (const double*)x, coeffs, out, n, P);
-  else
-    encode_share_kernel<float><<<blocks, K1_THREADS, 0, st>>>(
-        (const float*)x, coeffs, out, n, P);
-  return (int)cudaGetLastError();
+  return x_is_f64 ? launch((const double*)x, coeffs, out, n, P, st)
+                  : launch((const float*)x, coeffs, out, n, P, st);
 }

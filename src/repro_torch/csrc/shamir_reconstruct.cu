@@ -9,95 +9,134 @@
 //   rec_r = sum_i L_i(0) * share_{i,r} mod p_r            (each residue)
 //   decode: kd = (rec_2 - rec_1) * p1^-1 mod p2          (Garner, p1 > p2)
 //           x  = rec_1 + p1 * kd                          (< p1 p2 < 2^62)
-//           signed = x <= (M-1)/2 ? x : x - M;  out = signed / 2^frac_bits
+//           signed = x <= (M-1)/2 ? x : x - M;  out = signed * 2^-frac_bits
 //
 // and emits the (rows, 128) float64 aggregate.  A residues mode instead
 // writes the reconstructed residues (R, rows, 128) as int32; it serves
-// R = 1 fields and the leaf-wise backend.  The Lagrange weights are
-// computed on the host (public points) and arrive as a small argument,
-// not as constants baked into the code.
+// R = 1 fields and the leaf-wise backend.  The Lagrange weights, the
+// Barrett constants and p1^-1 mod p2 are computed on the host (public
+// points and moduli) and arrive in the parameter struct.
 //
 // What bounds it on the H100: bytes (k*R*4 B in, 8 B out per element) and,
-// at the protocol's size (136 x 128 elements), the launch itself.  One
-// thread per element; 64-bit integer multiply and modulo replace the TPU's
-// 16-bit-limb mulmod.
+// at the protocol's size (136 x 128 elements), the launch itself.  The
+// arithmetic avoids Hopper's emulated 64-bit `%` (csrc/field_arith.cuh):
+// each Lagrange term L_i * share < 2^62, so four of them and a reduced
+// running sum fit a uint64, and the sum is reduced once a group of four
+// (once at k = 2, four times at k = 16); Garner's rec_1 mod p2 and its
+// product kd (< 2^62) are Barrett reductions; and the decode multiplies by
+// the exact power of two 2^-frac_bits, which gives the quotient's bits.  A thread takes
+// four consecutive elements, so shares and outputs move as 16-byte accesses
+// (plain ones when a pointer is not 16-byte aligned), in a grid-stride loop
+// whose grid comes from the SM count.
 #include <cuda_runtime.h>
+
+#include "field_arith.cuh"
 
 #define K2_MAX_R 2
 #define K2_MAX_K 16
-#define K2_THREADS 256
+#define K2_THREADS 128
 
 struct K2Params {
-  unsigned long long mod[K2_MAX_R];
-  unsigned long long lam[K2_MAX_R][K2_MAX_K];
+  Barrett mod[K2_MAX_R];
+  unsigned long long lam[K2_MAX_R][K2_MAX_K];  // L_i(0) mod p_r
   unsigned long long inv_p1;  // p1^-1 mod p2 (Garner), R == 2 only
+  unsigned long long M;       // p1 p2, or p1 when R == 1
+  unsigned long long half;    // (M - 1) / 2: the largest positive value
   int k;
   int R;
-  double scale;
+  int vec;           // every pointer 16-byte aligned
+  double inv_scale;  // 2^-frac_bits
 };
 
-__global__ void __launch_bounds__(K2_THREADS)
+__global__ void __launch_bounds__(K2_THREADS, 8)
 reconstruct_kernel(const int* __restrict__ shares, void* __restrict__ out,
                    long long n, K2Params P, int decode) {
-  const long long e = (long long)blockIdx.x * K2_THREADS + threadIdx.x;
-  if (e >= n) return;
-  unsigned long long rec[K2_MAX_R];
-  for (int r = 0; r < P.R; ++r) {
-    const unsigned long long p = P.mod[r];
-    unsigned long long acc = 0;
-    for (int i = 0; i < P.k; ++i)
-      acc = (acc + P.lam[r][i] *
-                       (unsigned long long)shares[(long long)(i * P.R + r) * n + e]) % p;
-    rec[r] = acc;
+  const bool vec = P.vec != 0;
+  const long long groups = n >> 2;
+  for (long long g = (long long)blockIdx.x * K2_THREADS + threadIdx.x;
+       g < groups; g += (long long)gridDim.x * K2_THREADS) {
+    const long long e = g << 2;
+    unsigned rec[K2_MAX_R][4];
+#pragma unroll
+    for (int r = 0; r < K2_MAX_R; ++r) {
+      if (r >= P.R) break;
+      const Barrett m = P.mod[r];
+      unsigned acc[4] = {0, 0, 0, 0};
+      for (int i0 = 0; i0 < P.k; i0 += 4) {
+        // a reduced sum (< 2^31) and four terms (< 2^62 each): < 2^64
+        unsigned long long sum[4] = {acc[0], acc[1], acc[2], acc[3]};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          if (i >= P.k) break;
+          int sh[4];
+          load4(shares + (long long)(i * P.R + r) * n + e, vec, sh);
+          const unsigned long long lam = P.lam[r][i];
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            sum[v] += lam * (unsigned long long)(long long)sh[v];
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[v] = barrett_reduce(sum[v], m);
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) rec[r][v] = acc[v];
+    }
+    if (!decode) {
+#pragma unroll
+      for (int r = 0; r < K2_MAX_R; ++r)
+        if (r < P.R) store4((int*)out + (long long)r * n + e, vec, rec[r]);
+      continue;
+    }
+    double val[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      unsigned long long x = rec[0][v];
+      if (P.R == 2) {
+        const unsigned p2 = P.mod[1].p;
+        const unsigned r1 = barrett_reduce(rec[0][v], P.mod[1]);
+        const unsigned diff0 = rec[1][v] + p2 - r1;  // < 2 p2 < 2^32
+        const unsigned diff = diff0 >= p2 ? diff0 - p2 : diff0;
+        const unsigned kd = barrett_reduce(diff * P.inv_p1, P.mod[1]);
+        x += (unsigned long long)P.mod[0].p * kd;
+      }
+      const long long value =
+          x <= P.half ? (long long)x : -(long long)(P.M - x);
+      val[v] = (double)value * P.inv_scale;
+    }
+    store4((double*)out + e, vec, val);
   }
-  if (!decode) {
-    for (int r = 0; r < P.R; ++r) ((int*)out)[(long long)r * n + e] = (int)rec[r];
-    return;
-  }
-  unsigned long long x, M;
-  if (P.R == 2) {
-    const unsigned long long p1 = P.mod[0], p2 = P.mod[1];
-    const unsigned long long diff = (rec[1] + p2 - rec[0] % p2) % p2;
-    const unsigned long long kd = diff * P.inv_p1 % p2;
-    x = rec[0] + p1 * kd;
-    M = p1 * p2;
-  } else {
-    x = rec[0];
-    M = P.mod[0];
-  }
-  const long long value =
-      x <= (M - 1) / 2 ? (long long)x : -(long long)(M - x);
-  ((double*)out)[e] = (double)value / P.scale;
 }
 
+// lams: L_i(0) mod p_r, (R, k) row-major; barrett: (mu, p) per residue and
+// inv_p1 = p1^-1 mod p2, all from kernels/field_consts.py and
+// kernels/shamir_reconstruct.py
 extern "C" int repro_k2_reconstruct(const int* shares, void* out, long long n,
-                                    int k, int R, const long long* lams,
-                                    const long long* moduli, int decode,
-                                    double scale, void* stream) {
-  if (R < 1 || R > K2_MAX_R || k < 1 || k > K2_MAX_K || n < 0)
+                                    int k, int R,
+                                    const unsigned long long* lams,
+                                    const unsigned long long* barrett,
+                                    unsigned long long inv_p1, int decode,
+                                    double inv_scale, void* stream) {
+  if (R < 1 || R > K2_MAX_R || k < 1 || k > K2_MAX_K || n < 0 || n % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   K2Params P;
   for (int r = 0; r < R; ++r) {
-    P.mod[r] = (unsigned long long)moduli[r];
-    for (int i = 0; i < k; ++i) P.lam[r][i] = (unsigned long long)lams[r * k + i];
+    P.mod[r].mu = barrett[2 * r];
+    P.mod[r].p = (unsigned)barrett[2 * r + 1];
+    for (int i = 0; i < k; ++i) P.lam[r][i] = lams[r * k + i];
   }
-  P.inv_p1 = 0;
-  if (R == 2) {
-    // Fermat inverse of p1 mod p2 (public constant): p1^(p2-2) mod p2
-    const unsigned long long p2 = P.mod[1];
-    unsigned long long base = P.mod[0] % p2, e = p2 - 2, acc = 1;
-    while (e) {
-      if (e & 1) acc = acc * base % p2;
-      base = base * base % p2;
-      e >>= 1;
-    }
-    P.inv_p1 = acc;
-  }
+  const unsigned long long p1 = P.mod[0].p;
+  P.inv_p1 = inv_p1;
+  P.M = R == 2 ? p1 * P.mod[1].p : p1;
+  P.half = (P.M - 1) / 2;
   P.k = k;
   P.R = R;
-  P.scale = scale;
-  const unsigned blocks = (unsigned)((n + K2_THREADS - 1) / K2_THREADS);
+  P.vec = aligned16(shares) && aligned16(out);
+  P.inv_scale = inv_scale;
+  static FieldGrid grid;
+  const unsigned blocks =
+      grid.blocks((const void*)reconstruct_kernel, K2_THREADS, n >> 2);
   reconstruct_kernel<<<blocks, K2_THREADS, 0, (cudaStream_t)stream>>>(
       shares, out, n, P, decode);
   return (int)cudaGetLastError();

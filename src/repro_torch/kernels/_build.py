@@ -26,26 +26,29 @@ SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
            "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
 # headers the sources include: part of the digest, not compiled alone
-HEADERS = ("flash_common.cuh", "tc_common.cuh", "irls_tc.cuh")
+HEADERS = ("flash_common.cuh", "tc_common.cuh", "irls_tc.cuh",
+           "field_arith.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_vp, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_double
+_vp, _i, _ll, _ull, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_ulonglong, ctypes.c_double
 _pi = ctypes.POINTER(ctypes.c_int)
 # C signature of every entry point: (argtypes); each returns cudaError_t
 # unless noted
 _SIGNATURES = {
-    # x, x_is_f64, coeffs, out, n, R, t-1, moduli*, points*, npoints,
-    # lim, scale, stream
+    # x, x_is_f64, coeffs, out, n, R, t-1, barrett* ((mu, p) a residue),
+    # points*, npoints, lim, scale, stream
     "repro_k1_encode_share": (_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _vp, _i,
                               _d, _d, _vp),
     # secret, coeffs, out, n, R, t-1, moduli*, w, stream
     "repro_k4_share": (_vp, _vp, _vp, _ll, _i, _i, _vp, _i, _vp),
-    # shares, out, n, k, R, lams*, moduli*, decode, scale, stream
-    "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _i, _d, _vp),
+    # shares, out, n, k, R, lams*, barrett* ((mu, p) a residue), p1^-1 mod
+    # p2, decode, 2^-frac_bits, stream
+    "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _ull, _i, _d,
+                             _vp),
     # beta, X, Xm, y, counts, H, g, dev, w, Hp, gp, sp, S, n_max, d, NSL
     # rows, TN rows, NSL Gram, stream
     "repro_k3_fused_irls": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

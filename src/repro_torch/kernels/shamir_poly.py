@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, field_consts, ref
 
 __all__ = ["encode_share_kernel", "encode_share_plain", "share_kernel",
            "share_plain"]
@@ -88,23 +88,25 @@ def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
                         points: tuple[int, ...]) -> torch.Tensor:
     """K1 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns (len(points), R, rows, 128)
-    int32 shares, holder axis leading."""
+    int32 shares, holder axis leading.  The kernel takes moduli in (1,
+    2**31) (``field_consts.barrett_constants``)."""
     if x.device.type == "cpu":
         return encode_share_plain(x, coeffs, moduli, frac_bits, points)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 for device {x.device}")
     _check_args(x, coeffs, moduli, points)
+    consts = field_consts.barrett_constants(tuple(moduli))
+    barrett = (ctypes.c_ulonglong * len(consts))(*consts)
     x = x.contiguous()
     coeffs = coeffs.contiguous()
     rows = x.shape[0]
     R, t_minus_1 = coeffs.shape[0], coeffs.shape[1]
     out = torch.empty((len(points), R, rows, 128), dtype=torch.int32,
                       device=x.device)
-    mods = (ctypes.c_longlong * R)(*moduli)
     pts = (ctypes.c_int * len(points))(*points)
     err = _build.library().repro_k1_encode_share(
         x.data_ptr(), int(x.dtype == torch.float64), coeffs.data_ptr(),
-        out.data_ptr(), rows * 128, R, t_minus_1, mods, pts, len(points),
+        out.data_ptr(), rows * 128, R, t_minus_1, barrett, pts, len(points),
         float(_max_signed(moduli)), float(1 << frac_bits),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, field_consts
 
 __all__ = ["lagrange_weights_host", "reconstruct_kernel",
            "reconstruct_plain"]
@@ -99,12 +99,15 @@ def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
                        moduli: tuple[int, ...],
                        frac_bits: int | None) -> torch.Tensor:
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  The kernel takes moduli in (1, 2**31)
+    (``field_consts.barrett_constants``) and shares in [0, 2**31)."""
     if shares.device.type == "cpu":
         return reconstruct_plain(shares, points, moduli, frac_bits)
     if shares.device.type != "cuda":
         raise ValueError(f"no K2 for device {shares.device}")
     _check_args(shares, points, moduli, frac_bits)
+    consts = field_consts.barrett_constants(tuple(moduli))
+    barrett = (ctypes.c_ulonglong * len(consts))(*consts)
     shares = shares.contiguous()
     k, R, rows = shares.shape[0], shares.shape[1], shares.shape[2]
     if frac_bits is None:
@@ -114,12 +117,15 @@ def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
         out = torch.empty((rows, 128), dtype=torch.float64,
                           device=shares.device)
     lams = lagrange_weights_host(tuple(points), tuple(moduli))
-    flat_lams = (ctypes.c_longlong * (R * k))(*[w for row in lams for w in row])
-    mods = (ctypes.c_longlong * R)(*moduli)
+    flat_lams = (ctypes.c_ulonglong * (R * k))(*[w for row in lams
+                                                 for w in row])
+    decode = frac_bits is not None
+    inv_p1 = field_consts.garner_inverse(moduli[0], moduli[1]) \
+        if decode and R == 2 else 0
     err = _build.library().repro_k2_reconstruct(
-        shares.data_ptr(), out.data_ptr(), rows * 128, k, R, flat_lams, mods,
-        int(frac_bits is not None),
-        float(1 << (frac_bits or 0)),
+        shares.data_ptr(), out.data_ptr(), rows * 128, k, R, flat_lams,
+        barrett, inv_p1, int(decode),
+        2.0 ** -(frac_bits or 0),
         torch.cuda.current_stream(shares.device).cuda_stream,
     )
     _build.check(err, "K2 reconstruct")

@@ -15,7 +15,10 @@ import jax.numpy as jnp
 
 from repro.core.collective import SecureCollective as JCollective
 from repro_torch.core import batched_summaries as bs
-from repro_torch.core.collective import FlatProtected, SecureCollective
+from repro_torch.core.collective import FlatProtected, SecureCollective, \
+    _protect_flat
+from repro_torch.core.field import FIELD31, FIELD_WIDE, random_elements
+from repro_torch.kernels import ops
 from repro_torch.core.secure_agg import SecureAggregator
 from repro_torch.core.shamir import ShamirScheme
 from repro_torch.obs import ledger
@@ -159,6 +162,35 @@ def test_overflow_check_raises_before_saturation():
     with pytest.raises(OverflowError):
         agg.protect_batched(torch.Generator(), tree)
     assert not agg.headroom_ok(cap / 3, 4) and agg.headroom_ok(cap / 5, 4)
+
+
+@pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("t", [2, 3])
+def test_protect_draws_the_coefficients_random_elements_draws(
+        field, t, monkeypatch):
+    """``_protect_flat`` draws the coefficients with ``random_elements``
+    straight into int32: the same values, from the same generator state,
+    as its int64 draw cast to int32, and the generator ends in the same
+    state."""
+    seen = {}
+
+    def spy(buf, coeffs, *args, **kw):
+        seen["coeffs"] = coeffs
+        return "shares"
+
+    monkeypatch.setattr(ops, "shamir_protect_flat", spy)
+    scheme = ShamirScheme(field=field, threshold=t, num_shares=t + 1)
+    gen, ref_gen = (torch.Generator().manual_seed(11) for _ in range(2))
+    rows = 7
+    assert _protect_flat(gen, torch.zeros((rows, 128)), scheme, 28,
+                         rows) == "shares"
+    want = random_elements(ref_gen, (t - 1, rows, 128), field)
+    assert seen["coeffs"].dtype == torch.int32
+    assert torch.equal(seen["coeffs"], want.to(torch.int32))
+    assert torch.equal(torch.randint(0, 2**31 - 1, (64,), generator=gen),
+                       torch.randint(0, 2**31 - 1, (64,),
+                                     generator=ref_gen))
 
 
 def test_ledger_counts_one_protect_and_one_reveal_per_round():

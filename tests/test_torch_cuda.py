@@ -6,7 +6,10 @@ no JAX it runs on its own:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-Tolerances: K1 and K2 are exact field arithmetic (bit-identical); K3's
+Tolerances: K1 and K2 are exact field arithmetic (bit-identical), held at
+the fit's and the λ path's row counts, on views that start off 16-byte
+alignment (the kernels' plain-load path), with t and k up to 16 and every
+share at p - 1 (the largest unreduced Lagrange sum K2 forms); K3's
 float32 Gram differs from the plain version's in summation order
 (|dH| <= 2e-5 max|H|), its float64 g and dev to 1e-12 of the sums of
 absolute terms.  K3 and K6 run K5's kernels (three TF32 products on the
@@ -37,10 +40,14 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
-from repro_torch.core.field import FIELD31, FIELD_WIDE
+from repro_torch.core.collective import SecureCollective, _protect_flat
+from repro_torch.core.field import FIELD31, FIELD_WIDE, random_elements
+from repro_torch.core.shamir import ShamirScheme
 from repro_torch.kernels import flash_attention as k7_mod
 from repro_torch.kernels import fused_irls as k3_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import shamir_poly as k1_mod
+from repro_torch.kernels import shamir_reconstruct as k2_mod
 from repro_torch.kernels import flash_attention_bwd as k8_mod
 from repro_torch.kernels.flash_attention import flash_attention_kernel, \
     flash_attention_plain
@@ -76,18 +83,41 @@ def _payload(rows, dtype, field, device):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def _offset_view(t, offset):
+    """``t``'s values in a contiguous view that starts ``offset`` elements
+    into its storage (an offset that is not a multiple of four elements
+    leaves the data pointer off 16-byte alignment)."""
+    if not offset:
+        return t
+    base = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = base[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.storage_offset() == offset and view.is_contiguous()
+    return view
+
+
+def _coeffs(field, t, rows, g, device):
+    return torch.stack([
+        torch.randint(0, p, (t - 1, rows, 128), generator=g, device=device)
+        for p in field.moduli]).to(torch.int32)
+
+
+# rows: a small buffer, the fit's payload (S 8 x 136 rows) and the lambda
+# path's (5 configurations x 8 x 136); offset: the payload and the
+# coefficients as views 1 or 3 elements into their storage
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
                          ids=lambda f: f.name)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("t,points", [(2, (1, 2, 3)), (2, (3,)),
-                                      (3, (1, 2, 3, 4, 5)), (1, (1, 2))])
-def test_k1_kernel_matches_plain(cuda, field, dtype, t, points):
-    rows = 40
-    x = _payload(rows, dtype, field, cuda)
+                                      (3, (1, 2, 3, 4, 5)), (1, (1, 2)),
+                                      (16, tuple(range(1, 17)))])
+@pytest.mark.parametrize("rows,offset", [(40, 0), (1088, 0), (5440, 0),
+                                         (40, 1), (40, 3)])
+def test_k1_kernel_matches_plain(cuda, field, dtype, t, points, rows,
+                                 offset):
+    x = _offset_view(_payload(rows, dtype, field, cuda), offset)
     g = torch.Generator(device=cuda).manual_seed(0)
-    coeffs = torch.stack([
-        torch.randint(0, p, (t - 1, rows, 128), generator=g, device=cuda)
-        for p in field.moduli]).to(torch.int32)
+    coeffs = _offset_view(_coeffs(field, t, rows, g, cuda), offset)
     before = encode_share_kernel.launches
     got = encode_share_kernel(x, coeffs, field.moduli, 28, points)
     torch.cuda.synchronize()
@@ -96,23 +126,107 @@ def test_k1_kernel_matches_plain(cuda, field, dtype, t, points):
     assert torch.equal(got, want)
 
 
+def _k2_shares(field, k, rows, g, device, fill=None):
+    return torch.stack([
+        torch.stack([torch.full((rows, 128), p - 1, device=device)
+                     if fill == "p-1" else
+                     torch.randint(0, p, (rows, 128), generator=g,
+                                   device=device) for p in field.moduli])
+        for _ in range(k)]).to(torch.int32)
+
+
+# fill "p-1": every share at p - 1 with k = 16, the largest unreduced
+# Lagrange sum the kernel forms (four terms and a reduced sum in a uint64)
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
                          ids=lambda f: f.name)
-@pytest.mark.parametrize("points", [(1, 2), (1, 3), (2, 3), (1, 2, 3),
-                                    (2, 4, 5)])
+@pytest.mark.parametrize("points,fill", [
+    ((1, 2), None), ((1, 3), None), ((2, 3), None), ((1, 2, 3), None),
+    ((2, 4, 5), None), (tuple(range(1, 17)), None),
+    (tuple(range(1, 17)), "p-1")])
 @pytest.mark.parametrize("decode", [True, False])
-def test_k2_kernel_matches_plain(cuda, field, points, decode):
-    rows = 24
+@pytest.mark.parametrize("rows,offset", [(24, 0), (1088, 0), (5440, 0),
+                                         (24, 1), (24, 3)])
+def test_k2_kernel_matches_plain(cuda, field, points, fill, decode, rows,
+                                 offset):
     g = torch.Generator(device=cuda).manual_seed(1)
-    shares = torch.stack([
-        torch.stack([torch.randint(0, p, (rows, 128), generator=g,
-                                   device=cuda) for p in field.moduli])
-        for _ in points]).to(torch.int32)
+    shares = _offset_view(_k2_shares(field, len(points), rows, g, cuda,
+                                     fill), offset)
     frac_bits = 28 if decode else None
     got = reconstruct_kernel(shares, points, field.moduli, frac_bits)
     torch.cuda.synchronize()
     want = reconstruct_plain(shares, points, field.moduli, frac_bits)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("t", [2, 3])
+def test_protect_coefficient_draw_matches_random_elements(cuda, field, t,
+                                                          monkeypatch):
+    """On the card, ``_protect_flat`` draws K1's coefficients with
+    ``random_elements`` straight into int32: the values its int64 draw
+    gives from the same generator state, cast to int32, and the generator
+    ends in the same state."""
+    seen = {}
+
+    def spy(buf, coeffs, *args, **kw):
+        seen["coeffs"] = coeffs
+        return "shares"
+
+    monkeypatch.setattr(ops, "shamir_protect_flat", spy)
+    scheme = ShamirScheme(field=field, threshold=t, num_shares=t + 1)
+    gen, ref_gen = (torch.Generator(device=cuda).manual_seed(11)
+                    for _ in range(2))
+    rows = 1088
+    _protect_flat(gen, torch.zeros((rows, 128), device=cuda), scheme, 28,
+                  rows)
+    want = random_elements(ref_gen, (t - 1, rows, 128), field)
+    assert seen["coeffs"].dtype == torch.int32
+    assert torch.equal(seen["coeffs"], want.to(torch.int32))
+    assert torch.equal(
+        torch.randint(0, 2**31 - 1, (64,), generator=gen, device=cuda),
+        torch.randint(0, 2**31 - 1, (64,), generator=ref_gen, device=cuda))
+
+
+def test_k1_and_k2_two_calls_are_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = _payload(1088, torch.float64, FIELD_WIDE, cuda)
+    coeffs = _coeffs(FIELD_WIDE, 2, 1088, g, cuda)
+    a = encode_share_kernel(x, coeffs, FIELD_WIDE.moduli, 28, (1, 2, 3))
+    b = encode_share_kernel(x, coeffs, FIELD_WIDE.moduli, 28, (1, 2, 3))
+    assert torch.equal(a, b)
+    shares = a[:2, :, :136].contiguous()
+    for fb in (28, None):
+        assert torch.equal(
+            reconstruct_kernel(shares, (1, 2), FIELD_WIDE.moduli, fb),
+            reconstruct_kernel(shares, (1, 2), FIELD_WIDE.moduli, fb))
+
+
+def test_k1_and_k2_cuda_tensors_never_reach_the_plain_versions(
+        cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k1_mod, "encode_share_plain", refuse)
+    monkeypatch.setattr(k2_mod, "reconstruct_plain", refuse)
+    rng = np.random.default_rng(3)
+    tree = {"hessian": rng.normal(size=(4, 9, 9)) * 30.0,
+            "gradient": rng.normal(size=(4, 9)) * 5.0}
+    agg = SecureCollective(backend="kernel")
+    launches = (encode_share_kernel.launches, reconstruct_kernel.launches)
+    got = agg.secure_round_batched(
+        torch.Generator(device=cuda).manual_seed(5),
+        {k: torch.as_tensor(v, device=cuda) for k, v in tree.items()})
+    torch.cuda.synchronize()
+    assert (encode_share_kernel.launches, reconstruct_kernel.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    for k, v in tree.items():
+        assert float((got[k].cpu() - torch.as_tensor(v).sum(0)).abs().max()) \
+            <= 5 / 2**28
+    with pytest.raises(AssertionError, match="plain version"):
+        agg.secure_round_batched(
+            torch.Generator().manual_seed(5),
+            {k: torch.as_tensor(v) for k, v in tree.items()})
 
 
 @pytest.mark.parametrize("counts,n,d", [

@@ -16,11 +16,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
    reduce: 7 each) and K6 (Gram, reduce: 3) wrap around the shared bodies
    of ``csrc/irls_tc.cuh``, with the launch plan each entry's
    ``repro_k*_plan`` gives at d = 128; and a ``{"shamir_ptxas": ...}``
-   line: K1's two instantiations (f32/f64 payload) and K2's with
-   registers, spills and stack frame, none of which may spill or keep a local array, and each one's
-   emulated-division instructions in its SASS (``cuobjdump -sass``:
-   ``MUFU.RCP*`` and ``CALL``), which must be none (their field
-   arithmetic is Barrett's, ``csrc/field_arith.cuh``);
+   line: K1's two instantiations (f32/f64 payload), K2's and K4's with
+   registers, spills and stack frame, none of which may spill or keep a
+   local array, and each one's emulated-division instructions in its SASS
+   (``cuobjdump -sass``: ``MUFU.RCP*`` and ``CALL``), which must be none
+   (their field arithmetic is Barrett's, ``csrc/field_arith.cuh``);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it: K1 encode+share and K2 reveal bit-identical,
    K3 summaries within the stated tolerances, two calls bit-identical;
@@ -29,9 +29,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    within 2e-5 max|H|, g and the deviances within 1e-10 of the sums of
    absolute terms, held-out counts exact, two calls bit-identical; K4
    leaf-wise shares bit-identical at n = 1,000,000, R = 2, (t, w) = (2,
-   3) and (3, 5); K6 weighted Gram within 2e-5 max|H| at one
-   institution's (25,000 x 128) and the pooled (200,000 x 128) shape, two
-   calls bit-identical; for K3, K5 and K6 the distance of the kernel's
+   3) and (3, 5), and at (2, 3) on inputs 1 and 3 elements into their
+   storage (off 16-byte alignment); K6 weighted Gram within 2e-5 max|H| at
+   one institution's (25,000 x 128) and the pooled (200,000 x 128) shape,
+   two calls bit-identical; for K3, K5 and K6 the distance of the kernel's
    and of the plain version's H to the float64 sum of the float32
    products is printed, and the kernel's may be no larger;
 4. a full ``secure_fit`` at the acceptance configuration (S=8
@@ -124,8 +125,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
    institution's 25,000 x 128, K1 and K2 also at the λ path's round (K1
    over 5 x 8 slices of 136 rows, K2 over the 5 aggregates) and at 2^24
-   elements, each held bit-identical to its plain version there
-   (``at_shapes``); before it, the event floor: an empty launch
+   elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, each
+   held bit-identical to its plain version there (``at_shapes``); before
+   it, the event floor: an empty launch
    (``torch.cuda._sleep(0)``) timed as the kernels are.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -137,6 +139,7 @@ import argparse
 import collections
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -224,7 +227,7 @@ K7_CASES = (
 )
 # the shapes phase 12 times besides each flash kernel's own path shape
 FLASH_TIMED = ("d256",)
-# K1 and K2 also at slice D's scale: 2^24 elements (a secure training
+# K1, K2 and K4 also at slice D's scale: 2^24 elements (a secure training
 # step at full width runs ~2.5e9), where the bytes, not the launch, bound
 BIG_ELEMENTS = 2**24
 # K8a/K8b against their plain versions: K7's shapes and the training
@@ -532,30 +535,45 @@ def check_path_launches(launches: dict, rounds: int, what: str) -> None:
           f"{what} launches {launches} vs {rounds} rounds")
 
 
-def check_k4(dev, gen):
-    """K4 against its plain version at the leaf-wise phase's size: n =
-    1,000,000 elements, R = 2 residues, (t, w) = (2, 3) and (3, 5), with
-    0 and p - 1 among the secrets.  Returns the (2, 3) arguments."""
+def k4_args(dev, gen, t: int, w: int, n: int, offset: int = 0):
+    """K4's arguments over ``FIELD_WIDE``: (R, n) secrets with 0 and p - 1
+    among them and (R, t-1, n) coefficients, each starting ``offset``
+    elements into its storage (1 and 3 leave it off 16-byte alignment)."""
     import torch
     from repro_torch.core.field import FIELD_WIDE
-    from repro_torch.kernels.shamir_poly import share_kernel, share_plain
 
     moduli = FIELD_WIDE.moduli
 
-    def draw(shape):
-        return torch.stack([torch.randint(0, p, shape, generator=gen,
-                                          device=dev) for p in moduli])
+    def draw(*shape):
+        x = torch.empty((len(moduli) * math.prod(shape) + offset,),
+                        dtype=torch.int64, device=dev)
+        x = x[offset:].view(len(moduli), *shape)
+        for r, p in enumerate(moduli):
+            x[r].random_(0, p, generator=gen)
+        return x
+
+    secret, coeffs = draw(n), draw(t - 1, n)
+    secret[:, 0] = 0
+    secret[:, 1] = torch.tensor(moduli, device=dev) - 1
+    return secret, coeffs, moduli, w
+
+
+def check_k4(dev, gen):
+    """K4 against its plain version at the leaf-wise phase's size: n =
+    1,000,000 elements, R = 2 residues, (t, w) = (2, 3) and (3, 5), and
+    (2, 3) on inputs 1 and 3 elements into their storage.  Returns the
+    (2, 3) and (3, 5) arguments."""
+    import torch
+    from repro_torch.kernels.shamir_poly import share_kernel, share_plain
 
     cases = {}
-    for t, w in ((2, 3), (3, 5)):
-        secret, coeffs = draw((LEAF_N,)), draw((t - 1, LEAF_N))
-        secret[:, 0] = 0
-        secret[:, 1] = torch.tensor(moduli, device=dev) - 1
-        got = share_kernel(secret, coeffs, moduli, w)
-        want = share_plain(secret, coeffs, moduli, w)
-        check(torch.equal(got, want), f"K4 t={t} w={w} n={LEAF_N}")
-        cases[(t, w)] = (secret, coeffs, moduli, w)
-    return cases[(2, 3)]
+    for t, w, offset in ((2, 3, 0), (3, 5, 0), (2, 3, 1), (2, 3, 3)):
+        args = k4_args(dev, gen, t, w, LEAF_N, offset)
+        check(torch.equal(share_kernel(*args), share_plain(*args)),
+              f"K4 t={t} w={w} n={LEAF_N} offset {offset}")
+        if not offset:
+            cases[(t, w)] = args
+    return cases
 
 
 def check_k6(X_all, w_all):
@@ -1194,21 +1212,24 @@ def irls_ptxas(log_text: str, lib) -> dict:
     return {"kernels": rows, "d": D, "plans": plans}
 
 
-# K1's instantiations (payload dtype) and K2
-SHAMIR_KERNELS = r"(encode_share_kernel|reconstruct_kernel)(I([df])E)?"
+# K1's instantiations (payload dtype), K2 and K4
+SHAMIR_KERNELS = (r"(encode_share_kernel|reconstruct_kernel"
+                  r"|leafwise_share_kernel)(I([df])E)?")
 
 
 def _shamir_label(hit) -> str:
     if hit.group(1) == "reconstruct_kernel":
         return "K2"
+    if hit.group(1) == "leafwise_share_kernel":
+        return "K4"
     if hit.group(3) is None:
         return "K1"
     return f"K1 {'f64' if hit.group(3) == 'd' else 'f32'} payload"
 
 
 def shamir_sass(lib_path) -> dict:
-    """The emulated-division instructions in each K1 and K2 kernel of a
-    built library's SASS (``cuobjdump -sass``), by kernel: ``MUFU.RCP*``
+    """The emulated-division instructions in each K1, K2 and K4 kernel of
+    a built library's SASS (``cuobjdump -sass``), by kernel: ``MUFU.RCP*``
     (the reciprocal a 64-bit integer remainder and a float64 division
     start from) and ``CALL`` (the call to their slow-path routine), beside
     the kernel's instruction count."""
@@ -1237,8 +1258,8 @@ def shamir_sass(lib_path) -> dict:
 
 
 def shamir_ptxas(log_text: str, lib_path) -> dict:
-    """K1's and K2's instantiations: ptxas registers and spills, and the
-    emulated-division instructions in their SASS."""
+    """K1's, K2's and K4's instantiations: ptxas registers and spills, and
+    the emulated-division instructions in their SASS."""
     rows = ptxas_report(log_text, (
         (SHAMIR_KERNELS, lambda h: (_shamir_label(h), 0)),))
     return {"kernels": rows, "division_sass": shamir_sass(lib_path)}
@@ -1389,8 +1410,6 @@ def training_phase(dev, smi, counts):
 def secure_phase(dev, counts):
     """Phase 13d: ``run_lm`` with Shamir gradient aggregation at the
     smoke config; then the step-0 secure mean against the plain one."""
-    import math
-
     import torch
     from repro_torch.configs import smoke_config
     from repro_torch.core.collective import SecureCollective
@@ -1527,10 +1546,12 @@ def main() -> int:
               f"no ptxas report for {r['kernel']}")
         check(r["spill_stores"] == r["spill_loads"] == r["stack_frame"] == 0,
               f"{r['kernel']} spills or keeps a local array: {r}")
-    # K1 f32/f64 and K2, none with a division sequence
-    check(len(shamir_rep["kernels"]) == 3
-          and len(shamir_rep["division_sass"]) == 3,
-          f"K1/K2 instantiations in the ptxas report and SASS: {shamir_rep}")
+    # K1 f32/f64, K2 and K4, none with a division sequence
+    check(len(shamir_rep["kernels"]) == 4
+          and len(shamir_rep["division_sass"]) == 4
+          and "K4" in shamir_rep["division_sass"],
+          f"K1/K2/K4 instantiations in the ptxas report and SASS: "
+          f"{shamir_rep}")
     for name, c in shamir_rep["division_sass"].items():
         check(c["instructions"] > 0 and c["mufu_rcp"] == c["calls"] == 0,
               f"{name}: an emulated division in its SASS: {c}")
@@ -1652,7 +1673,7 @@ def main() -> int:
     check(float((revealed - want_sum).abs().max()) <= (S + 1) / 2**FRAC_BITS,
           "K2 reveal vs plaintext sum")
     k5_err, k5_args, k5_vs_f64 = check_k5(dev, gen, packed, beta)
-    k4_args = check_k4(dev, gen)
+    k4_cases = check_k4(dev, gen)
     p_all = torch.sigmoid(X_all @ beta)
     k6_err, k6_vs_f64, k6_args = check_k6(X_all, p_all * (1.0 - p_all))
     torch.cuda.synchronize()
@@ -1664,7 +1685,8 @@ def main() -> int:
           f"{k5_err:.3e} over the path (C=5), refit (C=1) and ragged "
           "(d=130, count > N_max) shapes, g/dev within 1e-10, held-out "
           "counts exact, two calls bit-identical; K4 bit-identical "
-          f"(n={LEAF_N}, R=2, (t, w) = (2, 3) and (3, 5)); K6 max|dH| "
+          f"(n={LEAF_N}, R=2, (t, w) = (2, 3) and (3, 5), (2, 3) at "
+          "offsets 1 and 3); K6 max|dH| "
           f"{k6_err:.3e} at (25000 x 128) and "
           f"({N} x 128) (<= 2e-5 max|H|), two calls bit-identical")
     print("max|H - float64 sum of the float32 products| (kernel, plain): "
@@ -1815,8 +1837,8 @@ def main() -> int:
     print(f"leaf-wise Shamir: n={LEAF_N} institutions {LEAF_INST} 2-of-3 "
           f"over {FIELD_WIDE.name}: every reveal from (1,2), (1,3), (2,3) "
           f"and the per-leaf tree reveal equals the decoded exact sum; "
-          f"share seconds {share_s:.4f} (4 calls) reconstruct+reveal "
-          f"seconds {rec_s:.4f} (6 reveals) launches {leaf_launches}")
+          f"share seconds {share_s} (4 calls) reconstruct+reveal "
+          f"seconds {rec_s} (6 reveals) launches {leaf_launches}")
 
     # -- 7. the weighted Gram through ops.gram_hessian (K6) -----------------
     gram_s, gram_launches, gram_dsum, gram_max = gram_phase(parts, beta,
@@ -1962,8 +1984,6 @@ def main() -> int:
     # (configuration, row) pairs on train rows: a held-out row has weight
     # 0 and adds nothing to H or g
     k5_train = n_cfg * rows_total - int(k5_terms[5].sum())
-    k4_secret, k4_coeffs, k4_moduli, k4_w = k4_args
-    k4_r, k4_tm1, k4_n = k4_coeffs.shape
     X6, w6 = k6_args
     # K1 and K2 at the lambda path's round (C = 5 configurations x S
     # slices of 136 rows; K2 over the C aggregates) and at 2^24 elements,
@@ -2016,6 +2036,22 @@ def main() -> int:
         # k R int32 shares read once, the float64 aggregate written
         return dict(run=run, plain=plain, library=None,
                     bound=bound(n * (2 * 2 * 4 + 8), f64_ops=n))
+
+    def k4_shape(args):
+        def run():
+            return share_kernel(*args)
+
+        def plain():
+            return share_plain(*args)
+
+        R, tm1, n = args[1].shape
+        check(torch.equal(run(), plain()),
+              f"K4 at t={tm1 + 1} w={args[3]} n={n} vs its plain version")
+        # int64 secret and coefficients read once, w shares written; the
+        # integer multiply-high steps have no peak in the float table, and
+        # the bytes bound it
+        return dict(run=run, plain=plain, library=None,
+                    bound=bound(R * n * 8 * (1 + tm1 + args[3])))
 
     k1_shapes = {"lambda_path": k1_shape(x_path, co_path),
                  "2^24": k1_shape(x_big, co_big)}
@@ -2083,13 +2119,10 @@ def main() -> int:
         dict(name="K4 leaf-wise share", fn=share_kernel, path="leafwise",
              source="src/repro_torch/csrc/shamir_share.cu",
              replaces="src/repro/kernels/shamir_poly.py:116",
-             run=lambda: share_kernel(*k4_args),
-             plain=lambda: share_plain(*k4_args),
-             library=None, err=0.0,
-             # int64 secret and coefficients read once, w shares written;
-             # the 64-bit integer multiply/modulo steps have no peak in
-             # the float table, and the bytes bound it
-             bound=bound(k4_r * k4_n * 8 * (1 + k4_tm1 + k4_w))),
+             err=0.0, **k4_shape(k4_cases[(2, 3)]),
+             shapes={"t3_w5": k4_shape(k4_cases[(3, 5)]),
+                     "2^24": k4_shape(k4_args(dev, gen, 2, 3,
+                                              BIG_ELEMENTS))}),
         dict(name="K6 gram_hessian", fn=gram_hessian_kernel, path="gram",
              source="src/repro_torch/csrc/gram_hessian.cu",
              replaces="src/repro/kernels/fused_irls.py:387",
@@ -2150,7 +2183,7 @@ def main() -> int:
             "call_ms": call_ms,
             **({"at_shapes": at_shapes} if at_shapes else {}),
             **({"event_floor_ms": event_floor_ms}
-               if e["name"][:2] in ("K1", "K2") else {}),
+               if e["name"][:2] in ("K1", "K2", "K4") else {}),
             **({"library_covers": e["library_covers"]}
                if "library_covers" in e else {}),
         })

@@ -62,7 +62,7 @@ from .newton import (
 )
 from .protocol import ComputationCenter, Institution, StudyCoordinator
 from .scanfit import fit_scan_block, scan_rounds
-from .secure_agg import SecureAggregator
+from .secure_agg import SecureAggregator, secure_add, secure_scale_by_public
 from .shamir import ShamirScheme
 
 __all__ = [
@@ -72,7 +72,7 @@ __all__ = [
     "PackedPartitions", "batched_local_summaries", "pack_partitions",
     "pack_cache_evict", "CVSummaries", "batched_cv_summaries",
     "SecureAggregator", "SecureCollective", "check_aggregation_headroom",
-    "declassify_sum",
+    "declassify_sum", "secure_add", "secure_scale_by_public",
     "LocalSummaries", "local_summaries", "predict_proba", "deviance",
     "FitResult", "RoundReport", "SecureFitDriver", "centralized_fit",
     "newton_step", "prox_newton_step", "secure_fit",

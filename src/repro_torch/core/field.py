@@ -23,7 +23,9 @@ __all__ = [
     "FIELD31",
     "FIELD_WIDE",
     "fadd",
+    "fsub",
     "fmul",
+    "fneg",
     "fsum",
     "fpow_host",
     "finv_host",
@@ -59,12 +61,16 @@ class FieldSpec:
         """Largest magnitude representable as a centered (signed) value."""
         return (self.modulus_product - 1) // 2
 
+    def moduli_array(self, device) -> torch.Tensor:
+        """(R,) moduli as int64 on ``device`` (caller reshapes): int64,
+        the port's element type, where the JAX package's are uint64."""
+        return torch.tensor(self.moduli, dtype=torch.int64, device=device)
+
     def bcast(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """int64 moduli shaped to broadcast against ``x``'s residue axis."""
         shape = [1] * x.dim()
         shape[axis] = self.num_residues
-        return torch.tensor(self.moduli, dtype=torch.int64,
-                            device=x.device).reshape(shape)
+        return self.moduli_array(x.device).reshape(shape)
 
 
 FIELD31 = FieldSpec("field31", (P31,))
@@ -86,6 +92,22 @@ def fadd(a: torch.Tensor, b: torch.Tensor, field: FieldSpec,
     """(a + b) mod p, per residue.  Inputs reduced; sum < 2**32."""
     _check(a, field, residue_axis)
     return (a + b) % field.bcast(a, residue_axis)
+
+
+def fsub(a: torch.Tensor, b: torch.Tensor, field: FieldSpec,
+         residue_axis: int = 0) -> torch.Tensor:
+    """(a - b) mod p, per residue, as a + (p - b).  Inputs reduced."""
+    _check(a, field, residue_axis)
+    p = field.bcast(a, residue_axis)
+    return (a + (p - b)) % p
+
+
+def fneg(a: torch.Tensor, field: FieldSpec,
+         residue_axis: int = 0) -> torch.Tensor:
+    """-a mod p, per residue (0 stays 0).  Input reduced."""
+    _check(a, field, residue_axis)
+    p = field.bcast(a, residue_axis)
+    return (p - a) % p
 
 
 def fmul(a: torch.Tensor, b: torch.Tensor, field: FieldSpec,

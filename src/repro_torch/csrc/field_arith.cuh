@@ -1,6 +1,5 @@
-// Field arithmetic of the Shamir kernels: K1 (csrc/shamir_poly.cu) and
-// K2 (csrc/shamir_reconstruct.cu) include it, and K4 (csrc/shamir_share.cu)
-// is written to.
+// Field arithmetic of the Shamir kernels: K1 (csrc/shamir_poly.cu), K2
+// (csrc/shamir_reconstruct.cu) and K4 (csrc/shamir_share.cu) include it.
 //
 // Hopper has no integer divider: a 64-bit `%` by a run-time modulus becomes
 // a long emulated sequence (a float reciprocal, its refinement and a call
@@ -24,7 +23,9 @@
 // Beside the reduction: 16-byte loads and stores of four consecutive
 // elements, with plain loads where a pointer is not 16-byte aligned (a
 // tensor view may start anywhere), and the grid of a grid-stride
-// element-wise kernel sized from the card's SM count.
+// element-wise kernel sized from the card's SM count.  K4's int64 pairs
+// decide from each access's own address and also take a lone element,
+// since K4's rows have any length and need not share an alignment.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -100,8 +101,34 @@ __device__ __forceinline__ void store4(double* p, bool vec,
   }
 }
 
-inline bool aligned16(const void* p) {
+__host__ __device__ inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
+}
+
+// -- one or two consecutive int64 elements of a row that may start anywhere
+// cnt (1 or 2) of them are wanted.  Two move as one 16-byte access where p
+// is 16-byte aligned, else as two 8-byte ones; one (a row's ragged tail)
+// as one 8-byte access, and the lane past it loads 0.
+
+__device__ __forceinline__ void load2(const long long* p, int cnt,
+                                      long long v[2]) {
+  if (cnt == 2 && aligned16(p)) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __ldg(p);
+    v[1] = cnt == 2 ? __ldg(p + 1) : 0;
+  }
+}
+
+__device__ __forceinline__ void store2(long long* p, int cnt,
+                                       const long long v[2]) {
+  if (cnt == 2 && aligned16(p)) {
+    *reinterpret_cast<longlong2*>(p) = make_longlong2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+    if (cnt == 2) p[1] = v[1];
+  }
 }
 
 // The grid of a grid-stride kernel over `groups` work items, `threads` a

@@ -43,7 +43,8 @@ _SIGNATURES = {
     # points*, npoints, lim, scale, stream
     "repro_k1_encode_share": (_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _vp, _i,
                               _d, _d, _vp),
-    # secret, coeffs, out, n, R, t-1, moduli*, w, stream
+    # secret, coeffs, out, n, R, t-1, barrett* ((mu, p) a residue), w,
+    # stream
     "repro_k4_share": (_vp, _vp, _vp, _ll, _i, _i, _vp, _i, _vp),
     # shares, out, n, k, R, lams*, barrett* ((mu, p) a residue), p1^-1 mod
     # p2, decode, 2^-frac_bits, stream

@@ -1,7 +1,7 @@
 """Host-side constants of the Shamir kernels' field arithmetic.
 
-K1 and K2 (``csrc/field_arith.cuh``) reduce modulo each residue's prime by
-Barrett's method, with no integer division on the card: they take
+K1, K2 and K4 (``csrc/field_arith.cuh``) reduce modulo each residue's
+prime by Barrett's method, with no integer division on the card: they take
 ``mu = floor(2**64 / p)`` beside ``p``, computed here once a modulus and
 passed in the kernels' parameter structs.  ``tests/test_torch_field_reduce.py``
 replays the kernels' reduction with these same constants.

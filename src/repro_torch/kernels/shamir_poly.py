@@ -159,7 +159,8 @@ def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
                  moduli: tuple[int, ...], num_shares: int) -> torch.Tensor:
     """K4 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns (w, R, n) int64 shares,
-    holder axis leading, every residue from one launch."""
+    holder axis leading, every residue from one launch.  The kernel
+    reduces by Barrett's method (``field_consts.barrett_constants``)."""
     if secret.device.type == "cpu":
         return share_plain(secret, coeffs, moduli, num_shares)
     if secret.device.type != "cuda":
@@ -167,13 +168,14 @@ def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
     _check_share_args(secret, coeffs, moduli, num_shares)
     secret = secret.contiguous()
     coeffs = coeffs.contiguous()
+    consts = field_consts.barrett_constants(tuple(moduli))
+    barrett = (ctypes.c_ulonglong * len(consts))(*consts)
     R, t_minus_1, n = coeffs.shape
     out = torch.empty((num_shares, R, n), dtype=torch.int64,
                       device=secret.device)
-    mods = (ctypes.c_longlong * R)(*moduli)
     err = _build.library().repro_k4_share(
         secret.data_ptr(), coeffs.data_ptr(), out.data_ptr(), n, R,
-        t_minus_1, mods, num_shares,
+        t_minus_1, barrett, num_shares,
         torch.cuda.current_stream(secret.device).cuda_stream,
     )
     _build.check(err, "K4 share")

@@ -15,8 +15,10 @@ float32 Gram differs from the plain version's in summation order
 absolute terms.  K3 and K6 run K5's kernels (three TF32 products on the
 tensor cores, fixed-order sums) and are deterministic as K5 is.  K5 holds the same H bound, g and the deviances to 1e-10
 relative (of the sums of absolute terms), and its held-out counts exactly.
-K4 is exact field arithmetic (bit-identical); K6's float32 Gram holds
-|dH| <= 2e-5 max|H| against the plain version (summation order).  K7's
+K4 is exact field arithmetic (bit-identical, also on views off 16-byte
+alignment and rows of odd length, and under ``secure_add``); K6's float32
+Gram holds |dH| <= 2e-5 max|H| against the plain version (summation
+order).  K7's
 output holds 2e-5 absolute and relative in float32, the JAX package's
 flash tolerance, and 5e-3 absolute + 1e-2 relative in bfloat16 (set from
 the measured error, under one bf16 unit in the last place of |o| < 2; the
@@ -41,7 +43,9 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core.collective import SecureCollective, _protect_flat
-from repro_torch.core.field import FIELD31, FIELD_WIDE, random_elements
+from repro_torch.core.field import FIELD31, FIELD_WIDE, fadd, fmul, \
+    random_elements
+from repro_torch.core.secure_agg import secure_add, secure_scale_by_public
 from repro_torch.core.shamir import ShamirScheme
 from repro_torch.kernels import flash_attention as k7_mod
 from repro_torch.kernels import fused_irls as k3_mod
@@ -342,11 +346,16 @@ def test_k5_two_calls_are_bit_identical(cuda, d):
         assert torch.equal(a, b)
 
 
+# n: one element, a ragged tail, whole groups, odd rows (every other row
+# of a tensor off 16-byte alignment) up to the leaf-wise phase's size;
+# offset: the secret and the coefficients as views 1 or 3 elements into
+# their storage
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
                          ids=lambda f: f.name)
 @pytest.mark.parametrize("t,w", [(1, 2), (2, 3), (3, 5), (5, 9), (16, 16)])
-@pytest.mark.parametrize("n", [1, 100, 4096, 100_003])
-def test_k4_kernel_matches_plain(cuda, field, t, w, n):
+@pytest.mark.parametrize("n", [1, 100, 4096, 100_003, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_k4_kernel_matches_plain(cuda, field, t, w, n, offset):
     g = torch.Generator(device=cuda).manual_seed(n + t)
     draw = lambda shape: torch.stack([  # noqa: E731
         torch.randint(0, p, shape, generator=g, device=cuda)
@@ -354,11 +363,40 @@ def test_k4_kernel_matches_plain(cuda, field, t, w, n):
     secret, coeffs = draw((n,)), draw((t - 1, n))
     secret[:, 0] = 0
     secret[:, -1] = torch.tensor(field.moduli, device=cuda) - 1
+    secret, coeffs = _offset_view(secret, offset), _offset_view(coeffs, offset)
     before = share_kernel.launches
     got = share_kernel(secret, coeffs, field.moduli, w)
     torch.cuda.synchronize()
     assert share_kernel.launches == before + 1
     assert torch.equal(got, share_plain(secret, coeffs, field.moduli, w))
+
+
+@pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
+                         ids=lambda f: f.name)
+def test_secure_add_of_k4_shares_reveals_the_sum_through_k2(cuda, field):
+    """Algorithm 2 on the card: two K4 share stacks added share-wise with
+    ``secure_add`` reveal, from every 2-subset through K2's residues mode,
+    the field sum of the two secrets; the public scaling by 3 reveals
+    three times it."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    sch = ShamirScheme(2, 3, field, backend="kernel")
+    a = random_elements(g, (100_003,), field)
+    b = random_elements(g, (100_003,), field)
+    before = (share_kernel.launches, reconstruct_kernel.launches)
+    total = secure_add(sch.share(g, a), sch.share(g, b), field,
+                       residue_axis=1)
+    three = torch.full((1, field.num_residues, 1), 3, dtype=torch.int64,
+                       device=cuda)
+    tripled = secure_scale_by_public(total, three, field, residue_axis=1)
+    want = fadd(a, b, field)
+    for pts in ((1, 2), (1, 3), (2, 3)):
+        sel = [p - 1 for p in pts]
+        assert torch.equal(sch.reconstruct(total[sel], list(pts)), want)
+        assert torch.equal(sch.reconstruct(tripled[sel], list(pts)),
+                           fmul(want, 3, field))
+    torch.cuda.synchronize()
+    assert (share_kernel.launches, reconstruct_kernel.launches) == \
+        (before[0] + 2, before[1] + 6 * field.num_residues)
 
 
 @pytest.mark.parametrize("n,d,dtype", [

@@ -83,6 +83,35 @@ def test_fsum_of_int32_shares_bit_identical(name, tf, jf):
                                   np.asarray(want).astype(np.int64))
 
 
+@pytest.mark.parametrize("name,tf,jf", FIELDS, ids=[f[0] for f in FIELDS])
+def test_fsub_fneg_and_moduli_array_bit_identical(name, tf, jf):
+    """``fsub``, ``fneg`` and ``FieldSpec.moduli_array`` against the JAX
+    package's on the same reduced elements (0 and p - 1 among them), on
+    (R, n) slices and on (w, R, n) stacks (residue axis 1); and the JAX
+    field tests' additive inverse: a + (-a) = a - a = 0."""
+    rng = np.random.default_rng(5)
+    a = np.stack([rng.integers(0, p, size=(3, 40)) for p in tf.moduli], 1)
+    b = np.stack([rng.integers(0, p, size=(3, 40)) for p in tf.moduli], 1)
+    a[:, :, 0], b[:, :, 0] = 0, np.asarray(tf.moduli) - 1
+    a[:, :, 1], b[:, :, 1] = np.asarray(tf.moduli) - 1, 0
+    for axis, (x, y) in ((1, (a, b)), (0, (a[0], b[0]))):
+        tx, ty = torch.as_tensor(x), torch.as_tensor(y)
+        jx, jy = jnp.asarray(x, jnp.uint64), jnp.asarray(y, jnp.uint64)
+        np.testing.assert_array_equal(
+            tfield.fsub(tx, ty, tf, axis).numpy(),
+            np.asarray(jfield.fsub(jx, jy, jf, axis)))
+        np.testing.assert_array_equal(
+            tfield.fneg(tx, tf, axis).numpy(),
+            np.asarray(jfield.fneg(jx, jf, axis)))
+        zero = torch.zeros_like(tx)
+        assert torch.equal(tfield.fadd(tx, tfield.fneg(tx, tf, axis), tf,
+                                       axis), zero)
+        assert torch.equal(tfield.fsub(tx, tx, tf, axis), zero)
+    mods = tf.moduli_array("cpu")
+    assert mods.dtype == torch.int64 and mods.device.type == "cpu"
+    np.testing.assert_array_equal(mods.numpy(), np.asarray(jf.moduli_array()))
+
+
 def test_int64_headroom_edge():
     """S * max(p) < 2**63 is the port's exact-sum bound: the largest
     admissible S passes, one more raises; the JAX uint64 bound admits

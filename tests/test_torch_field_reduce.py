@@ -1,9 +1,9 @@
 """The Shamir kernels' field arithmetic, replayed step by step on the CPU.
 
-K1 (``csrc/shamir_poly.cu``) and K2 (``csrc/shamir_reconstruct.cu``)
-reduce with the Barrett method of ``csrc/field_arith.cuh``, from the
-constants ``kernels/field_consts.py::barrett_constants`` gives their
-wrappers:
+K1 (``csrc/shamir_poly.cu``), K2 (``csrc/shamir_reconstruct.cu``) and K4
+(``csrc/shamir_share.cu``) reduce with the Barrett method of
+``csrc/field_arith.cuh``, from the constants
+``kernels/field_consts.py::barrett_constants`` gives their wrappers:
 
     q = floor(x mu / 2**64)            (__umul64hi)
     r = low 32 bits of (x - q p)       in [0, 2p)
@@ -17,10 +17,15 @@ and a reduced sum below 2**64, Garner's product below 2**62, and the
 adversarial values k p - 1, k p, 2**62 - 1, 2**64 - 1 and 0.  Each result
 must equal ``%``, with at most the one correction the kernel makes.  The
 kernels' whole element arithmetic is replayed too (K1's encode and
-Horner, K2's grouped Lagrange sum, Garner and decode) and held bit for
-bit against their plain versions, and the decode's multiply by
-2**-frac_bits against the plain version's divide.  Exact integer
-arithmetic: the tolerance is zero.  No JAX is needed.
+Horner, K2's grouped Lagrange sum, Garner and decode, K4's Horner over
+int64 elements) and held bit for bit against their plain versions, and
+the decode's multiply by 2**-frac_bits against the plain version's
+divide; K4's replay also against the JAX package's interpret-mode
+``ops.shamir_shares`` (the one test here that imports JAX, inside the
+test).  K4's work split is replayed as well: its pairs of elements in a
+grid-stride loop, the lone tail element of an odd row, and the 16-byte or
+8-byte accesses each row's own address gets.  Exact integer
+arithmetic: the tolerance is zero.
 """
 import numpy as np
 import pytest
@@ -32,7 +37,7 @@ from repro_torch.kernels.field_consts import (
     barrett_constants,
     garner_inverse,
 )
-from repro_torch.kernels.shamir_poly import encode_share_plain
+from repro_torch.kernels.shamir_poly import encode_share_plain, share_plain
 from repro_torch.kernels.shamir_reconstruct import (
     lagrange_weights_host,
     reconstruct_plain,
@@ -317,3 +322,157 @@ def test_k2_replay_matches_plain(field, points, fill, frac_bits):
     else:
         np.testing.assert_array_equal(got.view(np.int64),
                                       want.numpy().view(np.int64))
+
+
+# -- K4: leaf-wise shares of int64 field elements ---------------------------
+
+def k4_replay(secret: np.ndarray, coeffs: np.ndarray, moduli,
+              w: int) -> np.ndarray:
+    """``leafwise_share_kernel``'s arithmetic on (R, n) ``secret`` and (R,
+    t-1, n) ``coeffs`` (reduced int64): (w, R, n) int64 shares.  The secret
+    is kept as its low 32 bits, the first Horner step is the top
+    coefficient reduced once a residue, and every later operand acc * j +
+    c is checked to stay below 2**36."""
+    tm1 = coeffs.shape[1]
+    out = np.zeros((w,) + secret.shape, dtype=np.int64)
+    for r, p in enumerate(moduli):
+        s = secret[r].astype(U64) & M32
+        c = coeffs[r].astype(U64)
+        top = barrett_reduce(c[tm1 - 1], p) if tm1 else np.zeros_like(s)
+        for j in range(1, w + 1):
+            acc = top
+            for k in range(tm1 - 2, -1, -1):
+                x = acc * U64(j) + c[k]
+                assert int(x.max(initial=0)) < 2**36
+                acc = barrett_reduce(x, p)
+            x = acc * U64(j) + s
+            assert int(x.max(initial=0)) < 2**36
+            out[j - 1, r] = barrett_reduce(x, p).astype(np.int64)
+    return out
+
+
+def _k4_inputs(moduli, tm1: int, n: int, seed: int):
+    """Reduced (R, n) secrets and (R, t-1, n) coefficients, with 0 and p - 1
+    among both."""
+    rng = np.random.default_rng(seed)
+    secret = np.stack([rng.integers(0, p, size=n) for p in moduli])
+    coeffs = np.stack([rng.integers(0, p, size=(tm1, n)) for p in moduli])
+    top = np.asarray(moduli) - 1
+    secret[:, 0], secret[:, 1] = 0, top
+    coeffs[:, :, 0], coeffs[:, :, 1] = top[:, None], 0
+    coeffs[:, :, 2] = top[:, None]
+    return secret.astype(np.int64), coeffs.astype(np.int64)
+
+
+K4_MODULI = {"field31": FIELD31.moduli, "field_wide": FIELD_WIDE.moduli,
+             "random_primes": tuple(_random_primes(6, seed=4))}
+
+
+@pytest.mark.parametrize("moduli", sorted(K4_MODULI))
+@pytest.mark.parametrize("tm1", range(16))
+def test_k4_replay_matches_plain(moduli, tm1):
+    """K4's arithmetic at every point 1..16 and every t - 1 from 0 to 15,
+    bit for bit with ``share_plain``."""
+    mods = K4_MODULI[moduli]
+    secret, coeffs = _k4_inputs(mods, tm1, 37, seed=tm1)
+    got = k4_replay(secret, coeffs, mods, 16)
+    want = share_plain(torch.as_tensor(secret), torch.as_tensor(coeffs),
+                       mods, 16)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+# the JAX kernel's mulmod31 folds with p = 2**31 - c (c = 1 or 19): the
+# field's own moduli only.  Interpret mode compiles once per (t-1, w, p),
+# for ~1.3 s per unit of t-1 at w = 16 (21 s at t-1 = 15), so two cases
+@pytest.mark.parametrize("p,tm1", [(FIELD31.moduli[0], 1),
+                                   (FIELD_WIDE.moduli[1], 4)])
+def test_k4_replay_matches_jax_kernel(p, tm1):
+    """K4's arithmetic at points 1..16 against the JAX package's
+    ``ops.shamir_shares`` (interpret-mode ``shamir_poly_pallas``)."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    secret, coeffs = _k4_inputs((p,), tm1, 37, seed=p % 97 + tm1)
+    got = k4_replay(secret, coeffs, (p,), 16)[:, 0]
+    want = jops.shamir_shares(jnp.asarray(secret[0], jnp.uint64),
+                              jnp.asarray(coeffs[0], jnp.uint64), 16, p)
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))
+
+
+# -- K4's work split ---------------------------------------------------------
+
+K4_THREADS = 128  # csrc/shamir_share.cu
+
+
+def field_grid_blocks(cap: int, groups: int, threads: int) -> int:
+    """``FieldGrid::blocks`` of csrc/field_arith.cuh for a card that holds
+    ``cap`` blocks at once."""
+    need = -(-groups // threads)
+    trips = -(-need // cap)
+    return -(-need // trips)
+
+
+def k4_pairs(n: int, cap: int) -> np.ndarray:
+    """The pairs the grid-stride loop's threads take, in launch order:
+    thread t of the grid takes g = t, t + stride, ... below ceil(n / 2)."""
+    pairs = (n + 1) >> 1
+    stride = field_grid_blocks(cap, pairs, K4_THREADS) * K4_THREADS
+    gs = [np.arange(t, pairs, stride) for t in range(min(stride, pairs))]
+    return np.concatenate(gs)
+
+
+def k4_pieces(row_start: int, pairs: np.ndarray, n: int):
+    """The accesses ``load2``/``store2`` make for each pair of one row whose
+    first element is element ``row_start`` of an allocation that starts
+    16-byte aligned: (first elements, width in elements).  A whole pair at
+    an even element (16-byte aligned) is one 2-wide access, at an odd one
+    two 1-wide; a lone element (the tail of an odd row) one 1-wide."""
+    e = pairs * 2
+    whole = n - e >= 2
+    a = row_start + e
+    vec = whole & (a % 2 == 0)
+    return [(a[vec], 2), (a[~vec], 1), (a[whole & ~vec] + 1, 1)]
+
+
+def _touched(pieces, size: int) -> tuple[np.ndarray, int]:
+    """Times each element of a ``size``-element allocation is touched, and
+    the 2-wide accesses that are not 16-byte aligned."""
+    hits = np.zeros(size, dtype=np.int64)
+    misaligned = 0
+    for s, wd in pieces:
+        for o in range(wd):
+            np.add.at(hits, s + o, 1)
+        if wd == 2:
+            misaligned += int((s % 2).sum())
+    return hits, misaligned
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 100, 4097, 100_003,
+                               1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("R,tm1,w", [(2, 1, 3), (1, 2, 5), (3, 0, 2)])
+def test_k4_work_split_writes_every_share_once(n, offset, R, tm1, w):
+    """Replays K4's partition: the grid-stride loop takes every pair once;
+    each (r, i) share is written exactly once and each secret and
+    coefficient read once a pass, nothing outside the tensors is touched,
+    and every 16-byte access is 16-byte aligned, for odd n (the rows of one
+    tensor in both alignments) and for inputs that start ``offset``
+    elements into their storage (the out tensor is the wrapper's own)."""
+    pairs = (n + 1) >> 1
+    for cap in (1, 132, 132 * 16):
+        np.testing.assert_array_equal(np.sort(k4_pairs(n, cap)),
+                                      np.arange(pairs))
+    g = np.arange(pairs)
+    sec = [p for r in range(R) for p in k4_pieces(offset + r * n, g, n)]
+    co = [p for r in range(R) for k in range(tm1)
+          for p in k4_pieces(offset + (r * tm1 + k) * n, g, n)]
+    out = [p for j in range(w) for r in range(R)
+           for p in k4_pieces((j * R + r) * n, g, n)]
+    for pieces, start, size in ((sec, offset, R * n),
+                                (co, offset, R * tm1 * n),
+                                (out, 0, w * R * n)):
+        hits, bad = _touched(pieces, start + size)
+        assert bad == 0 and not hits[:start].any()
+        assert (hits[start:] == 1).all()
+    if n % 2 and n > 2:  # some whole pairs of out's rows are off 16 bytes
+        assert any(len(out[i + 2][0]) for i in range(0, len(out), 3))

@@ -19,12 +19,17 @@ import jax.numpy as jnp
 from repro.core.collective import SecureCollective as JCollective
 from repro.core.field import FIELD31 as JFIELD31
 from repro.core.field import FIELD_WIDE as JFIELD_WIDE
+from repro.core.field import lift_signed as jlift_signed
+from repro.core.secure_agg import secure_add as jsecure_add
+from repro.core.secure_agg import \
+    secure_scale_by_public as jsecure_scale_by_public
 from repro.core.shamir import ShamirScheme as JScheme
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.collective import SecureCollective
-from repro_torch.core.field import FIELD31, FIELD_WIDE
+from repro_torch.core.field import FIELD31, FIELD_WIDE, lift_signed
 from repro_torch.core.fixed_point import FixedPointCodec
+from repro_torch.core.secure_agg import secure_add, secure_scale_by_public
 from repro_torch.core.shamir import ShamirScheme
 from repro_torch.kernels import ops
 from repro_torch.kernels.shamir_poly import share_kernel, share_plain
@@ -230,3 +235,89 @@ def test_share_pytree_round_trip_on_the_kernel_backend():
         assert torch.equal(rec[k], enc[k])
         np.testing.assert_allclose(codec.decode(rec[k]).numpy(),
                                    x[k].numpy(), atol=2.0**-28)
+
+
+# -- Algorithm 2's share algebra over K4's shares -----------------------------
+
+def _lift_pair(values, tf, jf):
+    """Signed ints lifted to (R, n) field elements by both packages."""
+    v = np.asarray(values, dtype=np.int64)
+    got = lift_signed(torch.as_tensor(v), tf)
+    want = jlift_signed(jnp.asarray(v), jf)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    return got, want
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_secure_add_of_k4_shares_matches_jax(field):
+    """Mirrors the JAX package's ``test_additive_homomorphism``: the
+    share-wise sum (``secure_add`` over (w, R, n) stacks, residue axis 1)
+    of K4's shares reconstructs to the sum of the secrets, and equals the
+    JAX package's ``secure_add`` of its own shares of the same
+    polynomials bit for bit."""
+    tf, jf = FIELDS[field]
+    t, w = 2, 3
+    vals = [[7, -5, 2**30, 0], [-(2**30), 11, -1, 0], [99, 3, -7, 1]]
+    sch = ShamirScheme(t, w, tf, backend="kernel")
+    jsch = JScheme(t, w, jf)
+    acc = jacc = None
+    for i, v in enumerate(vals):
+        sec, jsec = _lift_pair(v, tf, jf)
+        coeffs = _elements(40 + i, (t - 1, len(v)), tf.moduli)
+        sh = sch.share_with_coeffs(sec, torch.as_tensor(coeffs))
+        jsh = jsch.share_with_coeffs(jsec, jnp.asarray(coeffs, jnp.uint64))
+        acc = sh if acc is None else secure_add(acc, sh, tf, residue_axis=1)
+        jacc = jsh if jacc is None else jsecure_add(jacc, jsh, jf,
+                                                    residue_axis=1)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    total, _ = _lift_pair(np.sum(vals, axis=0), tf, jf)
+    for pts in ((1, 2), (2, 3)):
+        rec = sch.reconstruct(acc[[p - 1 for p in pts]], list(pts))
+        assert torch.equal(rec, total), pts
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_scale_by_public_constant_matches_jax(field):
+    """Mirrors the JAX package's ``test_scale_by_public_constant``: K4's
+    shares of [17, -5] times the public 7 reconstruct to [119, -35], bit
+    for bit with the JAX package's ``secure_scale_by_public``."""
+    tf, jf = FIELDS[field]
+    sch = ShamirScheme(2, 3, tf, backend="kernel")
+    sec, jsec = _lift_pair([17, -5], tf, jf)
+    coeffs = _elements(7, (1, 2), tf.moduli)
+    shares = sch.share_with_coeffs(sec, torch.as_tensor(coeffs))
+    jshares = JScheme(2, 3, jf).share_with_coeffs(
+        jsec, jnp.asarray(coeffs, jnp.uint64))
+    c, jc = _lift_pair(7, tf, jf)
+    scaled = secure_scale_by_public(shares, c.reshape(1, -1, 1), tf,
+                                    residue_axis=1)
+    want = jsecure_scale_by_public(jshares, jc.reshape(1, -1, 1), jf,
+                                   residue_axis=1)
+    np.testing.assert_array_equal(scaled.numpy(), np.asarray(want))
+    expect, _ = _lift_pair([119, -35], tf, jf)
+    assert torch.equal(sch.reconstruct(scaled), expect)
+
+
+def test_secure_add_and_scale_map_over_trees():
+    """Both take trees of share tensors, as the JAX package's
+    ``tree_map`` does, and ``secure_add`` refuses two structures."""
+    tf, jf = FIELDS["wide"]
+    a = {"g": _elements(1, (3, 5), tf.moduli), "h": [_elements(2, (3, 2),
+                                                             tf.moduli)]}
+    b = {"g": _elements(3, (3, 5), tf.moduli), "h": [_elements(4, (3, 2),
+                                                             tf.moduli)]}
+    c = _elements(5, (1,), tf.moduli)[:, None]  # (R, 1, 1) public constant
+    ta = {"g": torch.as_tensor(a["g"]), "h": [torch.as_tensor(a["h"][0])]}
+    tb = {"g": torch.as_tensor(b["g"]), "h": [torch.as_tensor(b["h"][0])]}
+    ja = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.uint64), a)
+    jb = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.uint64), b)
+    got = secure_add(ta, tb, tf)
+    want = jsecure_add(ja, jb, jf)
+    scaled = secure_scale_by_public(ta, torch.as_tensor(c), tf)
+    jscaled = jsecure_scale_by_public(ja, jnp.asarray(c, jnp.uint64), jf)
+    for g, wnt in ((got, want), (scaled, jscaled)):
+        np.testing.assert_array_equal(g["g"].numpy(), np.asarray(wnt["g"]))
+        np.testing.assert_array_equal(g["h"][0].numpy(),
+                                      np.asarray(wnt["h"][0]))
+    with pytest.raises(ValueError, match="one structure"):
+        secure_add(ta, {"g": tb["g"]}, tf)

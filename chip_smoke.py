@@ -120,12 +120,37 @@ Phases, each printing one line (any failure raises and exits non-zero):
    the smoke config (the int32 shares of the full-width model do not fit
    the card): the loss falls, one K1 and one K2 a step, exact wire bytes,
    and the step-0 secure mean gradient within S * 2^-28 of the plain mean;
+14. the multi-device wires on ``torch.distributed`` at
+   ``benchmarks/secure_psum.py``'s size (10^6 float32 parameters: a leaf
+   of 999,984 and a 4 x 4 leaf, 2-of-3 over the CRT pair, 28 fractional
+   bits), after the training weights are freed: (a) a single-rank NCCL
+   group on the card: ``secure_psum`` replicated, sharded, sharded with
+   ``out="tile"`` (its ``gather``) and the per-leaf oracle, each reveal
+   equal to the decoded exact sum bit for bit, one K1 and one K2 launch a
+   flat call (the counted run: K1 3, K2 3), and a (2, 17) call revealed
+   from all 17 centers; (b) 4 spawned ranks on one gloo group, every one
+   on cuda:0 (NCCL refuses two ranks on one card; gloo's reduce-scatter
+   and all-gather of CUDA tensors go through the host, counted): the same
+   modes, bit-identical to each other and to the decode of 4 x tree, a 2
+   x 2 (pod, share) ``secure_psum_2d`` bit-identical to the 1D wire over
+   its 2 pods, ``run_scanned_rounds`` of 4 rounds in both reveal modes
+   (mean within 1e-4, trace (4,), one K1 and one K2 a round) and
+   ``compressed_psum`` (within half a quantization step of the mean);
+   (c) the lifted caps at protocol sizes: K1 at (t, w) = (2, 17) and (17,
+   20) on the 10^6-parameter wire buffer, K4 there at n = 10^6, K2 with k
+   = 17 and 20, each bit-identical to its plain version.  A ``{"wires":
+   ...}`` line: seconds a call per mode, 2D and a scanned round, each
+   rank's bytes on the wire (operands, and under the 4-byte ring model of
+   ``benchmarks/secure_psum.py``), the bytes staged through the host and
+   each group's backend, with the card's name and power limit.  Every
+   process group has a 120 s timeout and the spawn a deadline;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
    K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
    institution's 25,000 x 128, K1 and K2 also at the λ path's round (K1
    over 5 x 8 slices of 136 rows, K2 over the 5 aggregates) and at 2^24
-   elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, each
+   elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, and
+   (phase 14c) K1 and K4 at (2, 17) and (17, 20), K2 at k = 17 and 20, each
    held bit-identical to its plain version there (``at_shapes``); before
    it, the event floor: an empty launch
    (``torch.cuda._sleep(0)``) timed as the kernels are.
@@ -250,6 +275,17 @@ GRAD_H, GRAD_TOL = 1e-2, 2e-2
 SECURE_ARGV = ["--arch", "qwen2_5_32b", "--smoke", "--secure-agg", "shamir",
                "--institutions", "2", "--batch", "4", "--seq-len", "32",
                "--steps", "8", "--lr", "1e-2", "--log-every", "100"]
+# the multi-device wires at benchmarks/secure_psum.py's defaults: 10^6
+# float32 parameters (a leaf of 999,984 and a 4 x 4 leaf), 2-of-3 over
+# FIELD_WIDE, 28 fractional bits; D = 4 ranks on one gloo group, a 2 x 2
+# (pod, share) mesh, 4 scanned rounds; seconds a call are medians of
+# WIRE_REPS calls after a warm-up
+WIRE_PARAMS, WIRE_RANKS, WIRE_ROUNDS, WIRE_REPS = 1_000_000, 4, 4, 5
+WIRE_MESH_2D = (2, 2)
+WIRE_DEADLINE_S = 420.0  # the spawned ranks, imports and CUDA init included
+GROUP_TIMEOUT_S = 120  # every process group fails a hung collective
+# the repaired caps at protocol sizes: (t, w), and K2's reveal sizes k
+CAP_SHAPES, CAP_KS = ((2, 17), (17, 20)), (17, 20)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1212,19 +1248,22 @@ def irls_ptxas(log_text: str, lib) -> dict:
     return {"kernels": rows, "d": D, "plans": plans}
 
 
-# K1's instantiations (payload dtype), K2 and K4
+# K1's instantiations (payload dtype; the struct or the table path), K2's
+# (the struct or the table path) and K4
 SHAMIR_KERNELS = (r"(encode_share_kernel|reconstruct_kernel"
-                  r"|leafwise_share_kernel)(I([df])E)?")
+                  r"|leafwise_share_kernel)(I([df])?Lb([01])E)?")
 
 
 def _shamir_label(hit) -> str:
-    if hit.group(1) == "reconstruct_kernel":
-        return "K2"
     if hit.group(1) == "leafwise_share_kernel":
         return "K4"
-    if hit.group(3) is None:
-        return "K1"
-    return f"K1 {'f64' if hit.group(3) == 'd' else 'f32'} payload"
+    path = "" if hit.group(4) is None else \
+        (" table path" if hit.group(4) == "1" else " struct path")
+    if hit.group(1) == "reconstruct_kernel":
+        return "K2" + path
+    payload = "" if hit.group(3) is None else \
+        f" {'f64' if hit.group(3) == 'd' else 'f32'} payload"
+    return "K1" + payload + path
 
 
 def shamir_sass(lib_path) -> dict:
@@ -1468,6 +1507,365 @@ def secure_phase(dev, counts):
                        "institution (122 GB for two)"}
 
 
+def wire_tree(dev, params: int = WIRE_PARAMS):
+    """The JAX secure_psum tests' tree at the benchmark's size, drawn on
+    ``dev`` from SEED: 0.5 x normals in a leaf of ``params`` - 16 (999,984)
+    and a 4 x 4 leaf of 3.25, 10^6 float32 parameters in all."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return {"g": 0.5 * torch.randn(params - 16, generator=g, device=dev),
+            "h": torch.full((4, 4), 3.25, device=dev)}
+
+
+def decoded_sum(tree, copies: int):
+    """What the wire must reveal for ``copies`` ranks holding ``tree``: the
+    exact field sum of their encodings, decoded.  A float32 leaf encodes
+    s = round(x 2^28) in float32 (K1's float32 rule); copies x s is exact
+    in float64, and so is the decode's 2^-28; the result is cast back."""
+    import torch
+
+    scale = float(2**FRAC_BITS)
+    return {k: (torch.round(v * scale).double() * copies / scale).to(v.dtype)
+            for k, v in tree.items()}
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def ring(d: int) -> float:
+    """A ring collective's share of a buffer each rank moves, as
+    benchmarks/secure_psum.py counts it ((D - 1) / D, 1 at D = 1)."""
+    return (d - 1) / d if d > 1 else 1.0
+
+
+def wire_model_bytes(mode: str, d: int, agg, params: int) -> float:
+    """benchmarks/secure_psum.py's per-rank payload model at D ranks: ring
+    accounting, shares at 4 bytes (a fabric with per-hop modular adds),
+    the per-leaf oracle's int64 shares at 8, plaintext float32."""
+    from repro_torch.core.flatbuf import LANES, ROW_ALIGN, _rows_for
+
+    sch = agg.scheme
+    w, t, r = sch.num_shares, sch.threshold, sch.field.num_residues
+    rows = _rows_for(params, ROW_ALIGN)
+    rows_sh = _rows_for(params, math.lcm(ROW_ALIGN, d))
+    return {"per_leaf": 2 * w * r * params * 8,
+            "replicated": 2 * t * r * rows * LANES * 4,
+            "sharded": t * r * rows_sh * LANES * 4 + rows_sh * LANES * 4,
+            }[mode.replace("_tile", "")] * ring(d)
+
+
+def wire_measured_bytes(stats: dict, d: int) -> dict:
+    """What this rank handed its collectives (``compat.wire_stats``): the
+    operands' bytes, and the same under the model's ring accounting (an
+    all-reduce operand 2 (D-1)/D, a reduce-scatter operand (D-1)/D, an
+    all-gather operand, one rank's tile, D - 1 times)."""
+    ar, rs = stats.get("all_reduce", 0), stats.get("reduce_scatter", 0)
+    ag = stats.get("all_gather", 0)
+    return {"operand_bytes": ar + rs + ag,
+            "ring_bytes": 2 * ar * ring(d) + rs * ring(d) + ag * max(d - 1, 1),
+            "host_staged_bytes": stats.get("host_staged", 0)}
+
+
+def run_wire_modes(tree, want, d: int, reset, read):
+    """Each 1D ``secure_psum`` mode on the current mesh's pod axis: a
+    warm-up call of each, then the counted run (``reset()``, one call of
+    each mode, each reveal checked equal to ``want`` bit for bit and its
+    K1 and K2 launches read from the counts' growth, ``read()``), then
+    WIRE_REPS timed calls of each.  Returns (per mode the seconds a call,
+    the launches and the bytes on the wire; the counted run's launches)."""
+    from repro_torch.core.collective import SecureCollective, secure_psum
+    from repro_torch.distributed import compat
+
+    calls = {}
+    for mode, backend, reveal in (("per_leaf", "reference", "replicated"),
+                                  ("replicated", "kernel", "replicated"),
+                                  ("sharded", "kernel", "sharded"),
+                                  ("sharded_tile", "kernel", "sharded")):
+        agg = SecureCollective(backend=backend)
+
+        def call(agg=agg, reveal=reveal, tile=mode == "sharded_tile"):
+            if tile:
+                return secure_psum(tree, "pod", SEED, aggregator=agg,
+                                   reveal="sharded", out="tile").gather("pod")
+            return secure_psum(tree, "pod", SEED, aggregator=agg,
+                               reveal=reveal)
+
+        calls[mode] = (agg, call)
+        call()  # warm-up
+    out = {}
+    reset()
+    for mode, (agg, call) in calls.items():
+        before = read()
+        compat.reset_wire_stats()
+        got = call()
+        stats = compat.wire_stats()
+        after = read()
+        launches = {k: after[k] - before[k] for k in after}
+        check(trees_equal(got, want),
+              f"secure_psum {mode} at D={d}: the reveal is not the decoded "
+              "exact sum")
+        # a wrapper counts the launches of its kernel, never its plain
+        # version's runs on a CPU tensor (the CPU rehearsal)
+        flat = int(mode != "per_leaf" and got["g"].is_cuda)
+        check(all(v == (flat if k in ("encode_share_kernel",
+                                      "reconstruct_kernel") else 0)
+                  for k, v in launches.items()),
+              f"secure_psum {mode} launches {launches}")
+        out[mode] = {"launches": launches,
+                     "model_ring_bytes_4B": wire_model_bytes(
+                         mode, d, agg, sum(v.numel() for v in tree.values())),
+                     **wire_measured_bytes(stats, d)}
+    total = read()
+    for mode, (_, call) in calls.items():
+        out[mode]["seconds_per_call"] = _timed(call)
+    return out, total
+
+
+def _sync() -> None:
+    """Wait for the card (the CPU rehearsal of phase 14 has none)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed(call, reps: int = WIRE_REPS) -> float:
+    """Median host seconds of ``call`` to a synchronize."""
+    times = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        call()
+        _sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _wire_rank(rank, world, rdzv, out_path, args):
+    """One of phase 14's spawned ranks, on ``device`` (cuda:0 on the card)
+    over one gloo group: the
+    1D modes, the scanned rounds and compressed_psum on a pod mesh of
+    ``world``, then the 2D wire against the 1D wire on a 2 x 2 mesh.
+    Every check raises here, so a failure exits the rank non-zero."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.collective import SecureCollective, secure_psum
+    from repro_torch.distributed import compat, multihost
+    from repro_torch.kernels.shamir_poly import encode_share_kernel
+    from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel
+    from repro_torch.optim.compression import compressed_psum
+
+    dist.init_process_group(
+        "gloo", init_method=rdzv, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    device, params = args
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    counters = (encode_share_kernel, reconstruct_kernel)
+
+    def reset():
+        for k in counters:
+            k.launches = 0
+
+    def read():
+        return {k.__name__: k.launches for k in counters}
+
+    tree = wire_tree(dev, params)
+    out = {"rank": rank}
+    try:
+        with compat.use_mesh(multihost.pod_mesh(world)):
+            out["backend_pod"] = dist.get_backend(compat.axis_group("pod"))
+            out["modes"], out["launches"] = run_wire_modes(
+                tree, decoded_sum(tree, world), world, reset, read)
+            out["reveal_g"] = secure_psum(tree, "pod", SEED)["g"].cpu()
+            scanned = {}
+            for reveal in ("replicated", "sharded"):
+                reset()
+                t0 = time.perf_counter()
+                final, trace = multihost.run_scanned_rounds(
+                    world, tree, SEED, WIRE_ROUNDS, reveal=reveal,
+                    device=dev)
+                _sync()
+                sec = time.perf_counter() - t0
+                err = max(float((final[k] - tree[k]).abs().max())
+                          for k in tree)
+                check(tuple(trace.shape) == (WIRE_ROUNDS,),
+                      f"scanned trace {tuple(trace.shape)}")
+                check(err <= 1e-4, f"scanned rounds ({reveal}) moved the "
+                      f"mean by {err}")
+                launches = read()
+                check(all(v == WIRE_ROUNDS * dev.type.startswith("cuda")
+                          for v in launches.values()),
+                      f"scanned rounds launches {launches}")
+                scanned[reveal] = {"seconds_per_round": sec / WIRE_ROUNDS,
+                                   "max_abs_mean_drift": err,
+                                   "launches": launches}
+            out["scanned"] = scanned
+            grads = {k: v * (rank + 1) for k, v in tree.items()}
+            efb = {k: torch.zeros_like(v) for k, v in tree.items()}
+            mean, _ = compressed_psum(grads, "pod", efb)
+            true = {k: v * (world + 1) / 2 for k, v in tree.items()}
+            # the shared scale is the largest rank's absmax / 127; each
+            # rank's code is within half a scale step, so is the mean
+            step = max(float(v.abs().max()) for v in tree.values()) \
+                * world / 127
+            cerr = max(float((mean[k] - true[k]).abs().max()) for k in tree)
+            check(cerr <= 0.5 * step * (1 + 1e-5) + 1e-5,
+                  f"compressed_psum error {cerr} > half a step {step}")
+            out["compressed"] = {
+                "seconds_per_call": _timed(
+                    lambda: compressed_psum(grads, "pod", efb)),
+                "max_abs_err_vs_mean": cerr, "half_step": 0.5 * step}
+        with compat.use_mesh(multihost.pod_share_mesh(*WIRE_MESH_2D)):
+            out["backend_share"] = dist.get_backend(
+                compat.axis_group("share"))
+            agg = SecureCollective(backend="kernel")
+            multihost.secure_psum_2d(tree, SEED, aggregator=agg)  # warm-up
+            reset()
+            compat.reset_wire_stats()
+            r2d = multihost.secure_psum_2d(tree, SEED, aggregator=agg)
+            _sync()
+            stats = compat.wire_stats()
+            launches = read()
+            r1d = secure_psum(tree, "pod", SEED, aggregator=agg)
+            check(trees_equal(r2d, r1d), "2D wire != 1D wire on its pods")
+            check(trees_equal(r2d, decoded_sum(tree, WIRE_MESH_2D[0])),
+                  "2D wire != the decoded exact sum")
+            check(launches == {"encode_share_kernel": int(dev.type == "cuda"),
+                               "reconstruct_kernel": 0},
+                  f"2D launches {launches}")
+            out["2d"] = {"seconds_per_call": _timed(
+                lambda: multihost.secure_psum_2d(tree, SEED,
+                                                 aggregator=agg)),
+                "launches": launches, **wire_measured_bytes(
+                    stats, WIRE_MESH_2D[0])}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, out["reveal_g"])
+        out["ranks_agree"] = all(torch.equal(g, out["reveal_g"])
+                                 for g in gathered)
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def wires_phase(dev, smi, counts, params: int = WIRE_PARAMS,
+                cap_n: int = LEAF_N):
+    """Phase 14: the multi-device wires.  (a) a single-rank NCCL group on
+    the card: every 1D mode, a (2, 17) reveal from all 17 centers; (b) D =
+    4 spawned ranks on one gloo group, all on cuda:0 (NCCL refuses two
+    ranks on one card): the 1D modes, the 2 x 2 mesh, the scanned rounds
+    and compressed_psum; (c) the repaired caps: K1, K4 and K2 past 16
+    shares, each against its plain version.  Returns the ``{"wires": ...}``
+    record, the launches of (a)'s counted run and (c)'s timing cases."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.collective import SecureCollective, secure_psum
+    from repro_torch.core.field import FIELD_WIDE
+    from repro_torch.core.flatbuf import pack_pytree
+    from repro_torch.core.shamir import ShamirScheme
+    from repro_torch.distributed import compat, multihost
+    from repro_torch.kernels.shamir_poly import encode_share_kernel, \
+        encode_share_plain, share_kernel, share_plain
+    from repro_torch.kernels.shamir_reconstruct import reconstruct_kernel, \
+        reconstruct_plain
+
+    reset, read = counts
+    tree = wire_tree(dev, params)
+    out = {"params": params, "card": smi}
+    # (a) one rank, NCCL on the card (gloo in a CPU rehearsal)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rdzv", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            with compat.use_mesh(multihost.pod_mesh(1)):
+                single = {"backend": dist.get_backend(
+                    compat.axis_group("pod"))}
+                single["modes"], launches = run_wire_modes(
+                    tree, decoded_sum(tree, 1), 1, reset, read)
+                wide = SecureCollective(backend="kernel", scheme=ShamirScheme(
+                    threshold=2, num_shares=17))
+                every = tuple(range(1, 18))
+                got = secure_psum(tree, "pod", SEED, aggregator=wide,
+                                  points=every)
+                check(trees_equal(got, decoded_sum(tree, 1)),
+                      "a (2, 17) secure_psum revealed from all 17 centers")
+                single["t2_w17_all_points_seconds_per_call"] = _timed(
+                    lambda: secure_psum(tree, "pod", SEED, aggregator=wide,
+                                        points=every))
+        finally:
+            dist.destroy_process_group()
+    out["single_rank"] = single
+    flat = 3 if dev.type == "cuda" else 0
+    check(all(v == (flat if k in ("encode_share_kernel",
+                                  "reconstruct_kernel") else 0)
+              for k, v in launches.items()),
+          f"phase 14 (a) launches {launches}: one K1 and one K2 a flat call")
+    # (b) D ranks, spawned, one gloo group, every rank on cuda:0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.spawn_ranks(
+        WIRE_RANKS, _wire_rank,
+        ("cuda:0" if dev.type == "cuda" else str(dev), params),
+        deadline_s=WIRE_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    check(ranks["ranks_agree"], "the spawned ranks' reveals differ")
+    check(torch.equal(ranks["reveal_g"],
+                      decoded_sum(tree, WIRE_RANKS)["g"].cpu()),
+          f"D={WIRE_RANKS} reveal != the decode of {WIRE_RANKS} x tree")
+    ranks.pop("reveal_g")
+    out["gloo_ranks"] = {"ranks": WIRE_RANKS, "mesh_2d": WIRE_MESH_2D,
+                         "spawn_seconds": spawn_s, **ranks}
+    # (c) the repaired caps at protocol sizes
+    buf, layout = pack_pytree(tree)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cases = {"K1": {}, "K2": {}, "K4": {}}
+    for t, w in CAP_SHAPES:
+        coeffs = torch.stack([
+            torch.randint(0, p, (t - 1, layout.rows, 128), generator=gen,
+                          device=dev) for p in FIELD_WIDE.moduli
+        ]).to(torch.int32)
+        args = (buf, coeffs, FIELD_WIDE.moduli, FRAC_BITS,
+                tuple(range(1, w + 1)))
+        check(torch.equal(encode_share_kernel(*args),
+                          encode_share_plain(*args)),
+              f"K1 at (t, w) = ({t}, {w}) vs its plain version")
+        cases["K1"][f"t{t}_w{w}"] = args
+        k4 = k4_args(dev, gen, t, w, cap_n)
+        check(torch.equal(share_kernel(*k4), share_plain(*k4)),
+              f"K4 at (t, w) = ({t}, {w}) vs its plain version")
+        cases["K4"][f"t{t}_w{w}"] = k4
+    for k in CAP_KS:
+        shares = torch.stack([torch.stack([
+            torch.randint(0, p, (layout.rows, 128), generator=gen,
+                          device=dev) for p in FIELD_WIDE.moduli])
+            for _ in range(k)]).to(torch.int32)
+        for fb in (FRAC_BITS, None):
+            args = (shares, tuple(range(1, k + 1)), FIELD_WIDE.moduli, fb)
+            check(torch.equal(reconstruct_kernel(*args),
+                              reconstruct_plain(*args)),
+                  f"K2 with k = {k} (frac_bits {fb}) vs its plain version")
+        cases["K2"][f"k{k}"] = (shares, tuple(range(1, k + 1)),
+                                FIELD_WIDE.moduli, FRAC_BITS)
+    out["caps_checked"] = {"K1": list(cases["K1"]), "K4": list(cases["K4"]),
+                           "K2": list(cases["K2"]), "bit_identical": True}
+    return out, launches, cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1546,9 +1944,10 @@ def main() -> int:
               f"no ptxas report for {r['kernel']}")
         check(r["spill_stores"] == r["spill_loads"] == r["stack_frame"] == 0,
               f"{r['kernel']} spills or keeps a local array: {r}")
-    # K1 f32/f64, K2 and K4, none with a division sequence
-    check(len(shamir_rep["kernels"]) == 4
-          and len(shamir_rep["division_sass"]) == 4
+    # K1 f32/f64 and K2, each on its struct and its table path, and K4,
+    # none with a division sequence
+    check(len(shamir_rep["kernels"]) == 7
+          and len(shamir_rep["division_sass"]) == 7
           and "K4" in shamir_rep["division_sass"],
           f"K1/K2/K4 instantiations in the ptxas report and SASS: "
           f"{shamir_rep}")
@@ -1969,6 +2368,12 @@ def main() -> int:
     secure_out = secure_phase(dev, counts)
     print(json.dumps({"secure_train": secure_out, "card": smi}))
 
+    # -- 14. the multi-device wires (torch.distributed) ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    wires_out, wire_launches, cap_cases = wires_phase(dev, smi, counts)
+    print(json.dumps({"wires": wires_out}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -2005,37 +2410,40 @@ def main() -> int:
     for r, p_r in enumerate(FIELD_WIDE.moduli):
         k2_big[:, r].random_(0, p_r, generator=gen)
 
-    def k1_shape(xs, cs):
+    def k1_shape(xs, cs, points=(1, 2, 3)):
         def run():
             return encode_share_kernel(xs, cs, FIELD_WIDE.moduli, FRAC_BITS,
-                                       (1, 2, 3))
+                                       points)
 
         def plain():
             return encode_share_plain(xs, cs, FIELD_WIDE.moduli, FRAC_BITS,
-                                      (1, 2, 3))
+                                      points)
 
         check(torch.equal(run(), plain()),
-              f"K1 at {xs.numel()} elements vs its plain version")
-        n = xs.numel()
-        # payload and coefficients read once, three points' shares written
+              f"K1 at {xs.numel()} elements, {len(points)} points vs its "
+              "plain version")
+        n, tm1 = xs.numel(), cs.shape[1]
+        # payload and coefficients read once, each point's shares written
         return dict(run=run, plain=plain, library=None,
-                    bound=bound(n * (8 + 2 * 4 + 3 * 2 * 4), f64_ops=n))
+                    bound=bound(n * (xs.element_size() + 2 * 4 * tm1
+                                     + len(points) * 2 * 4), f64_ops=n))
 
-    def k2_shape(shs):
+    def k2_shape(shs, points=(1, 2)):
         def run():
-            return reconstruct_kernel(shs, (1, 2), FIELD_WIDE.moduli,
+            return reconstruct_kernel(shs, points, FIELD_WIDE.moduli,
                                       FRAC_BITS)
 
         def plain():
-            return reconstruct_plain(shs, (1, 2), FIELD_WIDE.moduli,
+            return reconstruct_plain(shs, points, FIELD_WIDE.moduli,
                                      FRAC_BITS)
 
         check(torch.equal(run(), plain()),
-              f"K2 at {shs[0, 0].numel()} elements vs its plain version")
+              f"K2 at {shs[0, 0].numel()} elements, k = {len(points)} vs "
+              "its plain version")
         n = shs[0, 0].numel()
         # k R int32 shares read once, the float64 aggregate written
         return dict(run=run, plain=plain, library=None,
-                    bound=bound(n * (2 * 2 * 4 + 8), f64_ops=n))
+                    bound=bound(n * (len(points) * 2 * 4 + 8), f64_ops=n))
 
     def k4_shape(args):
         def run():
@@ -2054,8 +2462,12 @@ def main() -> int:
                     bound=bound(R * n * 8 * (1 + tm1 + args[3])))
 
     k1_shapes = {"lambda_path": k1_shape(x_path, co_path),
-                 "2^24": k1_shape(x_big, co_big)}
-    k2_shapes = {"lambda_path": k2_shape(k2_path), "2^24": k2_shape(k2_big)}
+                 "2^24": k1_shape(x_big, co_big),
+                 **{name: k1_shape(*args[:2], points=args[4])
+                    for name, args in cap_cases["K1"].items()}}
+    k2_shapes = {"lambda_path": k2_shape(k2_path), "2^24": k2_shape(k2_big),
+                 **{name: k2_shape(args[0], points=args[1])
+                    for name, args in cap_cases["K2"].items()}}
     # an empty launch timed as the kernels are: what the events add
     event_floor_ms = cuda_times(lambda: torch.cuda._sleep(0), 30)[0]
     print(f"event floor (an empty launch, CUDA events): {event_floor_ms:.6f}"
@@ -2122,7 +2534,9 @@ def main() -> int:
              err=0.0, **k4_shape(k4_cases[(2, 3)]),
              shapes={"t3_w5": k4_shape(k4_cases[(3, 5)]),
                      "2^24": k4_shape(k4_args(dev, gen, 2, 3,
-                                              BIG_ELEMENTS))}),
+                                              BIG_ELEMENTS)),
+                     **{name: k4_shape(args)
+                        for name, args in cap_cases["K4"].items()}}),
         dict(name="K6 gram_hessian", fn=gram_hessian_kernel, path="gram",
              source="src/repro_torch/csrc/gram_hessian.cu",
              replaces="src/repro/kernels/fused_irls.py:387",
@@ -2152,7 +2566,8 @@ def main() -> int:
                "multistudy": ms_out["launches"],
                "serve": serve_out["launches"],
                "train": train_out["launches"],
-               "secure_train": secure_out["launches"]}
+               "secure_train": secure_out["launches"],
+               "wires": wire_launches}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)

@@ -10,7 +10,8 @@ name):
   with fold masks (K5);
 * ``collective`` (``secure_agg`` re-exports it) — the one protect ->
   aggregate -> reveal chain (K1, K2), the multi-config round,
-  ``round_key`` and the ``round_bytes`` wire model;
+  ``round_key`` and the ``round_bytes`` wire model, and the wires across
+  ranks (``secure_psum``, the 2D reveal; :mod:`repro_torch.distributed`);
 * ``newton`` — the stopping rule, Newton/prox steps, ``SecureFitDriver``
   and ``secure_fit`` (loop, fused, scan rounds);
 * ``scanfit`` — blocks of rounds with one trace read-back;
@@ -27,14 +28,20 @@ from .batched_summaries import (
     PackedPartitions,
     batched_cv_summaries,
     batched_local_summaries,
+    pack_cache_clear,
     pack_cache_evict,
+    pack_cache_len,
     pack_partitions,
 )
 from .collective import (
+    OUT_MODES,
+    REVEAL_MODES,
     FlatProtected,
     SecureCollective,
+    ShardedAggregate,
     check_aggregation_headroom,
     declassify_sum,
+    secure_psum,
 )
 from .field import FIELD31, FIELD_WIDE, FieldSpec
 from .fixed_point import FixedPointCodec
@@ -42,8 +49,10 @@ from .flatbuf import (
     FlatLayout,
     pack_pytree,
     pack_pytree_batched,
+    tile_slices,
     unpack_pytree,
     unpack_pytree_batched,
+    unpack_pytree_tile,
 )
 from .logreg import LocalSummaries, deviance, local_summaries, predict_proba
 from .multistudy import (
@@ -68,11 +77,13 @@ from .shamir import ShamirScheme
 __all__ = [
     "FIELD31", "FIELD_WIDE", "FieldSpec", "FixedPointCodec", "ShamirScheme",
     "FlatLayout", "FlatProtected", "pack_pytree", "pack_pytree_batched",
-    "unpack_pytree", "unpack_pytree_batched",
+    "unpack_pytree", "unpack_pytree_batched", "tile_slices",
+    "unpack_pytree_tile", "OUT_MODES", "REVEAL_MODES", "ShardedAggregate",
     "PackedPartitions", "batched_local_summaries", "pack_partitions",
-    "pack_cache_evict", "CVSummaries", "batched_cv_summaries",
+    "pack_cache_clear", "pack_cache_evict", "pack_cache_len",
+    "CVSummaries", "batched_cv_summaries",
     "SecureAggregator", "SecureCollective", "check_aggregation_headroom",
-    "declassify_sum", "secure_add", "secure_scale_by_public",
+    "declassify_sum", "secure_add", "secure_psum", "secure_scale_by_public",
     "LocalSummaries", "local_summaries", "predict_proba", "deviance",
     "FitResult", "RoundReport", "SecureFitDriver", "centralized_fit",
     "newton_step", "prox_newton_step", "secure_fit",

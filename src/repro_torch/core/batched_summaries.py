@@ -34,9 +34,9 @@ import torch.nn.functional as F
 from ..kernels import ops, ref
 from .logreg import LocalSummaries
 
-__all__ = ["PackedPartitions", "pack_partitions", "pack_cache_evict",
-           "batched_local_summaries", "CVSummaries", "batched_cv_summaries",
-           "BACKENDS"]
+__all__ = ["PackedPartitions", "pack_partitions", "pack_cache_clear",
+           "pack_cache_evict", "pack_cache_len", "batched_local_summaries",
+           "CVSummaries", "batched_cv_summaries", "BACKENDS"]
 
 BACKENDS = ("reference", "kernel", "mixed")
 
@@ -45,11 +45,13 @@ BACKENDS = ("reference", "kernel", "mixed")
 class PackedPartitions:
     """Stacked ragged partitions + the facts the kernels need.
 
-    ``X``/``y`` are zero-padded to (S, N_max, d) float64; ``X32`` is the
-    float32 copy fed to the Gram (cast once per fit, not per iteration).
+    ``X``/``y`` are zero-padded to (S, N_max, d); ``y`` is float64 and
+    ``X`` the payload dtype ``pack_partitions`` was given.  ``X32`` is the
+    float32 copy fed to the Gram (cast once per fit, not per iteration);
+    for a float32 payload it is ``X`` itself, one buffer in all.
     """
 
-    X: torch.Tensor  # (S, N_max, d) float64
+    X: torch.Tensor  # (S, N_max, d) float64 or float32 payload
     X32: torch.Tensor  # (S, N_max, d) float32 Gram operand
     y: torch.Tensor  # (S, N_max) float64
     counts: torch.Tensor  # (S,) int32 true row counts
@@ -57,6 +59,10 @@ class PackedPartitions:
     @property
     def num_institutions(self) -> int:
         return self.X.shape[0]
+
+    @property
+    def total_records(self) -> int:
+        return int(self.counts.sum())
 
     @property
     def dim(self) -> int:
@@ -79,38 +85,59 @@ def _tensor_key(t: torch.Tensor) -> tuple:
     return (id(t), t.data_ptr(), t._version)
 
 
-def _pack_cache_key(parts) -> tuple:
-    return tuple((_tensor_key(X), _tensor_key(y)) for X, y in parts)
+def _pack_cache_key(parts, dtype: torch.dtype) -> tuple:
+    return (tuple((_tensor_key(X), _tensor_key(y)) for X, y in parts),
+            dtype)
 
 
-def pack_cache_evict(parts) -> None:
+def pack_cache_clear() -> None:
+    """Drop every cached pack (the packed buffers become collectable)."""
+    _PACK_CACHE.clear()
+
+
+def pack_cache_evict(parts, dtype: torch.dtype | None = None) -> None:
     """Evict every cached pack that includes one of ``parts``' tensors.
 
     The coordinator's churn hook: an institution that joins or leaves
     takes every pack built around its tensors with it, so no later cohort
     reuses a stale padded batch (the weakref finalizers cover collected
-    tensors; this covers live ones leaving a cohort).
+    tensors; this covers live ones leaving a cohort).  ``dtype=None``
+    evicts across payload dtypes; a dtype evicts only that payload's packs.
     """
     ids = {id(t) for part in parts for t in part}
     for key in list(_PACK_CACHE):
-        if any(kx[0] in ids or ky[0] in ids for kx, ky in key):
+        part_keys, key_dtype = key
+        if dtype is not None and key_dtype != dtype:
+            continue
+        if any(kx[0] in ids or ky[0] in ids for kx, ky in part_keys):
             _PACK_CACHE.pop(key, None)
+
+
+def pack_cache_len() -> int:
+    """Packs the cache holds."""
+    return len(_PACK_CACHE)
 
 
 def pack_partitions(
     parts: Sequence[tuple[torch.Tensor, torch.Tensor]],
+    dtype: torch.dtype = torch.float64,
 ) -> PackedPartitions:
     """Stack S ragged (X_j, y_j) partitions into one masked batch.
 
     Once per study: repeated calls with the same, unmodified part tensors
-    return the cached pack.  The pack lives on the parts' device.
+    and the same ``dtype`` return the cached pack.  The pack lives on the
+    parts' device.  ``dtype`` is the X payload: float64 keeps the exact
+    payload beside a float32 Gram operand; float32 stores one float32
+    buffer for both (the summaries widen it to float64 per call, exactly).
     """
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype must be float64 or float32, got {dtype}")
     if not parts:
         raise ValueError("need at least one partition")
     d = parts[0][0].shape[1]
     if any(Xj.shape[1] != d for Xj, _ in parts):
         raise ValueError("all partitions must share the feature dimension")
-    key = _pack_cache_key(parts)
+    key = _pack_cache_key(parts, dtype)
     hit = _PACK_CACHE.get(key)
     if hit is not None:
         _PACK_CACHE.move_to_end(key)
@@ -119,7 +146,7 @@ def pack_partitions(
     n_max = max(counts)
     device = parts[0][0].device
     Xs = torch.stack([
-        F.pad(Xj.to(torch.float64), (0, 0, 0, n_max - Xj.shape[0]))
+        F.pad(Xj.to(dtype), (0, 0, 0, n_max - Xj.shape[0]))
         for Xj, _ in parts
     ])
     ys = torch.stack([
@@ -127,7 +154,7 @@ def pack_partitions(
         for _, yj in parts
     ])
     packed = PackedPartitions(
-        Xs, Xs.to(torch.float32), ys,
+        Xs, Xs if dtype == torch.float32 else Xs.to(torch.float32), ys,
         torch.tensor(counts, dtype=torch.int32, device=device),
     )
     # evict-on-collect: if ANY part tensor dies, its id may be recycled
@@ -177,7 +204,7 @@ def batched_local_summaries(
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
-    X, y, counts = packed.X, packed.y, packed.counts
+    X, y, counts = packed.X.to(torch.float64), packed.y, packed.counts
     if backend == "mixed":
         H, g, dev = _mixed_summaries(beta, X, packed.X32, y, counts)
     elif backend == "kernel":
@@ -233,7 +260,7 @@ def batched_cv_summaries(
         raise ValueError(f"backend must be one of {BACKENDS}")
     fold_ids = fold_ids.to(torch.int32)
     fold_of = fold_of.to(torch.int32)
-    X, y, counts = packed.X, packed.y, packed.counts
+    X, y, counts = packed.X.to(torch.float64), packed.y, packed.counts
     if backend == "kernel":
         H, g, dev_tr, dev_va, acc_va, n_va = ops.fused_irls_cv(
             betas, X, y, fold_ids, fold_of, counts=counts,

@@ -2,10 +2,11 @@
 
 Institutions protect local summaries, Computation Centers aggregate
 share-wise (Algorithm 2), and only the threshold-met *aggregate* is ever
-reconstructed.  :class:`SecureCollective` owns that chain once.  This is
-the main-path part of the JAX package's ``core/collective.py``: the
-in-SPMD wires (``psum``, ``psum_2d``, ``allreduce``) and the sharded
-aggregate belong to later slices.
+reconstructed.  :class:`SecureCollective` owns that chain once, the
+counterpart of the JAX package's ``core/collective.py``, with its wires
+across ranks (``psum``, ``psum_2d``, ``allreduce``, ``reveal_wire``;
+:func:`secure_psum`, :func:`secure_psum_2d`, :class:`ShardedAggregate`)
+on ``torch.distributed`` through :mod:`repro_torch.distributed.compat`.
 
 Backends and the flat wire
 --------------------------
@@ -26,22 +27,32 @@ Shares travel as int32: every residue is <= 2**31 - 2, so a share costs
 4 bytes on the wire, as the JAX package's uint32 shares do, and
 ``round_bytes`` is the same model.
 
-The named boundaries ``_protect_flat``, ``_reveal_flat`` and
-``declassify_sum`` are the only places that encode, reveal or sum in the
-clear; each records to the privacy ledger (:mod:`repro_torch.obs.ledger`)
-before it runs.
+The wires widen the int32 shares to int64 for the collective (the sum
+of D residues overflows int32 from D = 2 on) and reduce mod p_r after
+it, as the JAX package widens its uint32 shares to uint64: 8 bytes an
+element cross the wire where a fabric with per-hop modular adds would
+move 4 (the JAX package's payload model counts 4).
+
+The named boundaries ``_protect_flat``, ``_reveal_flat``,
+``_distributed_reveal`` and ``declassify_sum`` are the only places that
+encode, reveal or sum in the clear; each records to the privacy ledger
+(:mod:`repro_torch.obs.ledger`) before it runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
 
+from ..distributed import compat as _compat
+from ..distributed.sharding import POD_AXIS, SHARE_AXIS
 from ..kernels import ops
+from ..kernels.shamir_reconstruct import lagrange_weights_host
 from ..obs import ledger as _ledger
 from ..obs.trace import traced as _traced
-from .field import FieldSpec, fsum, random_elements
+from .field import FieldSpec, crt_combine_signed, fsum, random_elements
 from .fixed_point import FixedPointCodec
 from .flatbuf import (
     LANES,
@@ -54,6 +65,7 @@ from .flatbuf import (
     tree_unflatten,
     unpack_pytree,
     unpack_pytree_batched,
+    unpack_pytree_tile,
 )
 from .shamir import ShamirScheme
 
@@ -62,7 +74,15 @@ __all__ = [
     "declassify_sum",
     "FlatProtected",
     "SecureCollective",
+    "ShardedAggregate",
+    "secure_psum",
+    "secure_psum_2d",
+    "REVEAL_MODES",
+    "OUT_MODES",
 ]
+
+REVEAL_MODES = ("replicated", "sharded")
+OUT_MODES = ("tree", "tile")
 
 # int64 accumulator: S reduced residues (< max p) sum exactly below 2**63
 ACCUMULATOR_LIMIT = 2**63
@@ -169,6 +189,88 @@ def _reveal_flat(buf: torch.Tensor, scheme: ShamirScheme, frac_bits: int,
                                   frac_bits)
 
 
+def _distributed_reveal(agg_slice: torch.Tensor, scheme: ShamirScheme,
+                        codec: FixedPointCodec, points: tuple[int, ...],
+                        share_axis: str, dtype) -> torch.Tensor:
+    """Lagrange reconstruction as a ``share_axis`` collective.
+
+    ``agg_slice`` is this center's aggregated share slice (R, rows, 128).
+    Each center multiplies it by its own public weight ``L_j(0) mod p_r``
+    (k partial products, each below p_r < 2**31), ONE int64 sum over the
+    share axis and a trailing mod give the aggregate residues on every
+    center (exact: k * max(p) < 2**63), and the CRT decode is local.
+    Plain field arithmetic, not K2: no center ever holds another's slice.
+    """
+    _ledger.record_site("_distributed_reveal", what="share_axis_reveal",
+                        shape=agg_slice.shape, threshold=scheme.threshold)
+    field = scheme.field
+    j = _compat.axis_index(share_axis)
+    lams = lagrange_weights_host(tuple(points), field.moduli)
+    w = torch.tensor([row[j] for row in lams], dtype=torch.int64,
+                     device=agg_slice.device)
+    p = field.bcast(agg_slice, 0)
+    partial = (agg_slice.to(torch.int64) * w[:, None, None]) % p
+    summed = _compat.psum(partial, share_axis, donate=True) % p
+    signed = crt_combine_signed(summed, field)
+    return (signed.to(torch.float64) / codec.scale).to(dtype)
+
+
+def _field_allreduce(shares: torch.Tensor, axis_name: str, field: FieldSpec,
+                     residue_axis: int = 1, scatter_axis: int | None = None,
+                     async_op: bool = False):
+    """Exact share-wise field sum over a mesh axis (Algorithm 2 on the
+    wire).
+
+    The shares widen to int64 so the collective (which has no per-hop
+    modular reduction) stays exact under ``check_aggregation_headroom``,
+    and one trailing mod returns the reduced wire dtype.
+    ``scatter_axis=None`` all-reduces (every rank gets the whole summed
+    buffer); an integer reduce-scatters that axis so each rank keeps only
+    its 1/D tile.  ``async_op=True`` returns a
+    :class:`~repro_torch.distributed.compat.Pending` whose ``wait()``
+    gives the reduced result.
+    """
+    wide = shares.to(torch.int64)
+    if scatter_axis is None:  # int64 shares are summed into a copy
+        pending = _compat.psum(wide, axis_name, async_op=True,
+                               donate=wide is not shares)
+    else:
+        pending = _compat.psum_scatter(wide, axis_name,
+                                       scatter_dimension=scatter_axis,
+                                       async_op=True)
+    pending = pending.then(
+        lambda s: (s % field.bcast(s, residue_axis)).to(shares.dtype))
+    return pending if async_op else pending.wait()
+
+
+@dataclasses.dataclass
+class ShardedAggregate:
+    """A revealed aggregate that STAYS sharded over the reduce axis.
+
+    ``secure_psum(reveal="sharded", out="tile")`` hands every rank its
+    decoded ``(rows / D, 128)`` plaintext tile of the flat aggregate
+    buffer instead of all-gathering and unpacking.  Code that consumes
+    the aggregate shard-wise skips the gather; :meth:`gather` does what
+    ``out="tree"`` would have done, so the two are bit-equal.
+    """
+
+    tile: torch.Tensor
+    layout: FlatLayout
+    num_tiles: int
+
+    def gather(self, axis_name: str, dtype=torch.float32):
+        """All-gather the plaintext tiles and unpack the full tree."""
+        flat = _compat.all_gather(self.tile, axis_name, axis=0)
+        return unpack_pytree(flat, self.layout, dtype=dtype)
+
+    def local_fragments(self, tile_index: int, dtype=None):
+        """Leaf fragments in THIS tile: ``{leaf: (start, stop,
+        fragment)}`` (:func:`repro_torch.core.flatbuf.unpack_pytree_tile`).
+        """
+        return unpack_pytree_tile(self.tile, self.layout, tile_index,
+                                  self.num_tiles, dtype=dtype)
+
+
 def _fold_sum_streaming(submissions, field: FieldSpec,
                         residue_axis: int) -> torch.Tensor:
     """Share-wise sum of S tensors with a running int64 accumulator and
@@ -211,6 +313,15 @@ class SecureCollective:
 
     # rng threading --------------------------------------------------------
     @staticmethod
+    def round_seed(seed: int, slot: int) -> int:
+        """The 63-bit seed ``round_key`` gives round ``slot``'s generator:
+        (seed, slot) mixed by two splitmix64 steps.  A seed of its own, so
+        it composes: a wire folds the device's axis index in first and
+        the round after (``round_seed(round_seed(seed, idx), r)``)."""
+        return _splitmix64(_splitmix64(int(seed) & _MASK64)
+                           ^ (int(slot) & _MASK64)) >> 1
+
+    @staticmethod
     def round_key(seed: int, slot: int, device) -> torch.Generator:
         """The one per-round rng rule: round ``slot``'s generator on
         ``device``, seeded from (seed, slot) alone.
@@ -222,10 +333,8 @@ class SecureCollective:
         to an uninterrupted one's.  (The JAX package folds the slot into
         a threefry key; the streams differ, the rule is the same.)
         """
-        mixed = _splitmix64(_splitmix64(int(seed) & _MASK64)
-                            ^ (int(slot) & _MASK64))
         gen = torch.Generator(device=device)
-        gen.manual_seed(mixed >> 1)  # 63 bits: a valid torch seed
+        gen.manual_seed(SecureCollective.round_seed(seed, slot))
         return gen
 
     # institution side --------------------------------------------------------
@@ -305,6 +414,15 @@ class SecureCollective:
         check_aggregation_headroom(protected.buf.shape[2], self.scheme.field)
         buf = fsum(protected.buf, self.scheme.field, axis=2, residue_axis=1)
         return FlatProtected(buf, protected.layout)
+
+    def allreduce(self, shares: torch.Tensor, axis_name: str,
+                  residue_axis: int = 1, scatter_axis: int | None = None,
+                  async_op: bool = False):
+        """Algorithm 2 over a mesh axis: exact field sum of share slices
+        (:func:`_field_allreduce`)."""
+        return _field_allreduce(shares, axis_name, self.scheme.field,
+                                residue_axis=residue_axis,
+                                scatter_axis=scatter_axis, async_op=async_op)
 
     def _validated_points(self, points) -> tuple[int, ...]:
         """Normalize + sanity-check reveal points (1-based, distinct).
@@ -431,6 +549,14 @@ class SecureCollective:
         recon = self.scheme.reconstruct_pytree(protected, list(points))
         return _tree_map(lambda v: self.codec.decode(v, dtype=dtype), recon)
 
+    def reveal_wire(self, buf: torch.Tensor,
+                    points: tuple[int, ...]) -> torch.Tensor:
+        """Reveal a raw (k, R, rows, 128) aggregated share buffer to a
+        (rows, 128) float64 tile: the ``_reveal_flat`` boundary for wire
+        code that carries the flat buffer itself (``scan_secure_rounds``),
+        so the boundary is only ever called from this module."""
+        return _reveal_flat(buf, self.scheme, self.codec.frac_bits, points)
+
     def headroom_ok(self, max_abs: float, num_institutions: int) -> bool:
         """True if S summaries of magnitude <= max_abs aggregate exactly."""
         return max_abs * num_institutions < self.codec.capacity()
@@ -477,3 +603,168 @@ class SecureCollective:
         if protect == "none":
             n_plain += extra
         return num_configs * num_parts * (share_bytes + n_plain * 8)
+
+    # wires across ranks ------------------------------------------------------
+    def psum(self, tree, axis_name: str, seed: int, dtype=torch.float32,
+             reveal: str = "replicated", points: Sequence[int] | None = None,
+             out: str = "tree"):
+        """Secret-shared all-reduce over a mesh axis (the 1D wire); see
+        :func:`secure_psum` for the reveal and out contract."""
+        if reveal not in REVEAL_MODES:
+            raise ValueError(f"reveal must be one of {REVEAL_MODES}")
+        if out not in OUT_MODES:
+            raise ValueError(f"out must be one of {OUT_MODES}")
+        if out == "tile" and reveal != "sharded":
+            raise ValueError(
+                "out='tile' only makes sense with reveal='sharded' — the "
+                "replicated reveal already holds the full aggregate "
+                "everywhere"
+            )
+        pts = self._validated_points(points)
+        num_devices = _compat.axis_size(axis_name)
+        check_aggregation_headroom(num_devices, self.scheme.field)
+        leaves = tree_flatten(tree)[0]
+        if self.overflow_check:
+            # each rank's contribution within capacity / D, so the D-way
+            # field sum cannot overflow
+            for leaf in leaves:
+                self.codec.check_headroom(leaf, num_addends=num_devices,
+                                          what="secure_psum")
+        generator = self.round_key(seed, _compat.axis_index(axis_name),
+                                   leaves[0].device)
+        if self.backend != "kernel":
+            if reveal != "replicated":
+                raise ValueError(
+                    "reveal='sharded' needs the flat-buffer wire (kernel "
+                    "backend); the per-leaf reference oracle is "
+                    "replicated-only"
+                )
+            return _secure_psum_per_leaf(tree, axis_name, generator, self,
+                                         pts, dtype)
+        # the sharded reveal scatters the rows axis: rows a multiple of
+        # lcm(8, D), so D tiles split evenly (the zero tail packs to zero
+        # shares, benign through reduce and reveal)
+        row_align = ROW_ALIGN if reveal == "replicated" else math.lcm(
+            ROW_ALIGN, num_devices)
+        buf, layout = pack_pytree(tree, row_align=row_align)
+        shares = _protect_flat(generator, _wire_payload(buf), self.scheme,
+                               self.codec.frac_bits, layout.rows,
+                               points=pts)  # (t', R, rows, 128): the subset
+        if reveal == "replicated":
+            summed = self.allreduce(shares, axis_name)
+            flat = _reveal_flat(summed, self.scheme, self.codec.frac_bits,
+                                pts)
+            return unpack_pytree(flat, layout, dtype=dtype)
+        # (t', R, rows / D, 128): this rank's tile of the summed residues
+        tile = self.allreduce(shares, axis_name, scatter_axis=2)
+        flat_tile = _reveal_flat(tile, self.scheme, self.codec.frac_bits,
+                                 pts).to(dtype)  # decode, gather plaintext
+        if out == "tile":
+            return ShardedAggregate(flat_tile, layout, num_devices)
+        flat = _compat.all_gather(flat_tile, axis_name, axis=0)
+        return unpack_pytree(flat, layout, dtype=dtype)
+
+    def psum_2d(self, tree, seed: int, dtype=torch.float32,
+                pod_axis: str = POD_AXIS, share_axis: str = SHARE_AXIS,
+                points: Sequence[int] | None = None):
+        """Secret-shared all-reduce on a 2D (pod, share) mesh.
+
+        The share-axis size must equal the reveal subset (default: the
+        threshold t).  Every (pod, share) rank draws the SAME sharing
+        polynomial for its pod — the generator folds in only the pod
+        index, and every rank of a pod must build it on the same device
+        type (Philox on the card and the CPU generator give different
+        streams) — keeps only its own slice, and the two collectives are
+
+        1. an int64 sum over ``pod_axis`` — Algorithm 2 at center j;
+        2. a weighted int64 sum over ``share_axis`` — the distributed
+           Lagrange reveal (:func:`_distributed_reveal`).
+
+        Bit-equal to the 1D :meth:`psum` wire: both reveal the exact field
+        encoding of the global sum.
+        """
+        if self.backend != "kernel":
+            raise ValueError("secure_psum_2d needs the flat-buffer wire "
+                             "(kernel backend)")
+        pts = self._validated_points(points)
+        k = _compat.axis_size(share_axis)
+        if k != len(pts):
+            raise ValueError(
+                f"share axis has {k} devices but the reveal subset is "
+                f"{len(pts)} points — one center per revealed slice"
+            )
+        num_pods = _compat.axis_size(pod_axis)
+        check_aggregation_headroom(num_pods, self.scheme.field)
+        buf, layout = pack_pytree(tree)
+        generator = self.round_key(seed, _compat.axis_index(pod_axis),
+                                   buf.device)
+        shares = _protect_flat(generator, _wire_payload(buf), self.scheme,
+                               self.codec.frac_bits, layout.rows,
+                               points=pts)  # the same on every column
+        mine = shares[_compat.axis_index(share_axis)]  # center j's slice
+        agg_slice = self.allreduce(mine, pod_axis, residue_axis=0)
+        flat = _distributed_reveal(agg_slice, self.scheme, self.codec, pts,
+                                   share_axis, torch.float64)
+        return unpack_pytree(flat, layout, dtype=dtype)
+
+
+def _secure_psum_per_leaf(tree, axis_name: str, generator: torch.Generator,
+                          agg: SecureCollective, points: tuple[int, ...],
+                          dtype):
+    """The per-leaf int64 wire: the bit-exactness oracle.
+
+    Protects leaf by leaf through the reference pipeline and all-reduces
+    every holder's full (w, R, ...) int64 share tree (w * R * 8 bytes a
+    parameter on the wire), then reveals on every rank.
+    """
+    protected = agg.protect(generator, tree)
+    aggregated = _tree_map(
+        lambda s: _field_allreduce(s, axis_name, agg.scheme.field),
+        protected)
+    sel = [p - 1 for p in points]
+    subset = _tree_map(lambda s: s[sel], aggregated)
+    return agg.reveal(subset, points=points, dtype=dtype)
+
+
+@_traced("secure_psum")
+def secure_psum(tree, axis_name: str, seed: int,
+                aggregator: SecureCollective | None = None,
+                dtype=torch.float32, reveal: str = "replicated",
+                points: Sequence[int] | None = None, out: str = "tree"):
+    """Secret-shared all-reduce over a mesh axis (SPMD Algorithm 1, 11-13).
+
+    Call on every rank under ``use_mesh(mesh)``
+    (:mod:`repro_torch.distributed.compat`).  Per rank: pack the local
+    float tree into ONE (rows, 128) buffer, encode and share it in one K1
+    launch (fresh polynomials a rank: the generator is
+    ``round_key(seed, axis_index)``), sum the int32 share buffer over
+    ``axis_name`` — Algorithm 2, executed by the virtual Computation
+    Centers — and reveal only the global sum in one K2 launch.  Only the
+    ``points`` subset of share slices (default: the first t) is evaluated
+    or sent.
+
+    ``reveal``: ``"replicated"`` — one all-reduce, every rank reveals the
+    whole aggregate; ``"sharded"`` — a reduce-scatter over the rows axis,
+    each rank reveals its 1/D tile and an all-gather assembles the
+    decoded floats, so the share buffer crosses the wire once.
+    ``out`` (sharded only): ``"tree"`` gathers and unpacks; ``"tile"``
+    returns a :class:`ShardedAggregate` whose ``gather`` is bit-equal.
+    ``aggregator=SecureCollective(backend="reference")`` selects the
+    per-leaf int64 oracle (replicated only).
+    """
+    agg = aggregator or SecureCollective(backend="kernel")
+    return agg.psum(tree, axis_name, seed, dtype=dtype, reveal=reveal,
+                    points=points, out=out)
+
+
+def secure_psum_2d(tree, seed: int,
+                   aggregator: SecureCollective | None = None,
+                   dtype=torch.float32, pod_axis: str = POD_AXIS,
+                   share_axis: str = SHARE_AXIS,
+                   points: Sequence[int] | None = None):
+    """Module-level entry of the 2D (pod, share) wire; see
+    :meth:`SecureCollective.psum_2d`.  Re-exported by
+    :mod:`repro_torch.distributed.multihost`."""
+    agg = aggregator or SecureCollective(backend="kernel")
+    return agg.psum_2d(tree, seed, dtype=dtype, pod_axis=pod_axis,
+                       share_axis=share_axis, points=points)

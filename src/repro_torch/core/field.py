@@ -30,6 +30,7 @@ __all__ = [
     "fpow_host",
     "finv_host",
     "random_elements",
+    "random_elements_fast",
     "crt_combine_signed",
     "lift_signed",
 ]
@@ -159,6 +160,32 @@ def random_elements(
     out = torch.empty((field.num_residues, *shape), dtype=dtype, device=dev)
     for r, p in enumerate(field.moduli):
         out[r].random_(0, p, generator=generator)
+    return out
+
+
+def random_elements_fast(
+    generator: torch.Generator, shape: tuple[int, ...], field: FieldSpec,
+    device=None, dtype: torch.dtype = torch.int64,
+) -> torch.Tensor:
+    """Near-uniform random field elements, shape (R, *shape), int64 or
+    ``dtype``: one 64-bit draw per element reduced mod p_r.
+
+    The modulo bias is below p / 2**64 < 2**-33, negligible for sharing
+    coefficients, and one draw an element is what the JAX package's
+    ``random_elements_fast`` takes; the values depend only on the
+    generator (torch's stream, not threefry's).  Torch has no uint64
+    arithmetic on the CPU, so each word is drawn as an int64 w over the
+    full 64-bit range and reduced as the unsigned word u = w + 2**64 [w <
+    0] would be: u mod p = (w mod p + 2**64 mod p) mod p for negative w,
+    with Python's sign convention for ``remainder`` and no overflow.
+    """
+    dev = generator.device if device is None else device
+    out = torch.empty((field.num_residues, *shape), dtype=dtype, device=dev)
+    words = torch.empty(shape, dtype=torch.int64, device=dev)
+    for r, p in enumerate(field.moduli):
+        words.random_(-2**63, None, generator=generator)
+        red = torch.remainder(words, p)
+        out[r] = torch.where(words < 0, (red + (2**64 % p)) % p, red)
     return out
 
 

@@ -11,7 +11,9 @@ wire bytes and reveals agree between the two packages:
 * The tail is zero-padded up to ``rows * 128`` with ``rows`` a multiple
   of ``row_align`` (default 8).  ``LANES`` and ``ROW_ALIGN`` were the
   TPU's tile shape; they stay because the byte count and the reveal
-  layout depend on them.
+  layout depend on them.  The sharded ``secure_psum`` wire packs with
+  ``lcm(8, D)`` so the rows axis reduce-scatters into D equal tiles;
+  ``tile_slices`` says which leaf fragments each tile holds.
 * ``FlatLayout`` remembers the tree structure, shapes and dtypes so
   ``unpack`` is exact.
 
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 
 __all__ = ["LANES", "ROW_ALIGN", "FlatLayout", "tree_flatten",
            "tree_unflatten", "pack_pytree", "pack_pytree_batched",
-           "unpack_pytree", "unpack_pytree_batched"]
+           "unpack_pytree", "unpack_pytree_batched", "tile_slices",
+           "unpack_pytree_tile"]
 
 LANES = 128
 ROW_ALIGN = 8
@@ -85,6 +88,14 @@ class FlatLayout:
     shapes: tuple[tuple[int, ...], ...]
     dtypes: tuple[torch.dtype, ...]
     rows: int
+
+    @property
+    def num_elements(self) -> int:
+        return sum(math.prod(s) for s in self.shapes)
+
+    @property
+    def padded(self) -> int:
+        return self.rows * LANES
 
 
 def _rows_for(n: int, row_align: int) -> int:
@@ -154,6 +165,69 @@ def unpack_pytree_batched(buf: torch.Tensor, layout: FlatLayout,
                       .to(dtype or ldt))
         offset += n
     return tree_unflatten(layout.treedef, leaves)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TileFragment:
+    """One leaf's intersection with one rows-tile (all indices ints)."""
+
+    leaf: int                  # index into layout.shapes
+    leaf_start: int            # [leaf_start, leaf_stop) of the raveled leaf
+    leaf_stop: int
+    tile_offset: int           # where the fragment begins inside the tile
+
+
+def tile_slices(layout: FlatLayout, num_tiles: int
+                ) -> tuple[tuple[_TileFragment, ...], ...]:
+    """Table of leaf fragments per rows-tile.
+
+    Splitting the ``(rows, 128)`` buffer into ``num_tiles`` equal row
+    blocks (the reduce-scatter layout of ``secure_psum`` with
+    ``reveal="sharded"``), entry ``t`` lists which slice of which raveled
+    leaf lives in tile ``t``.  The zero pad tail belongs to no fragment.
+    """
+    if layout.rows % num_tiles:
+        raise ValueError(
+            f"rows={layout.rows} does not split into {num_tiles} tiles; "
+            "pack with row_align=lcm(ROW_ALIGN, num_tiles)"
+        )
+    tile_elems = layout.padded // num_tiles
+    bounds, offset = [], 0
+    for shape in layout.shapes:
+        n = math.prod(shape)
+        bounds.append((offset, offset + n))
+        offset += n
+    table = []
+    for t in range(num_tiles):
+        lo, hi = t * tile_elems, (t + 1) * tile_elems
+        frags = []
+        for i, (a, b) in enumerate(bounds):
+            s, e = max(a, lo), min(b, hi)
+            if s < e:
+                frags.append(_TileFragment(i, s - a, e - a, s - lo))
+        table.append(tuple(frags))
+    return tuple(table)
+
+
+def unpack_pytree_tile(tile_buf: torch.Tensor, layout: FlatLayout,
+                       tile_index: int, num_tiles: int, dtype=None):
+    """Decode ONE rows-tile into its leaf fragments (no gather needed).
+
+    ``tile_buf`` is one device's ``(rows / num_tiles, 128)`` slice of a
+    packed buffer.  Returns ``{leaf_index: (start, stop, fragment)}``
+    where ``fragment`` is the flat slice ``raveled_leaf[start:stop]``; a
+    leaf wholly inside the tile comes back complete.
+    """
+    flat = tile_buf.reshape(-1)
+    out = {}
+    for frag in tile_slices(layout, num_tiles)[tile_index]:
+        n = frag.leaf_stop - frag.leaf_start
+        out[frag.leaf] = (
+            frag.leaf_start, frag.leaf_stop,
+            flat[frag.tile_offset:frag.tile_offset + n].to(
+                dtype or layout.dtypes[frag.leaf]),
+        )
+    return out
 
 
 def unpack_pytree(buf: torch.Tensor, layout: FlatLayout, dtype=None):

@@ -1,5 +1,6 @@
-"""Secure aggregation: the import surface over :mod:`.collective`, and
-the share algebra outside its chain.
+"""Secure aggregation: the import surface over :mod:`.collective` (the
+wire names ``secure_psum``, ``ShardedAggregate``, ``REVEAL_MODES`` and
+``OUT_MODES`` included), and the share algebra outside its chain.
 
 ``SecureAggregator`` is an alias of :class:`SecureCollective`, as in the
 JAX package, so code written against either name runs on the port.
@@ -14,10 +15,14 @@ int64 field elements.
 from __future__ import annotations
 
 from .collective import (  # noqa: F401  (re-exports)
+    OUT_MODES,
+    REVEAL_MODES,
     FlatProtected,
     SecureCollective,
+    ShardedAggregate,
     check_aggregation_headroom,
     declassify_sum,
+    secure_psum,
 )
 from .field import FieldSpec, fadd, fmul
 from .flatbuf import tree_flatten, tree_unflatten
@@ -28,8 +33,12 @@ __all__ = [
     "FlatProtected",
     "SecureAggregator",
     "SecureCollective",
+    "ShardedAggregate",
     "secure_add",
+    "secure_psum",
     "secure_scale_by_public",
+    "REVEAL_MODES",
+    "OUT_MODES",
 ]
 
 SecureAggregator = SecureCollective

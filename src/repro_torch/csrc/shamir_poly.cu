@@ -11,6 +11,12 @@
 //
 // written as int32 straight into the holder-leading (len(points), R, rows,
 // 128) layout the protocol ships, so no transpose follows the launch.
+// Any threshold and any number of points.  Up to 16 points travel in the
+// parameter struct (the protocol's sizes: the struct path, as fast as a
+// launch gets); more arrive as a device table the wrapper uploads once per
+// point set (the table path), which each block stages into dynamic shared
+// memory when it fits the default 48 KB (12,288 points) and otherwise
+// reads where it lies.  The two paths are two instantiations.
 //
 // What bounds it on the H100: bytes.  Each element reads 8 B of payload
 // and R*(t-1)*4 B of coefficients and writes len(points)*R*4 B of shares.
@@ -18,7 +24,9 @@
 // reduction (csrc/field_arith.cuh): Hopper has no integer divider, and the
 // 64-bit `%` this kernel used to run was an emulated sequence that left it
 // at ~10x its bound.  The operands are |s| <= max_signed < 2^62 for the
-// encode and acc * j + c < 2^36 for a Horner step.  The TPU kernel's
+// encode and acc * j + c < 2^31 * 2^31 + 2^31 < 2^63 for a Horner step
+// (acc and c reduced, each point j <= w < min(p) < 2^31), so every operand
+// fits 64 bits whatever t and w are.  The TPU kernel's
 // 16-bit-limb mulmod and float hi/lo split existed only because the TPU
 // vector unit has no 64-bit integer multiply; Hopper has one.
 //
@@ -43,17 +51,20 @@
 #include "field_arith.cuh"
 
 #define K1_MAX_R 2
-#define K1_MAX_TM1 15
-#define K1_MAX_POINTS 16
 #define K1_THREADS 128
+// points in the parameter struct (the struct path)
+#define K1_STRUCT_POINTS 16
+// points staged in shared memory: the default dynamic limit, 48 KB
+#define K1_STAGE_POINTS 12288
 
 struct K1Params {
   Barrett mod[K1_MAX_R];
-  unsigned points[K1_MAX_POINTS];
+  unsigned points[K1_STRUCT_POINTS];  // the struct path's points
   int npoints;
   int R;
-  int tm1;  // t - 1 coefficients per residue
-  int vec;  // every pointer 16-byte aligned
+  int tm1;    // t - 1 coefficients per residue
+  int vec;    // every pointer 16-byte aligned
+  int stage;  // the points fit shared memory
   double lim;
   double scale;
 };
@@ -78,19 +89,34 @@ __device__ __forceinline__ unsigned long long coeff64(int c) {
   return (unsigned long long)(long long)c;
 }
 
-template <typename T>
+template <typename T, bool kTable>
 __global__ void __launch_bounds__(K1_THREADS, 8)
 encode_share_kernel(const T* __restrict__ x, const int* __restrict__ coeffs,
+                    const unsigned* __restrict__ point_table,
                     int* __restrict__ out, long long n, K1Params P) {
-  // the points in shared memory: indexing the parameter struct's array by
-  // a run-time index would make the compiler copy the struct to local
-  // memory, a 128-byte stack frame a thread
-  __shared__ unsigned points[K1_MAX_POINTS];
-  if (threadIdx.x == 0) {
+  // the points in shared memory (the table's when they fit, else read
+  // from the table): never a parameter-struct array indexed at run time,
+  // which the compiler would copy to a stack frame in every thread
+  __shared__ unsigned struct_points[kTable ? 1 : K1_STRUCT_POINTS];
+  extern __shared__ unsigned staged_points[];
+  const unsigned* points;
+  if constexpr (kTable) {
+    points = point_table;
+    if (P.stage) {
+      for (int o = threadIdx.x; o < P.npoints; o += K1_THREADS)
+        staged_points[o] = point_table[o];
+      __syncthreads();
+      points = staged_points;
+    }
+  } else {
+    if (threadIdx.x == 0) {
 #pragma unroll
-    for (int o = 0; o < K1_MAX_POINTS; ++o) points[o] = P.points[o];
+      for (int o = 0; o < K1_STRUCT_POINTS; ++o)
+        struct_points[o] = P.points[o];
+    }
+    __syncthreads();
+    points = struct_points;
   }
-  __syncthreads();
   const bool vec = P.vec != 0;
   const int tm1 = P.tm1;
   const long long groups = n >> 2;
@@ -141,25 +167,38 @@ encode_share_kernel(const T* __restrict__ x, const int* __restrict__ coeffs,
   }
 }
 
-template <typename T>
-static int launch(const T* x, const int* coeffs, int* out, long long n,
-                  const K1Params& P, cudaStream_t st) {
+template <typename T, bool kTable>
+static int launch(const T* x, const int* coeffs, const unsigned* table,
+                  int* out, long long n, const K1Params& P, cudaStream_t st) {
   static FieldGrid grid;
-  const unsigned blocks = grid.blocks((const void*)encode_share_kernel<T>,
-                                      K1_THREADS, n >> 2);
-  encode_share_kernel<T><<<blocks, K1_THREADS, 0, st>>>(x, coeffs, out, n, P);
+  const unsigned blocks = grid.blocks(
+      (const void*)encode_share_kernel<T, kTable>, K1_THREADS, n >> 2);
+  const size_t smem = P.stage ? (size_t)P.npoints * sizeof(unsigned) : 0;
+  encode_share_kernel<T, kTable><<<blocks, K1_THREADS, smem, st>>>(
+      x, coeffs, table, out, n, P);
   return (int)cudaGetLastError();
 }
 
-// barrett: (mu, p) per residue, from kernels/field_consts.py
+template <typename T>
+static int launch(const T* x, const int* coeffs, const unsigned* table,
+                  int* out, long long n, const K1Params& P, cudaStream_t st) {
+  return table ? launch<T, true>(x, coeffs, table, out, n, P, st)
+               : launch<T, false>(x, coeffs, table, out, n, P, st);
+}
+
+// barrett: (mu, p) per residue, from kernels/field_consts.py (host);
+// points: npoints public evaluation points, each in [1, min(p)): a host
+// array of up to 16 (the struct path, with table null), or beside it the
+// same points as a device table (the table path, any count)
 extern "C" int repro_k1_encode_share(const void* x, int x_is_f64,
                                      const int* coeffs, int* out, long long n,
                                      int R, int tm1,
                                      const unsigned long long* barrett,
-                                     const int* points, int npoints,
+                                     const int* points,
+                                     const unsigned* table, int npoints,
                                      double lim, double scale, void* stream) {
-  if (R < 1 || R > K1_MAX_R || tm1 < 0 || tm1 > K1_MAX_TM1 || npoints < 1 ||
-      npoints > K1_MAX_POINTS || n < 0 || n % 4 != 0)
+  if (R < 1 || R > K1_MAX_R || tm1 < 0 || npoints < 1 || n < 0 ||
+      n % 4 != 0 || (table == nullptr && npoints > K1_STRUCT_POINTS))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   K1Params P;
@@ -167,15 +206,16 @@ extern "C" int repro_k1_encode_share(const void* x, int x_is_f64,
     P.mod[r].mu = barrett[2 * r];
     P.mod[r].p = (unsigned)barrett[2 * r + 1];
   }
-  for (int o = 0; o < K1_MAX_POINTS; ++o)
-    P.points[o] = o < npoints ? (unsigned)points[o] : 0u;
+  for (int o = 0; o < K1_STRUCT_POINTS; ++o)
+    P.points[o] = !table && o < npoints ? (unsigned)points[o] : 0u;
   P.npoints = npoints;
   P.R = R;
   P.tm1 = tm1;
   P.vec = aligned16(x) && (tm1 == 0 || aligned16(coeffs)) && aligned16(out);
+  P.stage = table && npoints <= K1_STAGE_POINTS;
   P.lim = lim;
   P.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  return x_is_f64 ? launch((const double*)x, coeffs, out, n, P, st)
-                  : launch((const float*)x, coeffs, out, n, P, st);
+  return x_is_f64 ? launch((const double*)x, coeffs, table, out, n, P, st)
+                  : launch((const float*)x, coeffs, table, out, n, P, st);
 }

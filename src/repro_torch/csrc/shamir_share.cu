@@ -18,8 +18,9 @@
 // its refinement and a call to the remainder routine).  Every reduction
 // here is Barrett's (csrc/field_arith.cuh), from (mu, p) the host
 // computed, and the kernel has no `%` or `/`, its index arithmetic
-// included.  The Horner operand acc * j +
-// c stays below 2^36 (acc < p < 2^31, j <= 16, c < 2^31).  The TPU
+// included.  The Horner operand acc * j + c stays below 2^62 + 2^31 (acc
+// < p < 2^31, j <= w < min(p) < 2^31, c < 2^31), and Barrett is exact for
+// any 64-bit operand, so any threshold and any share count work.  The TPU
 // kernel's 16-bit-limb mulmod31 existed only because the TPU vector unit
 // has no 64-bit integer multiply; Hopper has one.
 //
@@ -43,14 +44,13 @@
 // 16-byte access where it is 16-byte aligned, else two 8-byte ones.
 //
 // Inputs must be reduced (0 <= value < p_r), as the JAX ops.shamir_shares
-// requires; the wrapper checks shapes, types and the static limits below.
+// requires; the wrapper checks shapes, types and the residue limit below
+// (a field has at most K4_MAX_R residues).
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
 
 #define K4_MAX_R 8
-#define K4_MAX_TM1 15
-#define K4_MAX_POINTS 16
 #define K4_THREADS 128
 
 struct K4Params {
@@ -108,8 +108,7 @@ extern "C" int repro_k4_share(const long long* secret, const long long* coeffs,
                               long long* out, long long n, int R, int tm1,
                               const unsigned long long* barrett, int w,
                               void* stream) {
-  if (R < 1 || R > K4_MAX_R || tm1 < 0 || tm1 > K4_MAX_TM1 || w < 1 ||
-      w > K4_MAX_POINTS || n < 0)
+  if (R < 1 || R > K4_MAX_R || tm1 < 0 || w < 1 || n < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   K4Params P;

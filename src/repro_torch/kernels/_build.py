@@ -40,16 +40,18 @@ _pi = ctypes.POINTER(ctypes.c_int)
 # unless noted
 _SIGNATURES = {
     # x, x_is_f64, coeffs, out, n, R, t-1, barrett* ((mu, p) a residue),
-    # points*, npoints, lim, scale, stream
-    "repro_k1_encode_share": (_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _vp, _i,
-                              _d, _d, _vp),
+    # points* (host), points table* (device, or null), npoints, lim, scale,
+    # stream
+    "repro_k1_encode_share": (_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _vp, _vp,
+                              _i, _d, _d, _vp),
     # secret, coeffs, out, n, R, t-1, barrett* ((mu, p) a residue), w,
     # stream
     "repro_k4_share": (_vp, _vp, _vp, _ll, _i, _i, _vp, _i, _vp),
-    # shares, out, n, k, R, lams*, barrett* ((mu, p) a residue), p1^-1 mod
-    # p2, decode, 2^-frac_bits, stream
-    "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _ull, _i, _d,
-                             _vp),
+    # shares, out, n, k, R, lams* (host), lams table* (device, or null),
+    # barrett* ((mu, p) a residue), p1^-1 mod p2, decode, 2^-frac_bits,
+    # stream
+    "repro_k2_reconstruct": (_vp, _vp, _ll, _i, _i, _vp, _vp, _vp, _ull, _i,
+                             _d, _vp),
     # beta, X, Xm, y, counts, H, g, dev, w, Hp, gp, sp, S, n_max, d, NSL
     # rows, TN rows, NSL Gram, stream
     "repro_k3_fused_irls": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

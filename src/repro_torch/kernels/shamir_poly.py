@@ -26,8 +26,9 @@ from . import _build, field_consts, ref
 __all__ = ["encode_share_kernel", "encode_share_plain", "share_kernel",
            "share_plain"]
 
-# K4's static limits (csrc/shamir_share.cu)
-K4_MAX_R, K4_MAX_TM1, K4_MAX_POINTS = 8, 15, 16
+# K1's struct path takes up to 16 points (csrc/shamir_poly.cu); K4's
+# residue limit (csrc/shamir_share.cu): a field has at most 8
+K1_STRUCT_POINTS, K4_MAX_R = 16, 8
 
 
 def _max_signed(moduli) -> int:
@@ -103,10 +104,17 @@ def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
     R, t_minus_1 = coeffs.shape[0], coeffs.shape[1]
     out = torch.empty((len(points), R, rows, 128), dtype=torch.int32,
                       device=x.device)
+    if max(points) >= field_consts.MAX_MODULUS:
+        raise ValueError(f"K1 takes points below 2**31, got {max(points)}")
+    # up to K1_STRUCT_POINTS points ride in the launch's parameters; more
+    # go as a device table, int32 (each < 2**31) read as uint32
     pts = (ctypes.c_int * len(points))(*points)
+    table = field_consts.device_table(tuple(points), torch.int32, x.device) \
+        if len(points) > K1_STRUCT_POINTS else None
     err = _build.library().repro_k1_encode_share(
         x.data_ptr(), int(x.dtype == torch.float64), coeffs.data_ptr(),
-        out.data_ptr(), rows * 128, R, t_minus_1, barrett, pts, len(points),
+        out.data_ptr(), rows * 128, R, t_minus_1, barrett, pts,
+        table.data_ptr() if table is not None else None, len(points),
         float(_max_signed(moduli)), float(1 << frac_bits),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -134,12 +142,9 @@ def _check_share_args(secret, coeffs, moduli, num_shares):
         raise ValueError("secret and coeffs must be on one device")
     if any(not (num_shares < p < 2**31) for p in moduli):
         raise ValueError(f"moduli must lie in (w, 2**31), got {moduli}")
-    if not (1 <= num_shares <= K4_MAX_POINTS) or \
-            coeffs.shape[1] > K4_MAX_TM1 or len(moduli) > K4_MAX_R:
-        raise ValueError(
-            f"K4 takes w <= {K4_MAX_POINTS}, t-1 <= {K4_MAX_TM1} and R <= "
-            f"{K4_MAX_R}; got w={num_shares}, t-1={coeffs.shape[1]}, "
-            f"R={len(moduli)}")
+    if num_shares < 1 or len(moduli) > K4_MAX_R:
+        raise ValueError(f"K4 takes w >= 1 and R <= {K4_MAX_R}; got "
+                         f"w={num_shares}, R={len(moduli)}")
 
 
 def share_plain(secret: torch.Tensor, coeffs: torch.Tensor,

@@ -13,6 +13,7 @@ With ``frac_bits=None`` both return the reconstructed residues
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +22,13 @@ from . import _build, field_consts
 __all__ = ["lagrange_weights_host", "reconstruct_kernel",
            "reconstruct_plain"]
 
+# K2's struct path takes up to 16 shares (csrc/shamir_reconstruct.cu)
+K2_STRUCT_K = 16
 
+
+@functools.lru_cache(maxsize=256)
 def lagrange_weights_host(
-    points, moduli
+    points: tuple[int, ...], moduli: tuple[int, ...]
 ) -> tuple[tuple[int, ...], ...]:
     """L_i(0) per residue as nested Python-int tuples.
 
@@ -116,14 +121,20 @@ def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
     else:
         out = torch.empty((rows, 128), dtype=torch.float64,
                           device=shares.device)
-    lams = lagrange_weights_host(tuple(points), tuple(moduli))
-    flat_lams = (ctypes.c_ulonglong * (R * k))(*[w for row in lams
-                                                 for w in row])
+    flat = tuple(w for row in lagrange_weights_host(tuple(points),
+                                                    tuple(moduli))
+                 for w in row)
+    # up to K2_STRUCT_K shares' weights ride in the launch's parameters;
+    # more go as a device table, int64 (each < 2**31) read as uint64
+    lams = (ctypes.c_ulonglong * len(flat))(*flat)
+    table = field_consts.device_table(flat, torch.int64, shares.device) \
+        if k > K2_STRUCT_K else None
     decode = frac_bits is not None
     inv_p1 = field_consts.garner_inverse(moduli[0], moduli[1]) \
         if decode and R == 2 else 0
     err = _build.library().repro_k2_reconstruct(
-        shares.data_ptr(), out.data_ptr(), rows * 128, k, R, flat_lams,
+        shares.data_ptr(), out.data_ptr(), rows * 128, k, R, lams,
+        table.data_ptr() if table is not None else None,
         barrett, inv_p1, int(decode),
         2.0 ** -(frac_bits or 0),
         torch.cuda.current_stream(shares.device).cuda_stream,

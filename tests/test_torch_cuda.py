@@ -8,8 +8,10 @@ no JAX it runs on its own:
 
 Tolerances: K1 and K2 are exact field arithmetic (bit-identical), held at
 the fit's and the λ path's row counts, on views that start off 16-byte
-alignment (the kernels' plain-load path), with t and k up to 16 and every
-share at p - 1 (the largest unreduced Lagrange sum K2 forms); K3's
+alignment (the kernels' plain-load path), with t up to 33, up to 40
+points and k up to 40 (past the 16 they once capped at, and past what a
+block stages in shared memory: 12,300 points, 3,073 shares) and every
+share at p - 1 (the largest unreduced Lagrange sums K2 forms); K3's
 float32 Gram differs from the plain version's in summation order
 (|dH| <= 2e-5 max|H|), its float64 g and dev to 1e-12 of the sums of
 absolute terms.  K3 and K6 run K5's kernels (three TF32 products on the
@@ -114,7 +116,10 @@ def _coeffs(field, t, rows, g, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("t,points", [(2, (1, 2, 3)), (2, (3,)),
                                       (3, (1, 2, 3, 4, 5)), (1, (1, 2)),
-                                      (16, tuple(range(1, 17)))])
+                                      (16, tuple(range(1, 17))),
+                                      (2, tuple(range(1, 18))),
+                                      (17, tuple(range(1, 21))),
+                                      (33, tuple(range(1, 41)))])
 @pytest.mark.parametrize("rows,offset", [(40, 0), (1088, 0), (5440, 0),
                                          (40, 1), (40, 3)])
 def test_k1_kernel_matches_plain(cuda, field, dtype, t, points, rows,
@@ -128,6 +133,19 @@ def test_k1_kernel_matches_plain(cuda, field, dtype, t, points, rows,
     assert encode_share_kernel.launches == before + 1
     want = encode_share_plain(x, coeffs, field.moduli, 28, points)
     assert torch.equal(got, want)
+
+
+def test_k1_reads_points_past_shared_memory_from_the_table(cuda):
+    """12,300 points (more than the 12,288 a block stages in shared
+    memory): the kernel reads them from the device table, bit-identical to
+    the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _payload(8, torch.float64, FIELD_WIDE, cuda)
+    coeffs = _coeffs(FIELD_WIDE, 2, 8, g, cuda)
+    points = tuple(range(1, 12301))
+    got = encode_share_kernel(x, coeffs, FIELD_WIDE.moduli, 28, points)
+    assert torch.equal(got, encode_share_plain(x, coeffs, FIELD_WIDE.moduli,
+                                               28, points))
 
 
 def _k2_shares(field, k, rows, g, device, fill=None):
@@ -146,7 +164,8 @@ def _k2_shares(field, k, rows, g, device, fill=None):
 @pytest.mark.parametrize("points,fill", [
     ((1, 2), None), ((1, 3), None), ((2, 3), None), ((1, 2, 3), None),
     ((2, 4, 5), None), (tuple(range(1, 17)), None),
-    (tuple(range(1, 17)), "p-1")])
+    (tuple(range(1, 17)), "p-1"), (tuple(range(1, 18)), None),
+    (tuple(range(1, 41)), None), (tuple(range(1, 41)), "p-1")])
 @pytest.mark.parametrize("decode", [True, False])
 @pytest.mark.parametrize("rows,offset", [(24, 0), (1088, 0), (5440, 0),
                                          (24, 1), (24, 3)])
@@ -160,6 +179,20 @@ def test_k2_kernel_matches_plain(cuda, field, points, fill, decode, rows,
     torch.cuda.synchronize()
     want = reconstruct_plain(shares, points, field.moduli, frac_bits)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("decode", [True, False])
+def test_k2_reads_weights_past_shared_memory_from_the_table(cuda, decode):
+    """k = 3,073 over the CRT pair: 6,146 Lagrange weights, more than the
+    6,144 a block stages in shared memory, so the kernel reads them from
+    the device table, bit-identical to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    points = tuple(range(1, 3074))
+    shares = _k2_shares(FIELD_WIDE, len(points), 8, g, cuda)
+    frac_bits = 28 if decode else None
+    got = reconstruct_kernel(shares, points, FIELD_WIDE.moduli, frac_bits)
+    assert torch.equal(got, reconstruct_plain(shares, points,
+                                              FIELD_WIDE.moduli, frac_bits))
 
 
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
@@ -352,7 +385,8 @@ def test_k5_two_calls_are_bit_identical(cuda, d):
 # their storage
 @pytest.mark.parametrize("field", [FIELD31, FIELD_WIDE],
                          ids=lambda f: f.name)
-@pytest.mark.parametrize("t,w", [(1, 2), (2, 3), (3, 5), (5, 9), (16, 16)])
+@pytest.mark.parametrize("t,w", [(1, 2), (2, 3), (3, 5), (5, 9), (16, 16),
+                                 (2, 17), (17, 20), (33, 40)])
 @pytest.mark.parametrize("n", [1, 100, 4096, 100_003, 1_000_003])
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_k4_kernel_matches_plain(cuda, field, t, w, n, offset):
@@ -760,3 +794,59 @@ def test_k8_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     with pytest.raises(AssertionError, match="plain version"):
         ops.flash_attention_bwd(x.detach().cpu(), kv.detach().cpu(),
                                 kv.detach().cpu(), torch.ones_like(x).cpu())
+
+
+# -- the multi-device wires on one card: a single-rank NCCL group ------------
+
+@pytest.fixture
+def nccl_pod(cuda, tmp_path):
+    """A one-rank NCCL world on the card and its 1D pod mesh (NCCL refuses
+    two ranks on one card; several ranks share it over gloo instead)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.distributed import compat, multihost
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        with compat.use_mesh(multihost.pod_mesh(1)) as mesh:
+            yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _wire_tree(device):
+    g = torch.Generator(device=device).manual_seed(5)
+    return {"g": 0.5 * torch.randn(300, generator=g, device=device),
+            "h": torch.full((4, 4), 3.25, device=device)}
+
+
+@pytest.mark.parametrize("backend,reveal,out", [
+    ("reference", "replicated", "tree"), ("kernel", "replicated", "tree"),
+    ("kernel", "sharded", "tree"), ("kernel", "sharded", "tile")])
+def test_secure_psum_on_a_single_rank_nccl_group(nccl_pod, backend, reveal,
+                                                 out):
+    """Each mode reveals the decoded exact sum of the one rank's tree, bit
+    for bit, with one K1 and one K2 launch a flat-wire call (none for the
+    per-leaf oracle) and nothing staged through the host."""
+    from repro_torch.core.collective import secure_psum
+    from repro_torch.distributed import compat
+
+    tree = _wire_tree(torch.device("cuda"))
+    agg = SecureCollective(backend=backend)
+    before = (encode_share_kernel.launches, reconstruct_kernel.launches)
+    compat.reset_wire_stats()
+    got = secure_psum(tree, "pod", 5, aggregator=agg, reveal=reveal,
+                      out=out)
+    if out == "tile":
+        got = got.gather("pod")
+    torch.cuda.synchronize()
+    flat = int(backend == "kernel")
+    assert (encode_share_kernel.launches - before[0],
+            reconstruct_kernel.launches - before[1]) == (flat, flat)
+    assert compat.wire_stats().get("host_staged", 0) == 0
+    for k, v in tree.items():
+        want = (torch.round(v * 2.0**28).double() / 2.0**28).float()
+        assert got[k].is_cuda and torch.equal(got[k], want)

@@ -146,11 +146,13 @@ def _operands(kind: str, p: int, rng, size: int = 4000) -> np.ndarray:
         v = _uniform_below(rng, FIELD_WIDE.max_signed + 1, size)
         return np.concatenate([v, np.array([FIELD_WIDE.max_signed,
                                             FIELD31.max_signed], dtype=U64)])
-    if kind == "horner":  # acc * j + c: acc < p, j <= 16, c < 2**31
+    if kind == "horner":  # acc * j + c: acc < p, j <= w < 2**31, c < 2**31
         acc = _uniform_below(rng, p, size)
-        j = rng.integers(1, 17, size=size).astype(U64)
+        j = np.concatenate([rng.integers(1, 17, size=size // 2),
+                            rng.integers(17, 2**31, size=size - size // 2)]
+                           ).astype(U64)
         c = _uniform_below(rng, 2**31, size)
-        top = U64(p - 1) * U64(16) + U64(2**31 - 1)
+        top = U64(p - 1) * U64(2**31 - 1) + U64(2**31 - 1)
         return np.concatenate([acc * j + c, [top]])
     if kind == "lagrange":  # a reduced sum and four terms lam * share
         acc = _uniform_below(rng, p, size)
@@ -174,7 +176,7 @@ def test_reduction_equals_mod(p, kind):
     rng = np.random.default_rng(p % 1000 + len(kind))
     x = _operands(kind, p, rng)
     if kind == "horner":
-        assert int(x.max()) < 2**36
+        assert int(x.max()) < 2**62 + 2**31
     if kind == "garner":
         assert int(x.max()) < 2**62
     _check_reduce(x, p)
@@ -287,7 +289,10 @@ def _payload(rows: int, dtype, field, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("t,points", [(2, (1, 2, 3)), (1, (1, 2)),
                                       (3, (1, 2, 3, 4, 5)),
-                                      (16, tuple(range(1, 17)))])
+                                      (16, tuple(range(1, 17))),
+                                      (2, tuple(range(1, 18))),
+                                      (17, tuple(range(1, 21))),
+                                      (33, tuple(range(1, 41)))])
 def test_k1_replay_matches_plain(field, dtype, t, points):
     rows = 6
     x = _payload(rows, dtype, field, seed=t)
@@ -305,6 +310,9 @@ def test_k1_replay_matches_plain(field, dtype, t, points):
     ((1, 2), None), ((2, 3), None), ((2, 4, 5), None),
     (tuple(range(1, 17)), None),
     (tuple(range(1, 17)), "p-1"),  # the largest unreduced Lagrange sum
+    (tuple(range(1, 18)), None),
+    (tuple(range(1, 41)), None),
+    (tuple(range(1, 41)), "p-1"),
 ])
 @pytest.mark.parametrize("frac_bits", [28, None])
 def test_k2_replay_matches_plain(field, points, fill, frac_bits):
@@ -332,7 +340,8 @@ def k4_replay(secret: np.ndarray, coeffs: np.ndarray, moduli,
     t-1, n) ``coeffs`` (reduced int64): (w, R, n) int64 shares.  The secret
     is kept as its low 32 bits, the first Horner step is the top
     coefficient reduced once a residue, and every later operand acc * j +
-    c is checked to stay below 2**36."""
+    c is checked to stay below 2**62 + 2**31 (j <= w < 2**31), the bound
+    ``csrc/shamir_share.cu`` states."""
     tm1 = coeffs.shape[1]
     out = np.zeros((w,) + secret.shape, dtype=np.int64)
     for r, p in enumerate(moduli):
@@ -343,10 +352,10 @@ def k4_replay(secret: np.ndarray, coeffs: np.ndarray, moduli,
             acc = top
             for k in range(tm1 - 2, -1, -1):
                 x = acc * U64(j) + c[k]
-                assert int(x.max(initial=0)) < 2**36
+                assert int(x.max(initial=0)) < 2**62 + 2**31
                 acc = barrett_reduce(x, p)
             x = acc * U64(j) + s
-            assert int(x.max(initial=0)) < 2**36
+            assert int(x.max(initial=0)) < 2**62 + 2**31
             out[j - 1, r] = barrett_reduce(x, p).astype(np.int64)
     return out
 
@@ -378,6 +387,19 @@ def test_k4_replay_matches_plain(moduli, tm1):
     got = k4_replay(secret, coeffs, mods, 16)
     want = share_plain(torch.as_tensor(secret), torch.as_tensor(coeffs),
                        mods, 16)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("moduli", sorted(K4_MODULI))
+@pytest.mark.parametrize("t,w", [(2, 17), (17, 20), (33, 40)])
+def test_k4_replay_past_sixteen_shares(moduli, t, w):
+    """K4's arithmetic past the 16 shares and threshold 16 it once capped:
+    bit for bit with ``share_plain``."""
+    mods = K4_MODULI[moduli]
+    secret, coeffs = _k4_inputs(mods, t - 1, 37, seed=t * w)
+    got = k4_replay(secret, coeffs, mods, w)
+    want = share_plain(torch.as_tensor(secret), torch.as_tensor(coeffs),
+                       mods, w)
     np.testing.assert_array_equal(got, want.numpy())
 
 

@@ -20,7 +20,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "repro_torch.core.multistudy, repro_torch.selection, "
         "repro_torch.models, repro_torch.configs, repro_torch.launch.serve, "
         "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
-        "repro_torch.data.datasets, repro_torch.kernels.flash_attention_bwd\n"
+        "repro_torch.data.datasets, repro_torch.kernels.flash_attention_bwd, "
+        "repro_torch.distributed, repro_torch.distributed.compat, "
+        "repro_torch.distributed.multihost, "
+        "repro_torch.distributed.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -178,3 +181,25 @@ def test_train_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert train.main(argv + ["--device", "cpu"])["steps"] == 1
+
+
+def test_the_walk_reaches_the_distributed_modules():
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"distributed/__init__.py", "distributed/compat.py",
+            "distributed/multihost.py",
+            "distributed/sharding.py"} <= walked
+
+
+def test_wire_entry_points_raise_without_a_card(monkeypatch):
+    """``run_scanned_rounds`` (the host-level entry of the wires) defaults
+    to the card: without one it raises; ``device="cpu"`` spawns its ranks
+    on the CPU."""
+    from repro_torch.distributed import run_scanned_rounds
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": torch.linspace(-1.0, 1.0, 40)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scanned_rounds(2, tree, 0, 1)
+    final, trace = run_scanned_rounds(2, tree, 0, 2, device="cpu")
+    assert tuple(trace.shape) == (2,)
+    assert torch.allclose(final["w"], tree["w"], atol=1e-6)

@@ -226,3 +226,78 @@ def test_wrappers_reject_bad_inputs():
             ((1, 3, 4), torch.float32), ((1, 3), torch.float64),
             ((1,), torch.int32))]
         fused_irls_kernel(*meta)
+
+
+# -- past 16 shares: (t, w) = (2, 17) and (17, 20) ---------------------------
+# The card's K1, K2 and K4 once capped t and w at 16; the plain versions
+# never did.  (2, 17) runs the JAX package's interpret-mode kernels; at
+# (17, 20) K1's interpret compile takes over a minute, so the JAX side
+# there is its reference path (the codec's encode and ``ref.shamir_shares``
+# for the shares, ``ShamirScheme.reconstruct`` and the decode for the
+# reveal), as the JAX package's own oracles.
+
+@pytest.mark.parametrize("t,w", [(2, 17), (17, 20)])
+def test_k1_plain_matches_jax_past_sixteen_shares(t, w):
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(t * w)
+    rows = 8
+    x = _payload(rng, rows, np.float64, FIELD_WIDE)
+    coeffs = np.stack([rng.integers(0, p, size=(t - 1, rows, 128))
+                       for p in FIELD_WIDE.moduli])
+    got = ops.shamir_protect_flat(
+        torch.as_tensor(x), torch.as_tensor(coeffs.astype(np.int32)), w,
+        FIELD_WIDE.moduli, 28).numpy().astype(np.int64)
+    if t == 2:
+        want = np.asarray(jops.shamir_protect_flat(
+            jnp.asarray(x), jnp.asarray(coeffs.astype(np.uint32)), w,
+            FIELD_WIDE.moduli, 28)).astype(np.int64)
+    else:
+        enc = JCodec(field=FIELD_WIDE).encode(jnp.asarray(x))
+        want = np.stack([np.asarray(jref.shamir_shares(
+            enc[r].reshape(-1), jnp.asarray(coeffs[r].astype(np.uint64))
+            .reshape(t - 1, -1), w, p)).reshape(w, rows, 128)
+            for r, p in enumerate(FIELD_WIDE.moduli)], axis=1)
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("t,w,points", [(2, 17, (3, 17)),
+                                        (2, 17, tuple(range(1, 18))),
+                                        (17, 20, tuple(range(4, 21)))])
+def test_k2_plain_matches_jax_past_sixteen_shares(t, w, points):
+    """Reveals of JAX-made shares from a 2-subset, all 17 and a 17-subset
+    of 20; the all-17 case also against the interpret-mode kernel."""
+    shares, x = _jax_shares(FIELD_WIDE, t, w, 8, seed=t + w)
+    sel = np.asarray([p - 1 for p in points])
+    got = ops.shamir_reveal_flat(
+        torch.as_tensor(shares[sel].astype(np.int32)), points,
+        FIELD_WIDE.moduli, 28).numpy()
+    jscheme = JScheme(threshold=t, num_shares=w, field=FIELD_WIDE)
+    want = np.asarray(JCodec(field=FIELD_WIDE).decode(jscheme.reconstruct(
+        jnp.asarray(shares[sel].astype(np.uint64)), list(points))))
+    np.testing.assert_array_equal(got, want)
+    if len(points) == 17 and t == 2:
+        np.testing.assert_array_equal(got, np.asarray(jops.shamir_reveal_flat(
+            jnp.asarray(shares[sel]), points, FIELD_WIDE.moduli, 28)))
+    np.testing.assert_allclose(got, x, atol=2.0**-28)
+
+
+@pytest.mark.parametrize("t,w", [(2, 17), (17, 20)])
+def test_k4_plain_matches_jax_reference_past_sixteen_shares(t, w):
+    from repro.kernels import ref as jref
+    from repro_torch.kernels.shamir_poly import share_plain
+
+    rng = np.random.default_rng(w)
+    n = 300
+    secret = np.stack([rng.integers(0, p, size=n)
+                       for p in FIELD_WIDE.moduli])
+    coeffs = np.stack([rng.integers(0, p, size=(t - 1, n))
+                       for p in FIELD_WIDE.moduli])
+    got = share_plain(torch.as_tensor(secret), torch.as_tensor(coeffs),
+                      FIELD_WIDE.moduli, w).numpy()
+    for r, p in enumerate(FIELD_WIDE.moduli):
+        want = jref.shamir_shares(jnp.asarray(secret[r].astype(np.uint64)),
+                                  jnp.asarray(coeffs[r].astype(np.uint64)),
+                                  w, p)
+        np.testing.assert_array_equal(got[:, r],
+                                      np.asarray(want).astype(np.int64))

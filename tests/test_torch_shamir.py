@@ -115,11 +115,16 @@ def test_k4_takes_every_residue_in_one_call():
 
 
 def test_k4_refuses_what_the_kernel_cannot_take():
+    """K4 takes any w and t (the 16-share cap is gone) but at most 8
+    residues, int64 field elements of matching shapes and 31-bit moduli."""
     s = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(ValueError, match="w <= 16"):
-        share_plain(s, torch.zeros((1, 1, 8), dtype=torch.int64), (P31,), 17)
-    with pytest.raises(ValueError, match="t-1 <= 15"):
-        share_plain(s, torch.zeros((1, 16, 8), dtype=torch.int64), (P31,), 3)
+    assert tuple(share_plain(s, torch.zeros((1, 1, 8), dtype=torch.int64),
+                             (P31,), 17).shape) == (17, 1, 8)
+    assert tuple(share_plain(s, torch.zeros((1, 16, 8), dtype=torch.int64),
+                             (P31,), 3).shape) == (3, 1, 8)
+    with pytest.raises(ValueError, match="R <= 8"):
+        share_plain(torch.zeros((9, 8), dtype=torch.int64),
+                    torch.zeros((9, 1, 8), dtype=torch.int64), (P31,) * 9, 3)
     with pytest.raises(TypeError, match="int64"):
         share_plain(s.int(), torch.zeros((1, 1, 8), dtype=torch.int32),
                     (P31,), 3)

@@ -144,6 +144,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``benchmarks/secure_psum.py``), the bytes staged through the host and
    each group's backend, with the card's name and power limit.  Every
    process group has a 120 s timeout and the spawn a deadline;
+15. the privacy gate and the runtime audit (``repro_torch.analysis``,
+   ``repro_torch.obs.audit``), after phase 14: (a) the eight
+   single-process driver specs at the JAX package's toy shapes with every
+   tensor on the card, each certified clean by the taint interpreter,
+   its host reads and collectives linted (the scan blocks' per-slot
+   ``settled`` read reported as the documented deviation), the three leak
+   fixtures caught (``skip_protect`` through K3's real output), every
+   spec's ungated run reconciled against its census and the audit's extra
+   reveal flagged; every declared kernel call of a gated run a CUDA launch
+   (K1, K2, K3 and K5 among them); (b) the fused round at phase 4's
+   configuration certified under both protect modes (one K3, K1 and K2
+   launch each), then phase 4's fit and its gradient-mode twin under the
+   ledger: every (site, shape) count equal to iterations x the certified
+   census; the cost of a disabled hook; (c) inside phase 14's spawned
+   ranks, the three 1D psum specs on its 4-rank pod mesh and the 2D spec
+   on its 2 x 2 mesh, certified and audited on every rank.  A
+   ``{"privacy_gate": ...}`` line: specs, findings, fixtures caught, the
+   census, seconds to certify each spec at toy and full size, the fit's
+   seconds a round in this run and the card's name and power limit;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
    K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
@@ -1723,6 +1742,10 @@ def _wire_rank(rank, world, rdzv, out_path, args):
                 "seconds_per_call": _timed(
                     lambda: compressed_psum(grads, "pod", efb)),
                 "max_abs_err_vs_mean": cerr, "half_step": 0.5 * step}
+            # phase 15 (c): the 1D psum specs under the gate, on this rank
+            out["privacy_gate"] = gate_on_rank(
+                ("secure_psum[replicated]", "secure_psum[sharded,tree]",
+                 "secure_psum[sharded,tile]"), dev)
         with compat.use_mesh(multihost.pod_share_mesh(*WIRE_MESH_2D)):
             out["backend_share"] = dist.get_backend(
                 compat.axis_group("share"))
@@ -1746,6 +1769,8 @@ def _wire_rank(rank, world, rdzv, out_path, args):
                                                  aggregator=agg)),
                 "launches": launches, **wire_measured_bytes(
                     stats, WIRE_MESH_2D[0])}
+            out["privacy_gate"].update(gate_on_rank(("secure_psum_2d",),
+                                                    dev))
         gathered = [None] * world
         dist.all_gather_object(gathered, out["reveal_g"])
         out["ranks_agree"] = all(torch.equal(g, out["reveal_g"])
@@ -1864,6 +1889,172 @@ def wires_phase(dev, smi, counts, params: int = WIRE_PARAMS,
     out["caps_checked"] = {"K1": list(cases["K1"]), "K4": list(cases["K4"]),
                            "K2": list(cases["K2"]), "bit_identical": True}
     return out, launches, cases
+
+
+def _census_json(census: dict) -> dict:
+    return {f"{site}{list(shape)}": n for (site, shape), n in
+            sorted(census.items())}
+
+
+def gate_on_rank(names, dev) -> dict:
+    """Phase 15 (c) on one of phase 14's ranks, under its mesh: each named
+    psum spec certified (its taint findings and this rank's run linted)
+    and audited (an ungated run's ledger counts against the census).
+    Every check raises, so a failure exits the rank non-zero."""
+    from repro_torch.analysis.drivers import certify_on_rank
+
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        r = certify_on_rank((name,), str(dev), audit=True)[name]
+        sec = time.perf_counter() - t0
+        rep = r["report"]
+        check(rep.ok, f"the gate on a rank: {rep.format()}")
+        check(r["audit"].ok, f"the audit on a rank: {r['audit'].findings()}")
+        out[name] = {"census": _census_json(r["census"]),
+                     "rounds": r["rounds"], "reconciled": True,
+                     "collective_axes": sorted({e.axis for e in
+                                                r["collectives"]}),
+                     "declassifications": len(rep.declassifications),
+                     "seconds_gate_and_audit": sec}
+    return out
+
+
+def privacy_gate_phase(dev, smi, counts, parts, fit_kw) -> dict:
+    """Phase 15: the privacy gate and the runtime audit on the card.
+    (a) every single-process spec certified clean at the JAX package's toy
+    shapes with every tensor on the card, the three leak fixtures caught
+    (skip_protect through K3's real output) and the audit's extra reveal
+    flagged; every declared kernel call of a gated run a launch of its
+    CUDA kernel.  (b) the fused round at phase 4's configuration certified
+    under both protect modes, then phase 4's fit (and its gradient-mode
+    twin) under the ledger: every (site, shape) count equals iterations x
+    the certified round's census.  Returns the ``{"privacy_gate": ...}``
+    record (phase 14's ranks add (c))."""
+    import torch
+    from repro_torch.analysis.drivers import DriverSpec, all_driver_specs, \
+        certify
+    from repro_torch.analysis.fixtures import leak_fixture_specs
+    from repro_torch.analysis.taint import PUBLIC, SECRET
+    from repro_torch.core.batched_summaries import pack_partitions
+    from repro_torch.core.newton import _fused_secure_iteration, secure_fit
+    from repro_torch.obs import audit, gate, ledger
+
+    reset, read = counts
+    out = {"card": smi, "specs": {}, "fixtures": {}}
+    # (a) the certified surface at toy size, every tensor on the card
+    local = [s for s in all_driver_specs() if not s.world]
+    gate_calls = collections.Counter()
+    local[0].runner(dev)  # warm-up: the toy pack, the allocator
+    reset()
+    for spec in local:
+        t0 = time.perf_counter()
+        rep, trace = certify(spec, dev, lint=True)
+        _sync()
+        sec = time.perf_counter() - t0
+        check(rep.ok, f"gate on the card: {rep.format()}")
+        gate_calls += trace.kernels
+        census, rounds, _ = trace.round_census()
+        out["specs"][spec.name] = {
+            "ok": True, "census": _census_json(census), "rounds": rounds,
+            "declassifications": len(rep.declassifications),
+            "warnings": [f.message for f in rep.findings
+                         if f.severity == "warning"],
+            "host_reads": len(trace.host_reads), "seconds_certify": sec}
+    for spec in leak_fixture_specs():
+        rep, trace = certify(spec, dev)
+        gate_calls += trace.kernels
+        errs = rep.errors()
+        check(bool(errs), f"{spec.name} passed the gate on the card")
+        out["fixtures"][spec.name] = {"caught": True,
+                                      "where": errs[0].where}
+    launched = read()
+    on_card = dev.type == "cuda"  # a CPU rehearsal runs the plain versions
+    check(all(n == gate_calls.get(k, 0) * on_card
+              for k, n in launched.items())
+          and all(gate_calls[k] > 0 for k in (
+              "encode_share_kernel", "reconstruct_kernel",
+              "fused_irls_kernel", "fused_irls_cv_kernel")),
+          f"launches under the gate {launched} vs its kernel calls "
+          f"{dict(gate_calls)}: every declared call a CUDA launch, K1, K2, "
+          "K3 and K5 among them")
+    out["launches_under_gate"] = {k: v for k, v in launched.items() if v}
+    # the audit of each spec, and the extra reveal it must flag
+    audits = {spec.name: audit.audit_spec(spec, dev) for spec in local}
+    for name, a in audits.items():
+        check(a.ok, f"audit on the card: {a.findings()}")
+    extra = audit.extra_reveal_fixture(local[0], dev)
+    check(not extra.ok, "the extra reveal was not flagged on the card")
+    out["audit"] = {name: {"reconciled": True, "rounds": a.rounds}
+                    for name, a in audits.items()}
+    out["extra_reveal_flagged"] = extra.findings()
+
+    # (b) full width: phase 4's round, certified, then phase 4's fit
+    agg = fit_kw["aggregator"]
+    packed = pack_partitions(parts)
+    out["full_size"] = {}
+    for protect in ("both", "gradient"):
+        def setup(device, protect=protect):
+            def fn(beta, generator, packed):
+                return _fused_secure_iteration(
+                    beta, generator, packed, 1.0, agg, protect, 0.0,
+                    summaries_backend="kernel")
+
+            beta = torch.zeros((D,), dtype=torch.float64, device=device)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            return fn, (beta, gen, packed), (PUBLIC, PUBLIC, SECRET)
+
+        spec = DriverSpec(f"secure_fit_fused[protect={protect}] at "
+                          f"S={S} d={D} N={N}", setup,
+                          agg.scheme.threshold)
+        reset()
+        t0 = time.perf_counter()
+        rep, trace = certify(spec, dev)
+        _sync()
+        cert_s = time.perf_counter() - t0
+        certified_launches = {k: v for k, v in read().items() if v}
+        census, rounds, _ = trace.round_census()
+        check(rep.ok and rounds == 1, f"full-size gate: {rep.format()}")
+        check(dict(trace.kernels) == {"fused_irls_kernel": 1,
+                                      "encode_share_kernel": 1,
+                                      "reconstruct_kernel": 1}
+              and certified_launches == (dict(trace.kernels) if on_card
+                                         else {}),
+              f"full-size launches under the gate {certified_launches}")
+        kw = dict(fit_kw, protect=protect)
+        reset()
+        t0 = time.perf_counter()
+        with ledger.capture() as cap:
+            res = secure_fit(parts, **kw)
+        _sync()
+        fit_s = time.perf_counter() - t0
+        a = audit.reconcile(spec.name, census, res.iterations, cap)
+        check(res.converged and a.ok,
+              f"phase 4's fit ({protect}) vs {res.iterations} x the "
+              f"certified census: {a.findings()}")
+        out["full_size"][protect] = {
+            "census": _census_json(census),
+            "declassifications": rep.declassifications,
+            "seconds_certify": cert_s,
+            "launches_certified_round": certified_launches,
+            "fit_iterations": res.iterations,
+            "recorded": _census_json(a.recorded),
+            "reconciled": True,
+            "fit_seconds_per_round_under_ledger": fit_s / res.iterations,
+            "fit_launches": {k: v for k, v in read().items() if v}}
+    # a disabled hook: one global read and a branch, against the bare call
+    probe = gate.boundary("probe")(lambda: None)
+    reps = 200_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        probe()
+    hooked = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        probe.__wrapped__()
+    bare = time.perf_counter() - t0
+    out["disabled_hook_ns"] = (hooked - bare) / reps * 1e9
+    return out
 
 
 def main() -> int:
@@ -2372,7 +2563,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wires_out, wire_launches, cap_cases = wires_phase(dev, smi, counts)
+    wire_gate = wires_out["gloo_ranks"].pop("privacy_gate")
     print(json.dumps({"wires": wires_out}))
+
+    # -- 15. the privacy gate and the runtime audit -------------------------
+    gate_out = privacy_gate_phase(dev, smi, counts, parts, fit_kw)
+    gate_out["psum_specs_on_phase_14_ranks"] = {
+        "ranks": WIRE_RANKS, "mesh_2d": WIRE_MESH_2D, **wire_gate}
+    gate_out["phase_4_fit_seconds_per_round"] = fit_s / res.iterations
+    print(json.dumps({"privacy_gate": gate_out}))
 
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128

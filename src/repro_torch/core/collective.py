@@ -50,6 +50,7 @@ from ..distributed import compat as _compat
 from ..distributed.sharding import POD_AXIS, SHARE_AXIS
 from ..kernels import ops
 from ..kernels.shamir_reconstruct import lagrange_weights_host
+from ..obs import gate as _gate
 from ..obs import ledger as _ledger
 from ..obs.trace import traced as _traced
 from .field import FieldSpec, crt_combine_signed, fsum, random_elements
@@ -122,10 +123,12 @@ def _tree_map(fn, tree):
 
 # ------------------------------------------------------------------------
 # The named declassification boundaries: each host wrapper records to the
-# runtime privacy ledger, then runs.
+# runtime privacy ledger, then runs; each is declared to the privacy gate
+# (``obs/gate.py``), which sees the same calls.
 # ------------------------------------------------------------------------
 
 
+@_gate.boundary("declassify_sum")
 def declassify_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """The sanctioned PLAINTEXT aggregation over the institution axis.
 
@@ -163,6 +166,7 @@ def _wire_payload(buf: torch.Tensor) -> torch.Tensor:
     return buf.to(torch.float32)
 
 
+@_gate.boundary("_protect_flat")
 def _protect_flat(generator: torch.Generator, buf: torch.Tensor,
                   scheme: ShamirScheme, frac_bits: int, rows: int,
                   points: tuple[int, ...] | None = None) -> torch.Tensor:
@@ -179,6 +183,7 @@ def _protect_flat(generator: torch.Generator, buf: torch.Tensor,
                                    field.moduli, frac_bits, points=points)
 
 
+@_gate.boundary("_reveal_flat")
 def _reveal_flat(buf: torch.Tensor, scheme: ShamirScheme, frac_bits: int,
                  points: tuple[int, ...]) -> torch.Tensor:
     """Lagrange + CRT reveal of (k, R, rows, 128) aggregated shares to a
@@ -189,6 +194,7 @@ def _reveal_flat(buf: torch.Tensor, scheme: ShamirScheme, frac_bits: int,
                                   frac_bits)
 
 
+@_gate.boundary("_distributed_reveal")
 def _distributed_reveal(agg_slice: torch.Tensor, scheme: ShamirScheme,
                         codec: FixedPointCodec, points: tuple[int, ...],
                         share_axis: str, dtype) -> torch.Tensor:

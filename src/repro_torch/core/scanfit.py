@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import host_buffer
+from ..obs import gate as _gate
 from .batched_summaries import PackedPartitions
 from .collective import SecureCollective
 
@@ -53,8 +55,9 @@ def scan_rounds(round_fn, skip_fn, settled_fn, carry0, num_rounds: int):
     carry, emits = carry0, []
     for _ in range(num_rounds):
         # host-sync: one public scalar per slot
-        fn = skip_fn if bool(settled_fn(carry)) else round_fn
-        carry, emit = fn(carry)
+        settled = bool(settled_fn(carry))
+        _gate.scan_slot(not settled)
+        carry, emit = (skip_fn if settled else round_fn)(carry)
         emits.append(emit)
     return carry, _stack_emits(emits)
 
@@ -147,11 +150,13 @@ def run_fit_block(fit, packed: PackedPartitions, points, num_rounds: int,
         l1, float(fit.tol), points, include_count, fit.summaries_backend,
         num_rounds, packed.num_institutions, num_rounds,
     )
-    # host-sync: the block's one read-back (beta stays on the device)
-    objs, actives, gnorms, snorms = (
-        t.tolist() for t in (objs, actives, gnorms, snorms))
-    obj_prev, conv = torch.stack(
-        [carry[1], carry[2].to(torch.float64)]).tolist()
+    flat, unflatten = host_buffer(objs, actives, gnorms, snorms, carry[1],
+                                  carry[2])
+    # host-sync: the block's one read-back, one copy (beta stays on the
+    # device)
+    objs, actives, gnorms, snorms, obj_prev, conv = unflatten(
+        flat.cpu().numpy())
+    objs, gnorms, snorms = objs.tolist(), gnorms.tolist(), snorms.tolist()
     reports = []
     for r in range(num_rounds):
         if not actives[r]:
@@ -166,7 +171,7 @@ def run_fit_block(fit, packed: PackedPartitions, points, num_rounds: int,
                                grad_norm=gnorms[r], step_norm=snorms[r])
     fit.reports.extend(reports)
     fit.beta = carry[0]
-    fit._obj_prev = obj_prev
+    fit._obj_prev = float(obj_prev)
     fit.converged = bool(conv)
     fit._round_base = carry[4]
     return reports

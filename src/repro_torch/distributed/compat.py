@@ -23,6 +23,10 @@ operand goes to the host and the result comes back through ONE function,
 transport, not a fallback: the kernels still run on the card.  A CUDA
 tensor on any other backend raises.  ``wire_stats`` counts, per rank, the
 operand bytes handed to each kind of collective and the bytes staged.
+
+Each named-axis collective is declared to the privacy gate
+(``obs/gate.py``) with its axis: a sum over a mesh axis of two or more
+ranks is Algorithm 2 on the wire.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+
+from ..obs import gate as _gate
 
 __all__ = ["Pending", "all_gather", "axis_group", "axis_index", "axis_size",
            "current_mesh", "make_mesh", "pmax", "psum", "psum_scatter",
@@ -187,6 +193,7 @@ def _all_reduce(t, axis_name, op, async_op, donate):
     return pending if async_op else pending.wait()
 
 
+@_gate.collective("psum")
 def psum(t: torch.Tensor, axis_name: str, async_op: bool = False,
          donate: bool = False):
     """Sum over ``axis_name`` (``jax.lax.psum``): every rank gets the
@@ -196,11 +203,13 @@ def psum(t: torch.Tensor, axis_name: str, async_op: bool = False,
     return _all_reduce(t, axis_name, dist.ReduceOp.SUM, async_op, donate)
 
 
+@_gate.collective("pmax")
 def pmax(t: torch.Tensor, axis_name: str):
     """Maximum over ``axis_name`` (``jax.lax.pmax``)."""
     return _all_reduce(t, axis_name, dist.ReduceOp.MAX, False, False)
 
 
+@_gate.collective("psum_scatter")
 def psum_scatter(t: torch.Tensor, axis_name: str, scatter_dimension: int = 0,
                  async_op: bool = False):
     """Sum over ``axis_name`` and keep this rank's 1/D block of
@@ -225,6 +234,7 @@ def psum_scatter(t: torch.Tensor, axis_name: str, scatter_dimension: int = 0,
     return pending if async_op else pending.wait()
 
 
+@_gate.collective("all_gather")
 def all_gather(t: torch.Tensor, axis_name: str, axis: int = 0):
     """Concatenate every rank's ``t`` along ``axis`` in axis order
     (``jax.lax.all_gather(..., tiled=True)``)."""

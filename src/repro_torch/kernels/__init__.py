@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for the port's hot spots (Hopper, sm_90a).
 
 Each kernel: a CUDA source in ``csrc/``, a Python module here with the
-kernel's wrapper (launch counter, checks, ctypes call) and its plain
-PyTorch version side by side, and a public wrapper in ``ops.py``.
+kernel's wrapper (launch counter, checks, ctypes call; declared to the
+privacy gate, ``obs/gate.py``, since its outputs bypass the dispatcher)
+and its plain PyTorch version side by side, and a public wrapper in
+``ops.py``.
 
 * K1 ``shamir_poly``        — fused fixed-point encode + Shamir shares;
 * K2 ``shamir_reconstruct`` — Lagrange reveal + CRT/Garner decode (or the

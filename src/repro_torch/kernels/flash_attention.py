@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..obs import gate as _gate
 from .ref import causal_scores
 
 __all__ = ["FlashAttention", "flash_attention_kernel",
@@ -70,6 +71,7 @@ def flash_attention_plain(q, k, v):
             l.reshape(B, H, S))
 
 
+@_gate.kernel
 def flash_attention_kernel(q, k, v):
     """K7 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  q (B, S, H, D), k/v (B, S, KVH, D),

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..obs import gate as _gate
 from .flash_attention import _MAX_HEAD_DIM, _check_args
 from .ref import causal_p_ds
 
@@ -94,6 +95,7 @@ def _route(q, what):
     return False
 
 
+@_gate.kernel
 def flash_dq_kernel(q, k, v, do, m, linv, delta):
     """K8a on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns dq (B, S, H, D)."""
@@ -107,6 +109,7 @@ def flash_dq_kernel(q, k, v, do, m, linv, delta):
     return dq
 
 
+@_gate.kernel
 def flash_dkdv_kernel(q, k, v, do, m, linv, delta):
     """K8b on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns (dk, dv) (B, S, KVH, D)."""

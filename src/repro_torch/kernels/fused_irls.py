@@ -45,6 +45,7 @@ import math
 import torch
 
 from . import _build
+from ..obs import gate as _gate
 from .ref import gram_hessian, masked_cv_terms, masked_irls_terms
 
 __all__ = ["fused_irls_kernel", "fused_irls_plain", "fused_irls_cv_kernel",
@@ -80,6 +81,7 @@ def fused_irls_plain(beta, X, Xm, y, counts):
     return H, g, dev
 
 
+@_gate.kernel
 def fused_irls_kernel(beta, X, Xm, y, counts):
     """K3 on the tensors' device: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  Returns (H f32, g f64, dev f64)."""
@@ -204,6 +206,7 @@ def cv_launch_shape(c_dim: int, s_dim: int, n: int, d: int, device,
     return dict(nsl_rows=nsl_r, tn_rows=plan["tn_rows"], nsl_gram=nsl_g)
 
 
+@_gate.kernel
 def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
     """K5 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns what the plain version does."""
@@ -269,6 +272,7 @@ def gram_hessian_plain(X, w):
     return gram_hessian(X, w)
 
 
+@_gate.kernel
 def gram_hessian_kernel(X, w):
     """K6 on the tensors' device: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  X (N, d) and w (N,) of any float

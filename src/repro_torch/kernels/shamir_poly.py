@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build, field_consts, ref
+from ..obs import gate as _gate
 
 __all__ = ["encode_share_kernel", "encode_share_plain", "share_kernel",
            "share_plain"]
@@ -84,6 +85,7 @@ def encode_share_plain(x: torch.Tensor, coeffs: torch.Tensor,
     return torch.stack(out).to(torch.int32)
 
 
+@_gate.kernel
 def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
                         moduli: tuple[int, ...], frac_bits: int,
                         points: tuple[int, ...]) -> torch.Tensor:
@@ -160,6 +162,7 @@ def share_plain(secret: torch.Tensor, coeffs: torch.Tensor,
                         for r, p in enumerate(moduli)], dim=1)
 
 
+@_gate.kernel
 def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
                  moduli: tuple[int, ...], num_shares: int) -> torch.Tensor:
     """K4 on the tensors' device: the CUDA kernel for CUDA tensors, the

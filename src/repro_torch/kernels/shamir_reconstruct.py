@@ -18,6 +18,7 @@ import functools
 import torch
 
 from . import _build, field_consts
+from ..obs import gate as _gate
 
 __all__ = ["lagrange_weights_host", "reconstruct_kernel",
            "reconstruct_plain"]
@@ -100,6 +101,7 @@ def reconstruct_plain(shares: torch.Tensor, points: tuple[int, ...],
     return signed.to(torch.float64) / float(1 << frac_bits)
 
 
+@_gate.kernel
 def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
                        moduli: tuple[int, ...],
                        frac_bits: int | None) -> torch.Tensor:

@@ -9,8 +9,15 @@ port so that it imports nothing of the JAX package:
 * :mod:`repro_torch.obs.ledger` — typed execution counters on every
   ``_protect_flat`` / ``_reveal_flat`` / ``declassify_sum`` boundary;
 * :mod:`repro_torch.obs.metrics` — labeled counters/gauges + Prometheus
-  textfile export, and the ring-collective byte conventions.
-"""
-from . import ledger, metrics, trace  # noqa: F401
+  textfile export, and the ring-collective byte conventions;
+* :mod:`repro_torch.obs.gate` — the privacy gate's hook points (the
+  boundaries, named-axis collectives and kernel wrappers declared to it).
 
-__all__ = ["ledger", "metrics", "trace"]
+The audit (:mod:`repro_torch.obs.audit`, ``python -m repro_torch.obs
+audit``) reconciles the ledger against the gate's certified census; it
+imports the gate (``repro_torch.analysis``) and loads only behind the CLI,
+tests and ``chip_smoke.py``.
+"""
+from . import gate, ledger, metrics, trace  # noqa: F401
+
+__all__ = ["gate", "ledger", "metrics", "trace"]

@@ -35,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import host_buffer, resolve_device
 from ..core.batched_summaries import (
     BACKENDS as SUMMARY_BACKENDS,
     PackedPartitions,
@@ -315,18 +315,24 @@ class PathDriver:
                 s.summaries_backend, s.rounds_per_sync,
                 packed.num_institutions, s.max_rounds,
             )
-            # host-sync: the block's read-back (the carry stays on the
-            # device for the next block)
-            objs, actives = objs.cpu().numpy(), actives.cpu().numpy()
-            conv_f, iters_f = carry[2].cpu().numpy(), carry[3].cpu().numpy()
+            flat, unflatten = host_buffer(objs, actives, carry[2],
+                                          carry[3])
+            # host-sync: the block's one read-back, the trace and the
+            # stopping state in one copy (the carry stays on the device
+            # for the next block)
+            objs, actives, conv_f, iters_f = unflatten(flat.cpu().numpy())
             chunk_trace.append(objs)
             executed += int(actives.any(axis=1).sum())
             if bool(conv_f.all()) or int(iters_f.max()) >= s.max_rounds:
                 break
-        betas_f, vdev_f, vcorr_f, vcnt_f = (
-            carry[i].cpu().numpy() for i in (0, 4, 5, 6))
+        flat, unflatten = host_buffer(carry[0], carry[4], carry[5],
+                                      carry[6])
+        # host-sync: the chunk's last read-back, the betas and the
+        # held-out stats in one copy (the slot, carry[7], is a host int)
+        (betas_f, vdev_f, vcorr_f, vcnt_f), slot = \
+            unflatten(flat.cpu().numpy()), carry[7]
 
-        state["round_base"] = np.asarray(carry[7])
+        state["round_base"] = np.asarray(slot)
         state["rounds_total"] = np.asarray(
             int(state["rounds_total"]) + executed)
         state["bytes_total"] = np.asarray(

@@ -850,3 +850,74 @@ def test_secure_psum_on_a_single_rank_nccl_group(nccl_pod, backend, reveal,
     for k, v in tree.items():
         want = (torch.round(v * 2.0**28).double() / 2.0**28).float()
         assert got[k].is_cuda and torch.equal(got[k], want)
+
+
+# -- the privacy gate on the card --------------------------------------------
+
+_GATE_SPECS = ("secure_fit_fused[protect=both]",
+               "secure_fit_fused[protect=gradient]",
+               "coordinator_fused[protect=both]",
+               "coordinator_fused[protect=gradient]",
+               "secure_fit_scan[protect=both]",
+               "secure_fit_scan[protect=gradient]",
+               "selection_scan[protect=both]",
+               "selection_scan[protect=gradient]")
+
+
+def _gate_run(spec, device):
+    from repro_torch.analysis.drivers import certify
+
+    return certify(spec, device, lint=True)
+
+
+@pytest.mark.parametrize("name", _GATE_SPECS)
+def test_gate_on_the_card_matches_the_cpu(cuda, name):
+    """The same census, rounds, findings, declassification trail and
+    declared kernel calls on the card as on the CPU, where the kernels'
+    outputs come through ctypes and the plain versions' through aten."""
+    from repro_torch.analysis.drivers import all_driver_specs
+
+    spec = {s.name: s for s in all_driver_specs()}[name]
+    got = []
+    for device in (torch.device("cpu"), cuda):
+        rep, trace = _gate_run(spec, device)
+        assert rep.ok, rep.format(verbose=True)
+        got.append((trace.round_census(),
+                    [(f.severity, f.where, f.message)
+                     for f in rep.findings],
+                    rep.declassifications, dict(trace.kernels),
+                    [(r.kind, r.where, r.taint) for r in trace.host_reads]))
+    assert got[0] == got[1]
+
+
+def test_skip_protect_is_caught_on_the_card(cuda):
+    """The kernel-output hole's negative control: K3 writes its summaries
+    through ctypes, where no dispatcher sees them; its declaration carries
+    their taint, so the plain sums still reach the outputs as SECRET."""
+    from repro_torch.analysis.drivers import certify
+    from repro_torch.analysis.fixtures import leak_fixture_specs
+
+    spec = leak_fixture_specs()[0]
+    assert spec.name == "LEAKY:skip_protect"
+    before = fused_irls_kernel.launches
+    rep, trace = certify(spec, cuda)
+    assert fused_irls_kernel.launches - before == 1
+    assert trace.kernels == {"fused_irls_kernel": 1}
+    errs = rep.errors()
+    assert errs and all("outputs[" in f.where and "SECRET" in f.message
+                        for f in errs)
+
+
+def test_every_kernel_wrapper_with_a_launch_counter_is_declared(cuda):
+    import inspect
+
+    found = []
+    for mod in (k1_mod, k2_mod, k3_mod, k7_mod, k8_mod):
+        for name, obj in inspect.getmembers(mod, callable):
+            if hasattr(obj, "launches"):
+                found.append(name)
+                assert getattr(obj, "gate_hook", None) == ("kernel", name)
+    assert sorted(found) == sorted([
+        "encode_share_kernel", "share_kernel", "reconstruct_kernel",
+        "fused_irls_kernel", "fused_irls_cv_kernel", "gram_hessian_kernel",
+        "flash_attention_kernel", "flash_dq_kernel", "flash_dkdv_kernel"])

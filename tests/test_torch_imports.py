@@ -23,7 +23,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "repro_torch.data.datasets, repro_torch.kernels.flash_attention_bwd, "
         "repro_torch.distributed, repro_torch.distributed.compat, "
         "repro_torch.distributed.multihost, "
-        "repro_torch.distributed.sharding\n"
+        "repro_torch.distributed.sharding, repro_torch.analysis, "
+        "repro_torch.analysis.drivers, repro_torch.analysis.fixtures, "
+        "repro_torch.analysis.lints, repro_torch.analysis.__main__, "
+        "repro_torch.obs.audit, repro_torch.obs.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -203,3 +206,30 @@ def test_wire_entry_points_raise_without_a_card(monkeypatch):
     final, trace = run_scanned_rounds(2, tree, 0, 2, device="cpu")
     assert tuple(trace.shape) == (2,)
     assert torch.allclose(final["w"], tree["w"], atol=1e-6)
+
+
+def test_the_walk_reaches_the_privacy_gate_modules():
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/drivers.py", "analysis/fixtures.py",
+            "analysis/lints.py", "analysis/report.py", "analysis/taint.py",
+            "obs/audit.py", "obs/__main__.py", "obs/gate.py"} <= walked
+
+
+def test_gate_entry_points_raise_without_a_card(monkeypatch):
+    """``certify``, ``run_audit`` and both CLIs default to the card:
+    without one they raise; ``device="cpu"`` runs."""
+    from repro_torch.analysis import __main__ as gate_cli
+    from repro_torch.analysis.drivers import all_driver_specs, certify
+    from repro_torch.obs import __main__ as obs_cli
+    from repro_torch.obs import audit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = all_driver_specs()[0]
+    for call in (lambda: certify(spec),
+                 lambda: audit.run_audit(drivers=[spec.name]),
+                 lambda: gate_cli.main(["--drivers", spec.name]),
+                 lambda: obs_cli.main(["audit", "--drivers", spec.name])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert certify(spec, "cpu")[0].ok

@@ -97,7 +97,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    with the same weights in float32 within 1e-4 max|logits|); a
    ``{"serve": ...}`` JSON line;
 11. with ``--profile`` only: ``--repeats`` more timed runs of the fit, the
-   λ path, the multi-study rounds and the serving run, then one of each
+   λ path, the multi-study rounds and the serving run (and, in phase 16,
+   each model's serving run, its MoE routing and dispatch a category of
+   its own), then one of each
    under ``torch.profiler`` (device time
    per kernel name, the union of device-busy intervals over the run's
    wall window, so the card's idle share), as ``profile`` JSON lines; a
@@ -163,9 +165,38 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``{"privacy_gate": ...}`` line: specs, findings, fixtures caught, the
    census, seconds to certify each spec at toy and full size, the fit's
    seconds a round in this run and the card's name and power limit;
+16. the MoE and MLA families and the ``embeddings`` frontend, after
+   phase 15, one model on the card at a time: K7 against its plain
+   version at the new families' prefill shapes (bf16, B 4, S 2048: MLA's
+   16 heads of Dk 192 with V's 128 columns zero-padded to 192,
+   Qwen3-MoE's 64/4 GQA at D 128, MusicGen's 24 heads of 64); (d)
+   ``moe_ffn`` at Qwen3-MoE's prefill (T 8,192, E 128, top 8, capacity
+   640) in float32 on the card against the CPU on the same inputs (x and
+   the router on a grid, so the router's logits are exact): expert ids,
+   queue positions, kept slots and drops equal, y within 1e-5 max|y|;
+   then (a) DeepSeek-V2-Lite whole (``configs/deepseek_v2_lite.py``: 27
+   layers, MLA with kv_lora 512, rope 64, Dk 192, Dv 128; 64 routed
+   experts top 6 and 2 shared; 15,706,484,224 parameters, bf16, from a
+   seed), (b) Qwen3-MoE-235B at full width cut to 8 of 94 layers
+   (21,146,701,824 parameters: d_model 4096, 64/4 heads of 128, 128
+   experts top 8) and (c) MusicGen-medium whole (1,365,394,944
+   parameters, the embeddings frontend): (a) and (b) serve phase 10's
+   traffic through ``serve_requests`` (8 requests, batch 4, prompts of
+   2048, 32 greedy tokens), (c) one batch of 4 x 2048 seeded bf16 frame
+   embeddings and 32 decode steps on frames; K7 launched once per layer
+   of each prefill and nothing else, every logit finite; then the
+   continuation check drop-free (capacity_factor = E, so a decode step
+   drops nothing a prefill keeps) at batch 1 on a 512-step prompt: bf16
+   within 2e-2 max|logits|, MLA's absorbed decode against the expanded
+   one within the same, and in float32 on the first 4 (a), 2 (b) or all
+   (c) layers within 1e-4; a ``{"serve_f3a": ...}`` line a model
+   (prefill tokens/s, decode ms a step, peak bytes, the card) and a
+   ``{"moe_check": ...}`` line;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
-   K7, K8a and K8b also at the head_dim 256 shape, K6 also at one
+   K7 also at phase 16's three shapes (MLA's bound and SDPA call count
+   the function's own work: V and o at 128 columns, 2 x 192 + 2 x 128
+   operations a pair), and with K8a and K8b at the head_dim 256 shape, K6 also at one
    institution's 25,000 x 128, K1 and K2 also at the λ path's round (K1
    over 5 x 8 slices of 136 rows, K2 over the 5 aggregates) and at 2^24
    elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, and
@@ -250,7 +281,11 @@ MS_SEEDS, MS_LAMS, MS_ROUNDS = (0, 1, 2, 3), (0.3, 1.0, 3.0, 10.0), 10
 SERVE_ARCH, SERVE_LAYERS, SERVE_PARAMS = "qwen2_5_32b", 8, 5_457_982_464
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 2048, 32
 # decode vs prefill continuation: bf16 within 2e-2 max|logits| (the
-# port's bf16 tolerance against the JAX package), float32 within 1e-4
+# port's bf16 tolerance against the JAX package), float32 within 1e-4;
+# phase 16 holds bf16 to the larger of 2e-2 max|logits| and twice the
+# bf16 prefill's own distance from the float32 prefill of the same
+# weights, where the whole model runs in float32 (DeepSeek-V2-Lite's 27
+# bf16 layers put its continued token on other experts in some layers)
 CONT_TOL, CONT_TOL_F32 = 2e-2, 1e-4
 # K7 against its plain version: (B, S, H, KVH, D, dtype, what is done to
 # q: None, "outliers" (one query row scaled by 30) or "peaked" (q scaled
@@ -305,6 +340,32 @@ WIRE_DEADLINE_S = 420.0  # the spawned ranks, imports and CUDA init included
 GROUP_TIMEOUT_S = 120  # every process group fails a hung collective
 # the repaired caps at protocol sizes: (t, w), and K2's reveal sizes k
 CAP_SHAPES, CAP_KS = ((2, 17), (17, 20)), (17, 20)
+# phase 16: the MoE and MLA families and the embeddings frontend at full
+# width, one model on the card at a time: (arch, layers kept (None:
+# all), parameters, layers of the float32 continuation (None: all, the
+# bf16 weights converted in place: DeepSeek-V2-Lite's 62.9 GB fit, 8 of
+# Qwen3-MoE's layers, 84.6 GB, do not))
+F3A_MODELS = (("deepseek_v2_lite", None, 15_706_484_224, None),
+              ("qwen3_moe_235b", 8, 21_146_701_824, 2),
+              ("musicgen_medium", None, 1_365_394_944, None))
+# the continuation runs drop-free (capacity_factor = E, so capacity = T k)
+# at batch 1 on a prompt of this many tokens: a decode step's capacity
+# max(1, int(4 * 6 * 1.25 / 64)) = 1 would drop what the prefill keeps
+F3A_CONT_PROMPT = 512
+# K7 on the new families' prefill shapes (bf16): MLA's Dk 192 with V's
+# 128 columns zero-padded to 192 ("v128"), Qwen3-MoE's 64/4 GQA at D
+# 128, MusicGen's MHA at D 64; checked against the plain version at
+# K7_TOL and timed in phase 12 beside K7's own shapes
+F3A_K7_CASES = (
+    ("mla", 4, 2048, 16, 16, 192, "bfloat16", "v128"),
+    ("qwen3_moe", 4, 2048, 64, 4, 128, "bfloat16", None),
+    ("musicgen", 4, 2048, 24, 24, 64, "bfloat16", None),
+)
+MLA_DV = 128
+# moe_ffn at Qwen3-MoE's prefill (T = 4 x 2048, E 128, top 8, capacity
+# 640) in float32 on the card against the CPU: ids, slots and drops
+# equal, y within this share of max|y| (summation order)
+MOE_CHECK_TOL = 1e-5
 
 
 def check(cond: bool, what: str) -> None:
@@ -404,6 +465,14 @@ SERVE_CATEGORIES = (
     ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
 )
+
+
+# phase 16's serving runs: the serving categories and the MoE FFN's
+# routing and dispatch (sort, the counts, scatters and gathers)
+F3A_CATEGORIES = SERVE_CATEGORIES[:3] + (
+    ("MoE routing and dispatch", ("sort", "Sort", "scatter", "gather",
+                                  "index", "scan", "cumsum")),
+) + SERVE_CATEGORIES[3:]
 
 
 # a training step's categories (first hit); the AdamW update is profiled
@@ -898,21 +967,23 @@ def multistudy_phase(dev, agg, parts, counts):
             "x_bytes_on_card": x_bytes, "peak_bytes_allocated": peak}, run
 
 
-def check_k7(dev):
+def check_k7(dev, cases=K7_CASES, timed_names=("serving",) + FLASH_TIMED):
     """K7 against its plain version on the card at the shapes of
-    ``K7_CASES``; returns (the largest |o - plain o| over them, the (q, k,
-    v) of the serving shape and of ``FLASH_TIMED`` by name, for
-    timing)."""
+    ``cases``; returns (the largest |o - plain o| over them, the (q, k, v)
+    of the shapes in ``timed_names`` by name, for timing).  A case's
+    "v128" zeroes V past MLA's 128 columns, as ``attend`` pads it."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel, \
         flash_attention_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     err, timed = 0.0, {}
-    for name, B, S_, H, KVH, Dh, dt, how in K7_CASES:
+    for name, B, S_, H, KVH, Dh, dt, how in cases:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((B, S_, n, Dh), generator=gen, device=dev)
                    for n in (H, KVH, KVH))
+        if how == "v128":
+            v[..., MLA_DV:] = 0.0
         q, k, v = shape_q(q, how).to(dtype), k.to(dtype), v.to(dtype)
         o, m, l = flash_attention_kernel(q, k, v)
         op, mp, lp = flash_attention_plain(q, k, v)
@@ -926,7 +997,7 @@ def check_k7(dev):
         check(bool(((l - lp).abs() <= 1e-5 * lp).all()),
               f"K7 {name} l err {float((l - lp).abs().max())}")
         err = max(err, float(do.max()))
-        if name == "serving" or name in FLASH_TIMED:
+        if name in timed_names:
             timed[name] = (q, k, v)
         del op, mp, lp
     torch.cuda.synchronize()
@@ -1041,6 +1112,326 @@ def serving_phase(dev, smi, counts):
     return out, run
 
 
+def moe_check(dev):
+    """Phase 16 (d): ``moe_ffn`` at Qwen3-MoE's prefill (T = 4 x 2048,
+    d 4096, E 128, top 8, h 1536, capacity 640) in float32 on the card
+    against the same function on the CPU, same inputs.  x and the router
+    are drawn on a grid (multiples of 1/8 and 1/64), so the router's
+    logits are exact in any summation order and the expert ids, queue
+    positions, kept slots and drops must be equal; y within
+    ``MOE_CHECK_TOL`` of max|y|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3_moe_235b")
+    T_ = SERVE_BATCH * SERVE_PROMPT
+    d, E, h, k = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff, \
+        cfg.moe_top_k
+    capacity = max(1, int(T_ * k * cfg.capacity_factor / E))
+    check(capacity == 640, f"Qwen3-MoE prefill capacity {capacity}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    params = {"router": torch.randint(-8, 9, (d, E), generator=gen,
+                                      device=dev) / 64.0}
+    for name, shape in (("experts_w1", (E, d, h)), ("experts_w3", (E, d, h)),
+                        ("experts_w2", (E, h, d))):
+        params[name] = min(0.02, shape[1] ** -0.5) * torch.randn(
+            shape, generator=gen, device=dev)
+    x = torch.randint(-8, 9, (SERVE_BATCH, SERVE_PROMPT, d), generator=gen,
+                      device=dev) / 8.0
+    host = {n: t.cpu() for n, t in params.items()}
+    x_host = x.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux, drop = moe.moe_ffn(x, params, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_cpu, aux_cpu, drop_cpu = moe.moe_ffn(x_host, host, cfg)
+    cpu_s = time.perf_counter() - t0
+    routes = [moe._route(xx.reshape(T_, d), pp["router"], k)[1]
+              for xx, pp in ((x, params), (x_host, host))]
+    check(torch.equal(routes[0].cpu(), routes[1]),
+          "moe_ffn: expert ids on the card vs the CPU")
+    for what, a, b in zip(("queue positions", "kept", "slots", "dropped"),
+                          moe._dispatch(routes[0], capacity, 0, E, E),
+                          moe._dispatch(routes[1], capacity, 0, E, E)):
+        check(torch.equal(a.cpu(), b), f"moe_ffn: {what} card vs CPU")
+    check(float(drop) == float(drop_cpu),
+          f"moe_ffn drop fraction {float(drop)} vs {float(drop_cpu)}")
+    scale = float(y_cpu.abs().max())
+    err = float((y.cpu() - y_cpu).abs().max())
+    check(err <= MOE_CHECK_TOL * scale,
+          f"moe_ffn y card vs CPU {err} (max|y| {scale})")
+    out = {"T": T_, "d_model": d, "experts": E, "top_k": k, "d_ff": h,
+           "capacity": capacity, "dropped_fraction": float(drop),
+           "y_max_abs_err": err, "y_max_abs": scale,
+           "aux": float(aux), "aux_cpu": float(aux_cpu),
+           "card_seconds_first_call": card_s, "cpu_seconds": cpu_s}
+    del params, host, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def cut_layers(params, cfg, n: int, dtype):
+    """(the first ``n`` layers of ``params`` cast to ``dtype``, ``cfg``
+    cut to them): a cut config's segments are a prefix of the full
+    one's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.config import segments
+
+    c = dataclasses.replace(cfg, num_layers=n, dtype_str=str(dtype)
+                            .removeprefix("torch."))
+    segs = [{k: v[:cnt].to(dtype) for k, v in seg.items()}
+            for (_, cnt), seg in zip(segments(c), params["segments"])]
+    out = {k: params[k].to(dtype) for k in ("embed", "final_norm",
+                                             "lm_head")}
+    out["segments"] = segs
+    torch.cuda.synchronize()
+    return out, c
+
+
+def serve_frames(params, cfg, frames, prompt: int, steps: int):
+    """The embeddings frontend's serving loop (MusicGen): one prefill of
+    ``frames[:, :prompt]``, then ``steps`` decode steps, each on the next
+    frame, the greedy codebook token of every step read back as
+    ``serve_requests`` reads its tokens.  Returns (slot -> its tokens,
+    the stats ``serve_requests`` returns)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, caches, n = T.prefill(params, cfg, embeds=frames[:, :prompt],
+                                      cache_len=prompt + steps)
+        nonfinite = (~torch.isfinite(logits)).sum()
+        outs = [[t] for t in torch.argmax(logits, dim=-1).tolist()]
+        t1 = time.perf_counter()
+        for i in range(steps):
+            logits, caches, n = T.decode_step(params, caches, n, cfg,
+                                              embeds=frames[:, prompt + i])
+            nonfinite += (~torch.isfinite(logits)).sum()
+            for out, t in zip(outs, torch.argmax(logits, dim=-1).tolist()):
+                out.append(t)
+        t2 = time.perf_counter()
+    return dict(enumerate(outs)), {
+        "prefill_seconds": t1 - t0, "decode_seconds": t2 - t1,
+        "decode_steps": steps, "batches": 1,
+        "nonfinite_logits": int(nonfinite)}
+
+
+def f3a_phase(dev, smi, counts, arch, layers, n_params, f32_layers,
+              profile_repeats: int = 0):
+    """Phase 16 (a)-(c): one model of ``F3A_MODELS`` at full width on the
+    card: served (8 requests of 2048 tokens, batch 4, 32 greedy tokens,
+    through ``serve_requests``; the embeddings frontend one batch of 4 x
+    2048 frames then 32 decode steps on frames), K7 once per layer of each
+    prefill and nothing else launched, every logit finite; then the
+    drop-free continuation at batch 1 on a 512-token prompt: decode after
+    the prefill against the (P + 1)-token prefill in bf16, MLA's absorbed
+    decode against the expanded one, and the same in float32 on the first
+    ``f32_layers`` layers.  With ``profile_repeats``, that many more timed
+    serving runs and one under ``torch.profiler`` (a ``profile`` line).
+    Frees the model; returns its line's fields."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    reset, read = counts
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    check(T.count_params(cfg) == n_params,
+          f"{arch} params {T.count_params(cfg)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frontend = cfg.frontend == "embeddings"
+    if frontend:  # seeded normal frame embeddings, bf16
+        inputs = torch.randn((SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                              cfg.d_model), generator=gen, device=dev).to(
+                                  torch.bfloat16)
+
+        def run():
+            return serve_frames(params, cfg, inputs, SERVE_PROMPT,
+                                SERVE_NEW)
+
+        serve_frames(params, cfg, inputs[:, :64], 32, 2)  # warm-up
+    else:
+        inputs = torch.randint(0, cfg.vocab_size,
+                               (SERVE_REQUESTS, SERVE_PROMPT), generator=gen,
+                               device=dev)
+
+        def run():
+            return serve_requests(params, cfg, inputs, SERVE_BATCH,
+                                  SERVE_NEW)
+
+        serve_requests(params, cfg, inputs[:SERVE_BATCH, :64], SERVE_BATCH,
+                       2)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    completed, stats = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_kernel": stats["batches"] * cfg.num_layers}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"{arch} launches {launches}: K7 once per "
+          f"layer of each of {stats['batches']} prefills, nothing else")
+    check(stats["nonfinite_logits"] == 0,
+          f"{arch}: {stats['nonfinite_logits']} non-finite logits")
+    tokens = sum(len(v) for v in completed.values())
+    prefill_tokens = stats["batches"] * SERVE_BATCH * SERVE_PROMPT
+    if profile_repeats:  # a round is one batch: its prefill and decode
+        print(json.dumps({"profile": profile_run(
+            run, lambda r: r[1]["batches"], f"serve {arch}",
+            profile_repeats, categories=F3A_CATEGORIES), "card": smi}))
+
+    # the continuation, drop-free, at batch 1
+    P = F3A_CONT_PROMPT
+    ext = {"capacity_factor": float(cfg.moe_num_experts)} \
+        if cfg.moe_num_experts else {}
+    if frontend:
+        seq = {"embeds": inputs[:1, :P + 1]}
+    else:
+        seq = {"tokens": inputs[:1, :P + 1]}
+
+    def continuation(p, c):
+        """(decode after a P-step prefill, MLA's absorbed decode there or
+        None, the last logits of a (P + 1)-step prefill, all float32; the
+        MoE layers, counted from 0, whose top-k experts for the continued
+        token differ between the decode and the prefill)."""
+        c = dataclasses.replace(c, **ext)
+        pre = {k: v[:, :P] for k, v in seq.items()}
+        step = {k: v[:, P] for k, v in seq.items()}
+        route, now = moe._route, [None]
+        dec_picks, ref_picks = [], []
+
+        def logged(x, w, k):  # each MoE layer's experts for the last token
+            out = route(x, w, k)
+            if now[0] is not None:
+                now[0].append(out[1][-1])
+            return out
+
+        moe._route = logged
+        try:
+            with torch.inference_mode():
+                _, caches, n = T.prefill(p, c, cache_len=P + 1, **pre)
+                now[0] = dec_picks
+                dec, _, _ = T.decode_step(p, caches, n, c, **step)
+                now[0] = None
+                absorbed = None
+                if c.attention == "mla":  # rewrites slot P alike
+                    absorbed, _, _ = T.decode_step(
+                        p, caches, n,
+                        dataclasses.replace(c, mla_absorb=True), **step)
+                    absorbed = absorbed.float()
+                del caches
+                now[0] = ref_picks
+                ref, _, _ = T.prefill(p, c, **seq)
+        finally:
+            moe._route = route
+        flips = [i for i, (a, b) in enumerate(zip(dec_picks, ref_picks))
+                 if set(a.tolist()) != set(b.tolist())]
+        return dec.float(), absorbed, ref.float(), flips
+
+    dec, absorbed, ref, flips = continuation(params, cfg)
+    # float32: the whole model where it fits the card (converted leaf by
+    # leaf in place, the largest first, each bf16 leaf freed as its copy
+    # is made: the peak is the float32 model plus the last, smallest
+    # leaf), else the first f32_layers layers
+    n32 = f32_layers or cfg.num_layers
+    if n32 == cfg.num_layers:
+        p32, cfg32 = params, dataclasses.replace(cfg, dtype_str="float32")
+        leaves = [(tree, name) for tree in (p32, *p32["segments"])
+                  for name, leaf in tree.items() if torch.is_tensor(leaf)]
+        for tree, name in sorted(leaves, key=lambda tn: -tn[0][tn[1]]
+                                 .numel()):
+            tree[name] = tree[name].float()
+    else:
+        p32, cfg32 = cut_layers(params, cfg, n32, torch.float32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec32, absorbed32, ref32, flips32 = continuation(p32, cfg32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale, scale32 = float(ref.abs().max()), float(ref32.abs().max())
+    cont_err = float((dec - ref).abs().max())
+    cont32_err = float((dec32 - ref32).abs().max())
+    # bf16's own noise: the bf16 prefill against the float32 prefill of
+    # the same weights (whole-model float32 only)
+    noise = float((ref - ref32).abs().max()) if n32 == cfg.num_layers \
+        else None
+    bf16_bound = max(CONT_TOL * scale, 2 * (noise or 0.0))
+    out = {
+        "arch": full.name, "num_layers": cfg.num_layers,
+        "reduced": ({"num_layers": f"{cfg.num_layers} of {full.num_layers}"}
+                    if layers is not None else {}),
+        "params": n_params, "params_full_depth": T.count_params(full),
+        "frontend": cfg.frontend, "batch": SERVE_BATCH,
+        "requests": stats["batches"] * SERVE_BATCH if frontend
+        else SERVE_REQUESTS,
+        "prompt_len": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+        "seconds": secs, "prefill_seconds": stats["prefill_seconds"],
+        "prefill_tokens_per_second": prefill_tokens
+        / stats["prefill_seconds"],
+        "decode_steps": stats["decode_steps"],
+        "decode_ms_per_step": stats["decode_seconds"]
+        / stats["decode_steps"] * 1e3,
+        "tokens_generated": tokens, "launches": launches,
+        "continuation_prompt": P, "continuation_capacity_factor":
+        ext.get("capacity_factor"),
+        "continuation_max_abs_err": cont_err,
+        "continuation_max_abs_logit": scale,
+        "continuation_f32_layers": n32,
+        "continuation_f32_max_abs_err": cont32_err,
+        "continuation_f32_max_abs_logit": scale32,
+        "continuation_argmax_agreement": float(
+            (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+        "continuation_bf16_bound": bf16_bound,
+        "bf16_vs_f32_prefill_max_abs_err": noise,
+        "continuation_moe_layers_rerouted": flips,
+        "continuation_f32_moe_layers_rerouted": flips32,
+        "init_params_seconds": init_s, "peak_bytes_allocated": peak,
+        "card": smi,
+    }
+    if absorbed is not None:
+        out.update(
+            absorbed_vs_expanded_max_abs_err=float(
+                (absorbed - dec).abs().max()),
+            absorbed_vs_expanded_f32_max_abs_err=float(
+                (absorbed32 - dec32).abs().max()))
+    if not frontend:
+        out["sample_output"] = completed[0][:8]
+    print(json.dumps({"serve_f3a": out}))  # before its checks
+    check(cont32_err <= CONT_TOL_F32 * scale32,
+          f"{arch} float32 continuation: max|decode - prefill| "
+          f"{cont32_err} (max|logit| {scale32})")
+    check(cont_err <= bf16_bound,
+          f"{arch} continuation: max|decode - prefill| {cont_err} "
+          f"(max|logit| {scale}, bf16 vs float32 prefill {noise})")
+    if absorbed is not None:
+        check(out["absorbed_vs_expanded_max_abs_err"] <= bf16_bound,
+              f"{arch} absorbed vs expanded decode {out}")
+        check(out["absorbed_vs_expanded_f32_max_abs_err"]
+              <= CONT_TOL_F32 * scale32,
+              f"{arch} float32 absorbed vs expanded decode {out}")
+    return out
+
+
 def check_k8(dev):
     """K8a and K8b against their plain versions on the card at the shapes
     of ``K8_CASES``, from K7's statistics; returns (the largest |dq|, |dk|,
@@ -1084,12 +1475,15 @@ def check_k8(dev):
     return err, timed
 
 
-def k7_timing(args):
+def k7_timing(args, dv=None):
     """Phase 12's K7 row on one shape's (q, k, v): the kernel, its plain
     version, SDPA on the same tensors heads first (copied outside the
     timing) and the bound: q, k, v read once, o written, m and l
     (float32); the causal half, each allowed (query, key) pair 2 D for
-    q.k and 2 D for p v, at the bf16 tensor-core peak."""
+    q.k and 2 D for p v, at the bf16 tensor-core peak.  With ``dv`` (MLA:
+    V zero-padded from dv columns to D) the bound and SDPA count the
+    function's own work: V read and o written at dv columns, 2 D + 2 dv
+    a pair."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel, \
         flash_attention_plain
@@ -1097,15 +1491,17 @@ def k7_timing(args):
     q, k, v = args
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+    dv = dv or d
+    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                  for t in (q, k, v[..., :dv]))
     return dict(
         run=lambda: flash_attention_kernel(q, k, v),
         plain=lambda: flash_attention_plain(q, k, v),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
-        bound=bound((2 * b * s * h * d + 2 * b * s * kvh * d)
+        bound=bound((b * s * h * (d + dv) + b * s * kvh * (d + dv))
                     * q.element_size() + 2 * b * h * s * 4,
-                    bf16_ops=b * h * s * (s + 1) // 2 * 4 * d))
+                    bf16_ops=b * h * s * (s + 1) // 2 * 2 * (d + dv)))
 
 
 def k6_timing(X, w):
@@ -2573,6 +2969,25 @@ def main() -> int:
     gate_out["phase_4_fit_seconds_per_round"] = fit_s / res.iterations
     print(json.dumps({"privacy_gate": gate_out}))
 
+    # -- 16. the MoE and MLA families and the embeddings frontend -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16: {torch.cuda.memory_allocated()} bytes on the card "
+          "from earlier phases")
+    f3a_k7_err, f3a_k7_args = check_k7(
+        dev, F3A_K7_CASES, tuple(c[0] for c in F3A_K7_CASES))
+    print(f"K7 vs plain: {[c[0] for c in F3A_K7_CASES]} within tolerance, "
+          f"max|do| {f3a_k7_err:.3e}")
+    moe_out = moe_check(dev)
+    print(json.dumps({"moe_check": moe_out, "card": smi}))
+    f3a_out = {}
+    for arch, layers, n_params, f32_layers in F3A_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        f3a_out[arch] = f3a_phase(dev, smi, counts, arch, layers, n_params,
+                                  f32_layers,
+                                  args.repeats if args.profile else 0)
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -2672,6 +3087,10 @@ def main() -> int:
     print(f"event floor (an empty launch, CUDA events): {event_floor_ms:.6f}"
           " ms")
     k7_main = k7_timing(k7_args["serving"])
+    k7_shapes = {n: k7_timing(k7_args[n]) for n in FLASH_TIMED}
+    k7_shapes.update({name: k7_timing(f3a_k7_args[name],
+                                      MLA_DV if how == "v128" else None)
+                      for name, *_, how in F3A_K7_CASES})
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
     entries = [
@@ -2746,8 +3165,7 @@ def main() -> int:
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             err=k7_err, **k7_main,
-             shapes={n: k7_timing(k7_args[n]) for n in FLASH_TIMED}),
+             err=max(k7_err, f3a_k7_err), **k7_main, shapes=k7_shapes),
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:145",
@@ -2766,7 +3184,9 @@ def main() -> int:
                "serve": serve_out["launches"],
                "train": train_out["launches"],
                "secure_train": secure_out["launches"],
-               "wires": wire_launches}
+               "wires": wire_launches,
+               **{f"serve_{arch}": out["launches"]
+                  for arch, out in f3a_out.items()}}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -2828,6 +3248,10 @@ def main() -> int:
         "train_tokens_per_second": train_out["tokens_per_second"],
         "train_peak_bytes_allocated": train_out["peak_bytes_allocated"],
         "grad_check_rel_err": grad_out["rel_err"],
+        "f3a_serve": {arch: {k: out[k] for k in (
+            "prefill_tokens_per_second", "decode_ms_per_step",
+            "peak_bytes_allocated", "continuation_max_abs_err",
+            "continuation_f32_max_abs_err")} for arch, out in f3a_out.items()},
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

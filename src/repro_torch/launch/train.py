@@ -249,13 +249,15 @@ def run_logreg(args) -> dict:
 def _loss_and_grads(params, batch, cfg):
     """(loss as a float, gradient leaves in ``tree_flatten`` order) of one
     institution's batch.  The parameters are differentiated through
-    detached views, so no copy of them is made."""
+    detached views, so no copy of them is made.  A leaf the loss does not
+    read (the token table under the ``embeddings`` frontend) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     from ..models import transformer as T
 
     leaves, treedef = tree_flatten(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
     loss, _ = T.loss_fn(tree_unflatten(treedef, req), batch, cfg)
-    grads = torch.autograd.grad(loss, req)
+    grads = torch.autograd.grad(loss, req, materialize_grads=True)
     return float(loss.detach()), list(grads)
 
 
@@ -322,9 +324,9 @@ def mean_gradients(params, inst_batches, cfg, agg=None, generator=None):
 def train_step(params, opt_state, inst_batches, cfg, opt_cfg, agg=None,
                generator=None):
     """One training step: every live institution's gradient on its batch
-    (``inst_batches``: one {"tokens", "labels"} dict each), their mean
-    (plain, or secure through ``agg``), then ``adamw_update``, which
-    updates ``params`` and the moments in place.  Returns (params,
+    (``inst_batches``: one {"tokens" or "embeds", "labels"} dict each),
+    their mean (plain, or secure through ``agg``), then ``adamw_update``,
+    which updates ``params`` and the moments in place.  Returns (params,
     opt_state, metrics: loss, grad_norm, lr, bytes)."""
     from ..optim.adamw import adamw_update
 
@@ -337,17 +339,27 @@ def train_step(params, opt_state, inst_batches, cfg, opt_cfg, agg=None,
 
 
 def corpus_batch(seed: int, step: int, batch: int, seq_len: int,
-                 vocab_size: int, device):
+                 vocab_size: int, device, embed_dim: int = 0):
     """The synthetic LM stream's batch for ``step``: a fixed corpus of
     ``CORPUS_BATCHES`` batches, cycled, tokens uniform in [0, V), drawn
     on the CPU from a generator seeded by (seed + 1, step % 4), so every
     device sees the same corpus.  (The JAX driver's contract; not its
-    threefry stream.)"""
+    threefry stream.)  With ``embed_dim`` (the ``embeddings`` frontend)
+    the inputs are ``embeds``, a standard normal of shape (batch,
+    seq_len, embed_dim) in bf16 from the same generator, in place of the
+    tokens, as the JAX driver draws them."""
     gen = torch.Generator().manual_seed(
         (seed + 1) * CORPUS_BATCHES + step % CORPUS_BATCHES)
     tokens = torch.randint(0, vocab_size, (batch, seq_len + 1),
-                           generator=gen).to(device)
-    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+                           generator=gen)
+    out = {"labels": tokens[:, 1:].to(device)}
+    if embed_dim:
+        out["embeds"] = torch.randn((batch, seq_len, embed_dim),
+                                    generator=gen).to(torch.bfloat16).to(
+                                        device)
+    else:
+        out["tokens"] = tokens[:, :-1].to(device)
+    return out
 
 
 def run_lm(args) -> dict:
@@ -361,10 +373,6 @@ def run_lm(args) -> dict:
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.frontend == "embeddings":
-        raise NotImplementedError(
-            "the embeddings frontend comes with its families (ROADMAP "
-            "slice F, the kernel-less LM families)")
     params = T.init_params(cfg, seed=args.seed, device=dev)
     # warm-up fits the run, as in the JAX driver
     opt_cfg = AdamWConfig(lr=args.lr,
@@ -413,7 +421,9 @@ def run_lm(args) -> dict:
             raise RuntimeError("no live institutions")
         for w in live:
             monitor.beat(w)
-        batch = corpus_batch(args.seed, step, B, L, cfg.vocab_size, dev)
+        batch = corpus_batch(args.seed, step, B, L, cfg.vocab_size, dev,
+                             cfg.d_model if cfg.frontend == "embeddings"
+                             else 0)
         per = B // S
         inst_batches = [{k: v[j * per:(j + 1) * per] for k, v in
                          batch.items()} for j in live_idx]

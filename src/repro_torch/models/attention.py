@@ -13,12 +13,20 @@ loop over query blocks whose key span is constant (window + one block),
 in plain PyTorch, differentiated by torch autograd as JAX differentiates
 ``_online_block_scan``.  Decode attends one token over the cache, in plain
 PyTorch, as the JAX package does.  The JAX function's ``q_offset``
-(chunked prefill) and ``q_block`` options and MLA's Dv != Dk come with
-the first ported caller that needs them.
+(chunked prefill) and ``q_block`` options come with the first ported
+caller that needs them.
+
+V may be narrower than Q and K (MLA: Dk 192, Dv 128).  K7 takes one
+head_dim for q, k and v, so full-causal attention zero-pads V's last axis
+to Dk, runs K7 and keeps the first Dv columns of its output: exact, since
+the padded columns of P V are zero.  The softmax scale stays Dk**-0.5,
+as in the JAX package.  No configuration has a V wider than Q and K, and
+full-causal attention refuses one.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 
@@ -38,18 +46,19 @@ def _pick_block(T: int) -> int:
 def _online_block_scan(q, k_span, v_span, q_pos, kv_pos, window, scale):
     """Online softmax over KV blocks of a span.
 
-    q: (B, Q, KVH, G, Dk); k_span, v_span: (B, T, KVH, Dk); q_pos: (Q,)
-    absolute positions; kv_pos: (T,) absolute positions.  Causal + window
-    mask.  Returns (B, Q, KVH, G, Dk) float32.
+    q: (B, Q, KVH, G, Dk); k_span: (B, T, KVH, Dk); v_span: (B, T, KVH,
+    Dv); q_pos: (Q,) absolute positions; kv_pos: (T,) absolute positions.
+    Causal + window mask.  Returns (B, Q, KVH, G, Dv) float32.
     """
     B, Q, KVH, G, Dk = q.shape
     T = k_span.shape[1]
+    Dv = v_span.shape[-1]
     bk = _pick_block(T)
     qf = q.to(torch.float32) * scale
     m = torch.full((B, KVH, G, Q), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, KVH, G, Q, Dk), dtype=torch.float32,
+    acc = torch.zeros((B, KVH, G, Q, Dv), dtype=torch.float32,
                       device=q.device)
     for j in range(T // bk):
         ks = k_span[:, j * bk:(j + 1) * bk].to(torch.float32)
@@ -67,27 +76,30 @@ def _online_block_scan(q, k_span, v_span, q_pos, kv_pos, window, scale):
                                                    vs)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4)  # (B, Q, KVH, G, Dk)
+    return out.permute(0, 3, 1, 2, 4)  # (B, Q, KVH, G, Dv)
 
 
 def attend(q, k, v, *, window: int = 0):
     """Causal (optionally windowed) attention for prefill and the
     all-position forward.
 
-    q: (B, S, H, D); k, v: (B, S, KVH, D); H a multiple of KVH (GQA).
-    Returns (B, S, H, D) in q's dtype.
+    q: (B, S, H, Dk); k: (B, S, KVH, Dk); v: (B, S, KVH, Dv); H a
+    multiple of KVH (GQA); Dv <= Dk (MLA; the banded scan takes any Dv).
+    Returns (B, S, H, Dv) in q's dtype.
     """
     B, Sq, H, Dk = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    if v.shape[-1] != Dk:
-        raise NotImplementedError(
-            "Dv != Dk (MLA) comes with the MLA family (ROADMAP slice F, the "
-            "kernel-less LM families)")
+    Dv = v.shape[-1]
     if Sq != Skv:
         raise ValueError(f"q has {Sq} positions, k and v {Skv}")
 
     if not window or window >= Skv:
-        return ops.flash_attention(q, k, v)  # K7, backward K8a/K8b
+        if Dv == Dk:
+            return ops.flash_attention(q, k, v)  # K7, backward K8a/K8b
+        if Dv > Dk:
+            raise ValueError(f"K7 takes V no wider than Q and K: Dv {Dv}, "
+                             f"Dk {Dk}")
+        return ops.flash_attention(q, k, F.pad(v, (0, Dk - Dv)))[..., :Dv]
 
     # banded: constant KV span per q block = window rounded up + one block
     G = H // KVH
@@ -106,7 +118,7 @@ def attend(q, k, v, *, window: int = 0):
             qr[:, i * bq:(i + 1) * bq], k[:, start:start + span],
             v[:, start:start + span], q_pos, kv_pos[start:start + span],
             window, Dk**-0.5))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dk).to(q.dtype)
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
 def decode_attend(q, k_cache, v_cache, cache_pos, pos: int, *,

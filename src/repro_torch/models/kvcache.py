@@ -1,4 +1,4 @@
-"""Decode caches: full KV and ring (windowed) KV.
+"""Decode caches: full KV, ring (windowed) KV and MLA's compressed cache.
 
 Cache layout is per segment (see ``config.segments``): every leaf carries a
 leading ``L_seg`` axis, so layer ``l`` of a segment reads ``leaf[l]``.  One
@@ -39,14 +39,17 @@ def init_segment_cache(kind, n_layers: int, batch: int, cache_len: int,
         shape = (n_layers, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if mixer == "mla":
-        raise NotImplementedError(
-            "the MLA compressed cache comes with the MLA family (ROADMAP "
-            "slice F, the kernel-less LM families)")
+    if mixer == "mla":  # the compressed latent and the shared rope key
+        return {"ckv": torch.zeros((n_layers, batch, cache_len,
+                                    cfg.mla_kv_lora), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((n_layers, batch, cache_len,
+                                      cfg.mla_rope_dim), dtype=dtype,
+                                     device=device)}
     if mixer in ("rwkv6", "rglru"):
         raise NotImplementedError(
             f"the {mixer} state cache comes with the recurrent families "
-            "(ROADMAP slice F, the kernel-less LM families)")
+            "(ROADMAP slice F3b: RWKV6, RG-LRU)")
     raise ValueError(f"unknown mixer kind {mixer!r}")
 
 

@@ -5,20 +5,27 @@ One parameterized stack.  Layers are grouped into homogeneous segments
 (``config.segments``); each segment's parameters are stacked along a
 leading layer axis as in JAX, so a JAX parameter tree converts leaf for
 leaf (``convert.lm_params_from_jax``), and a Python loop runs a segment's
-layers in turn.  The port serves and trains the GQA/MQA families: mixers
-``full``, ``swa`` and ``local`` with dense SwiGLU or GELU FFNs.  MLA, MoE,
-RWKV6, RG-LRU and the ``embeddings`` frontend raise
-``NotImplementedError`` naming the work that brings them.
+layers in turn.  The port serves and trains the attention families:
+mixers ``full``, ``swa`` and ``local`` (GQA/MQA) and ``mla`` (DeepSeek's
+multi-head latent attention, with its compressed cache and the absorbed
+decode), dense SwiGLU or GELU FFNs and the token-choice MoE FFN
+(``moe.py``), over the ``tokens`` or the ``embeddings`` frontend (audio
+frames, image patches: precomputed (B, S, d_model) embeddings).  RWKV6
+and RG-LRU raise ``NotImplementedError`` naming the slice that brings
+them.
 
 Entry points:
   * ``prefill``      — full-sequence pass filling a decode cache; its
-    attention runs K7 (``attention.attend``);
+    full-causal attention runs K7 (``attention.attend``);
   * ``decode_step``  — one token against the cache;
   * ``forward``      — logits for every position and the aux loss
     (training); with ``cfg.remat`` each block runs under
     ``torch.utils.checkpoint``, so the backward re-runs its forward (K7
     included) before K8a/K8b;
   * ``loss_fn``      — masked next-token cross-entropy plus the aux loss.
+
+Each takes ``tokens`` (its first argument after the config, or the
+cache) or, for the ``embeddings`` frontend, ``embeds=``.
 
 ``rules`` (the JAX package's mesh sharding rules) is not an argument:
 on one device it does nothing, and the multi-device slice brings
@@ -32,30 +39,27 @@ import torch
 import torch.utils.checkpoint
 
 from .._device import resolve_device
-from .attention import attend, decode_attend
+from .attention import NEG_INF, attend, decode_attend
 from .config import ModelConfig, segments
 from .kvcache import init_segment_cache, ring_positions, write_token
 from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
+from .moe import moe_ffn
 
 __all__ = ["init_params", "count_params", "forward", "loss_fn", "prefill",
            "decode_step", "init_cache"]
 
 _LATER = {
-    "mla": "MLA attention comes with the MLA family",
-    "rwkv6": "the RWKV6 mixer comes with the recurrent families",
-    "rglru": "the RG-LRU mixer comes with the recurrent families",
-    "moe": "MoE FFNs come with the MoE family",
-    "channelmix": "the RWKV6 channel mix comes with the recurrent families",
-    "embeddings": "the embeddings frontend (audio/VLM stubs) comes with "
-                  "its families",
+    "rwkv6": "the RWKV6 mixer",
+    "rglru": "the RG-LRU mixer",
+    "channelmix": "the RWKV6 channel mix",
 }
 
 
 def _not_yet(what: str):
     return NotImplementedError(
-        f"{_LATER[what]} (ROADMAP slice F, the kernel-less LM families); "
-        "the port serves and trains the full/swa/local GQA mixers with "
-        "dense FFNs")
+        f"{_LATER[what]} comes with the recurrent families (ROADMAP slice "
+        "F3b: RWKV6, RG-LRU); the port serves and trains the GQA/MQA and "
+        "MLA mixers with dense or MoE FFNs")
 
 
 # ============================================================ initialization
@@ -246,30 +250,105 @@ def _gqa_mixer(p, h, cfg, window, mode, cache, length):
     return out.reshape(B, S, H * Dh) @ p["wo"]
 
 
+def _mla_mixer(p, h, cfg, mode, cache, length):
+    """Multi-head latent attention (DeepSeek-V2).  K and V come from a
+    compressed latent c (``mla_kv_lora`` wide, RMS-normed) and one rope
+    key shared by every head; the cache holds only those two.  Prefill
+    and training expand them to per-head K (nope + rope wide) and V
+    (``mla_v_dim``) and attend (K7, V zero-padded to K's width); decode
+    expands the whole cache each step or, with ``cfg.mla_absorb``, folds
+    ``wk_up`` into q and ``wv_up`` into the output and attends in the
+    latent space (plain PyTorch, float32, as the JAX package)."""
+    B, S, _ = h.shape
+    H = cfg.num_heads
+    nope, rope_d = cfg.mla_nope_dim, cfg.mla_rope_dim
+    vdim, lora = cfg.mla_v_dim, cfg.mla_kv_lora
+    q = (h @ p["wq_mla"]).reshape(B, S, H, nope + rope_d)
+    offset = length if mode == "decode" else 0
+    pos = offset + torch.arange(S, dtype=torch.int32, device=h.device)
+    cos, sin = rotary(pos, rope_d, cfg.rope_theta)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], cos, sin)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+
+    ckv = h @ p["wkv_a"]  # (B, S, lora + rope_d)
+    c = rms_norm(ckv[..., :lora], p["ln_kv"])
+    k_rope = apply_rope(ckv[..., None, lora:], cos, sin)  # (B, S, 1, rope)
+
+    def expand(c_all, kr_all):
+        T = c_all.shape[1]
+        k_nope = (c_all @ p["wk_up"]).reshape(B, T, H, nope)
+        v = (c_all @ p["wv_up"]).reshape(B, T, H, vdim)
+        k = torch.cat([k_nope, kr_all.expand(B, T, H, rope_d)], dim=-1)
+        return k, v
+
+    if mode == "decode":
+        cc = write_token(cache["ckv"], c, length)
+        krc = write_token(cache["krope"], k_rope[:, :, 0], length)
+        cpos = ring_positions(length + 1, cc.shape[1], device=h.device)
+        if cfg.mla_absorb:
+            f32 = torch.float32
+            scale = (nope + rope_d) ** -0.5
+            q_c = torch.einsum("bshn,lhn->bshl", q_nope.to(f32),
+                               p["wk_up"].reshape(lora, H, nope).to(f32))
+            s = torch.einsum("bshl,btl->bhst", q_c, cc.to(f32))[:, :, 0]
+            s = s + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
+                                 krc.to(f32))[:, :, 0]
+            s = s * scale  # (B, H, T)
+            allow = (cpos <= length) & (cpos >= 0)
+            pr = torch.softmax(torch.where(allow, s, NEG_INF), dim=-1)
+            o_c = torch.einsum("bht,btl->bhl", pr, cc.to(f32))
+            out = torch.einsum(
+                "bhl,lhn->bhn", o_c,
+                p["wv_up"].reshape(lora, H, vdim).to(f32),
+            ).to(h.dtype)[:, None]  # (B, 1, H, vdim)
+        else:
+            k_all, v_all = expand(cc, krc[:, :, None, :])
+            out = decode_attend(q, k_all, v_all, cpos, length)
+    else:
+        k_all, v_all = expand(c, k_rope)
+        out = attend(q, k_all, v_all)
+        if mode == "prefill":  # the rest of the fresh cache stays zero
+            cache["ckv"][:, :S] = c
+            cache["krope"][:, :S] = k_rope[:, :, 0]
+    return out.reshape(B, S, H * vdim) @ p["wo"]
+
+
 def _apply_block(kind, p, x, cfg, mode, cache, length):
-    """One residual block: x + mixer(norm(x)), then + ffn(norm(x))."""
+    """One residual block: x + mixer(norm(x)), then + ffn(norm(x)).
+    Returns (x, the block's aux loss: the MoE balance term, else a float32
+    zero)."""
     mixer, ffn = kind
-    if mixer not in ("full", "swa", "local"):
+    if mixer in _LATER:
         raise _not_yet(mixer)
-    if ffn not in ("dense", "dense_big"):
+    if ffn in _LATER:
         raise _not_yet(ffn)
     h = rms_norm(x, p["ln1"])
-    window = cfg.window if mixer in ("swa", "local") else 0
-    x = x + _gqa_mixer(p, h, cfg, window, mode, cache, length)
+    if mixer == "mla":
+        x = x + _mla_mixer(p, h, cfg, mode, cache, length)
+    else:
+        window = cfg.window if mixer in ("swa", "local") else 0
+        x = x + _gqa_mixer(p, h, cfg, window, mode, cache, length)
     h2 = rms_norm(x, p["ln2"])
-    if cfg.mlp_type == "swiglu":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "moe":
+        f, aux, _drop = moe_ffn(h2, p, cfg)
+    elif cfg.mlp_type == "swiglu":
         f = swiglu(h2, p["w1"], p["w3"], p["w2"])
     else:
         f = gelu_mlp(h2, p["w1"], p["w2"])
-    return x + f
+    return x + f, aux
 
 
 def _run_segments(params, x, cfg, mode, caches, length):
-    """Each segment's layers in turn; caches are updated in place.  In
-    ``train`` mode with ``cfg.remat`` every block runs under
-    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` per
-    scanned block): its activations are recomputed in the backward."""
+    """Each segment's layers in turn; caches are updated in place.
+    Returns (x, the blocks' aux losses summed in float32, in layer order
+    as the JAX package's scan carries them).  In ``train`` mode with
+    ``cfg.remat`` every block runs under ``torch.utils.checkpoint`` (the
+    JAX package's ``jax.checkpoint`` per scanned block): its activations
+    are recomputed in the backward."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, ((kind, n), p_seg) in enumerate(zip(segments(cfg),
                                                 params["segments"])):
         for i in range(n):
@@ -277,37 +356,45 @@ def _run_segments(params, x, cfg, mode, caches, length):
             c_l = ({name: leaf[i] for name, leaf in caches[si].items()}
                    if caches is not None else None)
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
+                x, aux = torch.utils.checkpoint.checkpoint(
                     _apply_block, kind, p_l, x, cfg, mode, c_l, length,
                     use_reentrant=False)
             else:
-                x = _apply_block(kind, p_l, x, cfg, mode, c_l, length)
-    return x
+                x, aux = _apply_block(kind, p_l, x, cfg, mode, c_l, length)
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ============================================================== entry points
-def _embed_tokens(params, cfg, tokens):
+def _embed_in(params, cfg, tokens=None, embeds=None):
+    """(B, S, d) inputs: the token embeddings, or for the ``embeddings``
+    frontend the caller's embeddings cast to the model's dtype."""
     if cfg.frontend == "embeddings":
-        raise _not_yet("embeddings")
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes embeddings: pass embeds=")
+        return embeds.to(cfg.dtype)
+    if tokens is None:
+        raise ValueError(f"{cfg.name} takes tokens")
     return params["embed"][tokens]
 
 
-def forward(params, cfg: ModelConfig, tokens):
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None):
     """Training forward: (logits (B, S, V) for every position of
-    ``tokens`` (B, S), the aux loss).  The aux loss is the MoE balance
-    term in the JAX package; the ported dense families have none, so it
-    is a float32 zero."""
-    x = _run_segments(params, _embed_tokens(params, cfg, tokens), cfg,
-                      "train", None, None)
+    ``tokens`` (B, S) or ``embeds`` (B, S, d), the aux loss: the MoE
+    balance terms summed over blocks, a float32 zero without MoE)."""
+    x, aux = _run_segments(params, _embed_in(params, cfg, tokens, embeds),
+                           cfg, "train", None, None)
     logits = rms_norm(x, params["final_norm"]) @ params["lm_head"]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01):
     """(ce + aux_coef * aux, {"ce", "aux"}): next-token cross-entropy in
     float32 over the positions whose label is >= 0, as the JAX package's
-    ``loss_fn``.  ``batch``: {"tokens" (B, S), "labels" (B, S)}."""
-    logits, aux = forward(params, cfg, batch["tokens"])
+    ``loss_fn``.  ``batch``: {"tokens" (B, S) or "embeds" (B, S, d),
+    "labels" (B, S)}."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          embeds=batch.get("embeds"))
     labels = batch["labels"]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     # a masked label (< 0) gathers column 0; the mask drops it
@@ -326,21 +413,24 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     ]
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None):
-    """Full-sequence pass over ``tokens`` (B, S) -> (last-position logits
-    (B, V), caches, length S)."""
-    x = _embed_tokens(params, cfg, tokens)
+def prefill(params, cfg: ModelConfig, tokens=None,
+            cache_len: int | None = None, *, embeds=None):
+    """Full-sequence pass over ``tokens`` (B, S) or ``embeds`` (B, S, d)
+    -> (last-position logits (B, V), caches, length S)."""
+    x = _embed_in(params, cfg, tokens, embeds)
     B, S = x.shape[0], x.shape[1]
     caches = init_cache(cfg, B, cache_len or S, device=x.device)
-    x = _run_segments(params, x, cfg, "prefill", caches, None)
+    x, _ = _run_segments(params, x, cfg, "prefill", caches, None)
     logits = rms_norm(x[:, -1], params["final_norm"]) @ params["lm_head"]
     return logits, caches, S
 
 
-def decode_step(params, caches, length: int, cfg: ModelConfig, tokens):
-    """One-token decode.  tokens: (B,) int.  Writes the token into
-    ``caches`` in place and returns (logits (B, V), caches, length + 1)."""
-    x = _embed_tokens(params, cfg, tokens)[:, None, :]
-    x = _run_segments(params, x, cfg, "decode", caches, length)
+def decode_step(params, caches, length: int, cfg: ModelConfig, tokens=None,
+                *, embeds=None):
+    """One-step decode of ``tokens`` (B,) int or ``embeds`` (B, d).
+    Writes the step into ``caches`` in place and returns (logits (B, V),
+    caches, length + 1)."""
+    x = _embed_in(params, cfg, tokens, embeds)[:, None, :]
+    x, _ = _run_segments(params, x, cfg, "decode", caches, length)
     logits = rms_norm(x[:, 0], params["final_norm"]) @ params["lm_head"]
     return logits, caches, length + 1

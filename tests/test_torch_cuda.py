@@ -599,6 +599,117 @@ def test_prefill_on_the_card_matches_the_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
 
+# ------------------------------------------- MoE, MLA, embeddings (F3a)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dk,Dv", [(192, 128), (24, 16)])
+def test_attend_dv_not_dk_matches_plain(cuda, dtype, Dk, Dv):
+    """MLA's attention (V narrower than Q and K) runs K7 on V zero-padded
+    to Dk: forward against the
+    materialized float32 softmax(q k^T) v, at K7's tolerances."""
+    from repro_torch.kernels.ref import causal_scores
+    from repro_torch.models import attention
+
+    B, S, H = 2, 300, 4
+    gen = torch.Generator(device=cuda).manual_seed(Dk + Dv)
+    q, k = (torch.randn((B, S, H, Dk), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn((B, S, H, Dv), generator=gen, device=cuda).to(dtype)
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        o = attention.attend(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches - before == 1
+    p = torch.softmax(causal_scores(q, k), dim=-1)  # (B, H, 1, S, S)
+    want = torch.einsum("bkgqt,btkd->bqkgd", p, v.float()).reshape(
+        B, S, H, Dv)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (5e-3, 1e-2)
+    assert o.dtype == dtype and o.shape == (B, S, H, Dv)
+    torch.testing.assert_close(o.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("arch,capacity_factor", [
+    ("qwen3_moe_235b", 1.25), ("deepseek_v2_lite", 1.25),
+    ("deepseek_v2_lite", 0.3)])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch, capacity_factor):
+    """The MoE FFN in float32 on the card against the CPU on the same
+    inputs: expert ids, queue positions, kept slots and drops equal (x and
+    the router on a grid, so the router's logits are exact), y within
+    1e-5 of max|y|, aux within 1e-6."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(smoke_config(arch),
+                              capacity_factor=capacity_factor)
+    gen = torch.Generator().manual_seed(11)
+    d, E, h = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+    params = {"router": torch.randint(-8, 9, (d, E), generator=gen) / 64.0,
+              **{n: 0.1 * torch.randn(shape, generator=gen) for n, shape in
+                 (("experts_w1", (E, d, h)), ("experts_w3", (E, d, h)),
+                  ("experts_w2", (E, h, d)))}}
+    if cfg.moe_num_shared:
+        hs = cfg.moe_num_shared * h
+        params.update({n: 0.1 * torch.randn(shape, generator=gen)
+                       for n, shape in (("shared_w1", (d, hs)),
+                                        ("shared_w3", (d, hs)),
+                                        ("shared_w2", (hs, d)))})
+    x = torch.randint(-8, 9, (4, 64, d), generator=gen) / 8.0
+    want = moe.moe_ffn(x, params, cfg)
+    got = moe.moe_ffn(x.to(cuda), _to(params, cuda), cfg)
+    T_ = x.shape[0] * x.shape[1]
+    capacity = max(1, int(T_ * cfg.moe_top_k * capacity_factor / E))
+    routes = [moe._route(x.reshape(T_, d).to(dev), params["router"].to(dev),
+                         cfg.moe_top_k)[1] for dev in ("cpu", cuda)]
+    assert torch.equal(routes[1].cpu(), routes[0])
+    for a, b in zip(moe._dispatch(routes[0], capacity, 0, E, E),
+                    moe._dispatch(routes[1], capacity, 0, E, E)):
+        assert torch.equal(b.cpu(), a)
+    assert float(got[2]) == float(want[2])
+    if capacity_factor < 1:
+        assert float(want[2]) > 0.0
+    scale = float(want[0].abs().max())
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-5 * scale
+    assert abs(float(got[1]) - float(want[1])) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite", "qwen3_moe_235b",
+                                  "musicgen_medium", "llava_next_34b"])
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """Prefill and 3 decode steps (MLA decode expanded, then absorbed) of
+    the smoke config in float32, the card against the CPU with the same
+    weights and inputs, within 1e-4 max|logits|; K7 once a layer of the
+    prefill and never in decode."""
+    import dataclasses
+
+    cfg = _smoke_f32(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, cuda)
+    gen = torch.Generator().manual_seed(5)
+    if cfg.frontend == "embeddings":
+        ins = torch.randn((2, 40 + 3, cfg.d_model), generator=gen)
+        pre, steps = {"embeds": ins[:, :40]}, [
+            {"embeds": ins[:, 40 + i]} for i in range(3)]
+    else:
+        ins = torch.randint(0, cfg.vocab_size, (2, 43), generator=gen)
+        pre, steps = {"tokens": ins[:, :40]}, [
+            {"tokens": ins[:, 40 + i]} for i in range(3)]
+    before = flash_attention_kernel.launches
+    want, cw, nw = T.prefill(params, cfg, cache_len=44, **pre)
+    got, cg, ng = T.prefill(on_card, cfg, cache_len=44, **_to(pre, cuda))
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches - before == cfg.num_layers
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    before = flash_attention_kernel.launches
+    for i, step in enumerate(steps):
+        c = dataclasses.replace(cfg, mla_absorb=i == 2)
+        want, cw, nw = T.decode_step(params, cw, nw, c, **step)
+        got, cg, ng = T.decode_step(on_card, cg, ng, c, **_to(step, cuda))
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before
+
+
 # ------------------------------------------------------------- K8 (training)
 def _to(tree, dev):
     if isinstance(tree, dict):

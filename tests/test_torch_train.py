@@ -242,6 +242,28 @@ def test_corpus_is_fixed_and_cycles():
     assert int(a["tokens"].max()) < 100 and int(a["tokens"].min()) >= 0
 
 
+def test_corpus_draws_embeddings_for_the_embeddings_frontend():
+    a = train.corpus_batch(0, 1, 4, 8, 100, "cpu", embed_dim=16)
+    b = train.corpus_batch(0, 5, 4, 8, 100, "cpu", embed_dim=16)
+    assert "tokens" not in a and a["embeds"].shape == (4, 8, 16)
+    assert a["embeds"].dtype == torch.bfloat16
+    assert torch.equal(a["embeds"], b["embeds"])  # the corpus cycles
+    tok = train.corpus_batch(0, 1, 4, 8, 100, "cpu")
+    assert torch.equal(a["labels"], tok["labels"])
+    assert abs(float(a["embeds"].float().std()) - 1.0) < 0.2
+
+
+@pytest.mark.parametrize("arch", ["musicgen_medium", "deepseek_v2_lite",
+                                  "qwen3_moe_235b"])
+def test_lm_driver_trains_the_moe_mla_and_embeddings_families(arch):
+    """Two steps of the smoke config through the CLI, finite losses (the
+    embeddings frontend draws its frames; MoE adds its aux loss)."""
+    rep = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch",
+                      "4", "--seq-len", "16", "--device", "cpu"])
+    assert rep["steps"] == 2 and len(rep["losses"]) == 2
+    assert all(np.isfinite(rep["losses"]))
+
+
 # ---------------------------------------------------------------------- CLI
 def test_lm_driver_secure_agg_loss_decreases(tmp_path):
     """As the JAX test, on a GQA arch (RWKV6 is not ported)."""

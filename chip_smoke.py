@@ -192,9 +192,35 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (c) layers within 1e-4; a ``{"serve_f3a": ...}`` line a model
    (prefill tokens/s, decode ms a step, peak bytes, the card) and a
    ``{"moe_check": ...}`` line;
+17. the recurrent families whole, after phase 16, one model on the card
+   at a time: (d) K7 against its plain version at RecurrentGemma's local
+   attention in serving (bf16, B 4, S 2048, 16 query heads on 1 KV head
+   of 256); (e) one layer of RWKV6-3B (d 2560, 40 heads of 64) and one
+   RG-LRU block of RecurrentGemma-9B (W 4096, conv 4) at B 2, S 256 in
+   float32, the card against the CPU on the same seeded inputs:
+   ``rwkv6_mix`` per token and chunked (``rwkv_chunk`` 16), its channel
+   mix and ``rglru_block``, each output and final state within 1e-4 of
+   its max, the chunked form on the card within the same of the
+   per-token one; each loop alone at the serving shape (B 4, S 2048): ms
+   a layer and its kernels (a ``{"recurrent_check": ...}`` line); then
+   (a) RWKV6-3B whole (``configs/rwkv6_3b.py``: 32 layers, d 2560, 40
+   heads of 64, d_ff 8960, vocab 65,536; 3,073,231,360 parameters) and
+   (b) RecurrentGemma-9B whole (``configs/recurrentgemma_9b.py``: 38
+   layers, 26 RG-LRU of width 4096 and 12 local-attention layers, window
+   2048, MQA of 256; 9,572,782,080 parameters), bf16 from a seed, each
+   serving phase 10's traffic through ``serve_requests``: K7 once per
+   local layer of each prefill (24 for (b)) and nothing else, every
+   logit finite; the continuation at batch 1 on P = 512 (and for (b) P =
+   2,100, past the window: the banded scan, the rolled ring cache), in
+   float32 (the whole model converted in place) within 1e-4 max|logits|
+   and in bf16 within phase 16's bound; a ``{"serve_f3b": ...}`` line a
+   model (prefill tokens/s, decode ms a step, peak bytes, the card), and
+   with ``--profile`` a ``profile`` line a model of one batch, the
+   recurrences' step ops in categories of their own;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call;
-   K7 also at phase 16's three shapes (MLA's bound and SDPA call count
+   K7 also at RecurrentGemma's serving shape and at phase 16's three
+   shapes (MLA's bound and SDPA call count
    the function's own work: V and o at 128 columns, 2 x 192 + 2 x 128
    operations a pair), and with K8a and K8b at the head_dim 256 shape, K6 also at one
    institution's 25,000 x 128, K1 and K2 also at the λ path's round (K1
@@ -362,6 +388,20 @@ F3A_K7_CASES = (
     ("musicgen", 4, 2048, 24, 24, 64, "bfloat16", None),
 )
 MLA_DV = 128
+# phase 17: the recurrent families whole, one model on the card at a time:
+# (arch, parameters, the continuation's prompt lengths P: RecurrentGemma's
+# 2,100 is past its 2,048-token window, so its prefill takes the banded
+# scan and its decode the rolled ring)
+F3B_MODELS = (("rwkv6_3b", 3_073_231_360, (512,)),
+              ("recurrentgemma_9b", 9_572_782_080, (512, 2100)))
+# K7 at RecurrentGemma's local attention in serving (bf16, B 4, S 2048,
+# 16 query heads on 1 KV head of 256): checked at K7_TOL, timed in phase 12
+F3B_K7_CASES = (("recurrentgemma", 4, 2048, 16, 1, 256, "bfloat16", None),)
+# (e) the recurrent modules at full width in float32, the card against
+# the CPU: one layer of RWKV6-3B and one of RecurrentGemma-9B at B 2, S
+# 256, outputs and states within this share of their max; RWKV6 also
+# chunked (rwkv_chunk 16), held to its per-token form alike
+F3B_CHECK_B, F3B_CHECK_S, F3B_CHECK_CHUNK, F3B_CHECK_TOL = 2, 256, 16, 1e-4
 # moe_ffn at Qwen3-MoE's prefill (T = 4 x 2048, E 128, top 8, capacity
 # 640) in float32 on the card against the CPU: ids, slots and drops
 # equal, y within this share of max|y| (summation order)
@@ -472,6 +512,21 @@ SERVE_CATEGORIES = (
 F3A_CATEGORIES = SERVE_CATEGORIES[:3] + (
     ("MoE routing and dispatch", ("sort", "Sort", "scatter", "gather",
                                   "index", "scan", "cumsum")),
+) + SERVE_CATEGORIES[3:]
+
+
+# phase 17's serving runs: the recurrences' steps apart from the rest
+# (RWKV6's per-token r . S products are cuBLAS's small batched gemv, as
+# are decode attention's float32 products; the elementwise multiplies,
+# adds and casts of both loops, which the blocks' own few elementwise ops
+# a layer join)
+F3B_CATEGORIES = SERVE_CATEGORIES[:1] + (
+    ("recurrence steps: r . S products (RWKV6), decode attention "
+     "products", ("gemmSN", "gemv", "gemmk1")),
+) + SERVE_CATEGORIES[2:3] + (
+    ("recurrence steps: elementwise (mul, add, cast)", (
+        "MulFunctor", "AddFunctor", "CUDAFunctor_add", "mul_kernel",
+        "add_kernel", "bfloat16_copy", "direct_copy")),
 ) + SERVE_CATEGORIES[3:]
 
 
@@ -1193,6 +1248,21 @@ def cut_layers(params, cfg, n: int, dtype):
     return out, c
 
 
+def to_float32_in_place(params, cfg):
+    """(``params`` converted to float32 leaf by leaf in place, the largest
+    first, each bf16 leaf freed as its copy is made: the peak is the
+    float32 model plus the last, smallest leaf; ``cfg`` in float32)."""
+    import dataclasses
+
+    import torch
+
+    leaves = [(tree, name) for tree in (params, *params["segments"])
+              for name, leaf in tree.items() if torch.is_tensor(leaf)]
+    for tree, name in sorted(leaves, key=lambda tn: -tn[0][tn[1]].numel()):
+        tree[name] = tree[name].float()
+    return params, dataclasses.replace(cfg, dtype_str="float32")
+
+
 def serve_frames(params, cfg, frames, prompt: int, steps: int):
     """The embeddings frontend's serving loop (MusicGen): one prefill of
     ``frames[:, :prompt]``, then ``steps`` decode steps, each on the next
@@ -1353,12 +1423,7 @@ def f3a_phase(dev, smi, counts, arch, layers, n_params, f32_layers,
     # leaf), else the first f32_layers layers
     n32 = f32_layers or cfg.num_layers
     if n32 == cfg.num_layers:
-        p32, cfg32 = params, dataclasses.replace(cfg, dtype_str="float32")
-        leaves = [(tree, name) for tree in (p32, *p32["segments"])
-                  for name, leaf in tree.items() if torch.is_tensor(leaf)]
-        for tree, name in sorted(leaves, key=lambda tn: -tn[0][tn[1]]
-                                 .numel()):
-            tree[name] = tree[name].float()
+        p32, cfg32 = to_float32_in_place(params, cfg)
     else:
         p32, cfg32 = cut_layers(params, cfg, n32, torch.float32)
     del params
@@ -1429,6 +1494,275 @@ def f3a_phase(dev, smi, counts, arch, layers, n_params, f32_layers,
         check(out["absorbed_vs_expanded_f32_max_abs_err"]
               <= CONT_TOL_F32 * scale32,
               f"{arch} float32 absorbed vs expanded decode {out}")
+    return out
+
+
+def _recurrent_layer(cfg, kind, gen):
+    """Seeded float32 leaves of one block's mixer (and RWKV6's channel
+    mix) on the CPU: token-shift mixes in [0, 1], decay logits around -1,
+    RG-LRU's lambda the init's linspace, the rest normal, matrices scaled
+    by fan_in**-0.5."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for name, shape in sorted(T._block_param_shapes(cfg, kind).items()):
+        if not name.startswith(("rwkv", "lru")):
+            continue
+        if name.startswith("rwkv_mu"):
+            out[name] = torch.rand(shape, generator=gen)
+        elif name == "rwkv_w0":
+            out[name] = -1.0 + 0.5 * torch.randn(shape, generator=gen)
+        elif name == "lru_lambda":
+            out[name] = torch.linspace(1.0, 4.0, shape[0])
+        elif len(shape) == 2:
+            out[name] = torch.randn(shape, generator=gen) * shape[0] ** -0.5
+        else:
+            out[name] = 0.5 * torch.randn(shape, generator=gen)
+    return out
+
+
+def _kernel_count(fn) -> int:
+    """CUDA kernels ``fn()`` launches (one ``torch.profiler`` run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def recurrent_check(dev):
+    """Phase 17 (e): one RWKV6-3B layer (d 2560, 40 heads of 64, d_ff
+    8960) and one RecurrentGemma-9B recurrent block (W 4096, conv 4) at B
+    2, S 256 in float32, the card against the CPU on the same seeded
+    inputs: ``rwkv6_mix`` per token and chunked (``rwkv_chunk`` 16),
+    ``rwkv6_channelmix`` and ``rglru_block``, each output and final state
+    within ``F3B_CHECK_TOL`` of its max on the CPU; the chunked form on
+    the card within the same of the per-token one.  Then each loop alone
+    at its serving shape (B 4, S 2048) on the card: ms a layer (CUDA
+    events, 3 calls) and the kernels it launches (the profiler)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    f32 = "float32"
+    gen = torch.Generator().manual_seed(SEED + 17)
+    B, S_ = F3B_CHECK_B, F3B_CHECK_S
+    out = {"B": B, "S": S_, "tol": F3B_CHECK_TOL}
+
+    def held(what, card, cpu):
+        err = float((card.cpu() - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        out[what] = {"max_abs_err": err, "max_abs": scale}
+        check(err <= F3B_CHECK_TOL * scale,
+              f"{what}: card vs CPU {err} (max {scale})")
+
+    def on(tree):
+        return {n: t.to(dev) for n, t in tree.items()}
+
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), dtype_str=f32)
+    p = _recurrent_layer(cfg, ("rwkv6", "channelmix"), gen)
+    x = torch.randn((B, S_, cfg.d_model), generator=gen)
+    pc, xc = on(p), x.to(dev)
+    per_token = None
+    for chunk in (0, F3B_CHECK_CHUNK):
+        c = dataclasses.replace(cfg, rwkv_chunk=chunk)
+        with torch.inference_mode():
+            y_cpu, (st_cpu, _) = ssm.rwkv6_mix(p, x, c)
+            y, (st, _) = ssm.rwkv6_mix(pc, xc, c)
+        name = f"rwkv6_mix chunk {chunk}" if chunk else "rwkv6_mix"
+        held(f"{name} y", y, y_cpu)
+        held(f"{name} state", st, st_cpu)
+        if per_token is None:
+            per_token = (y.cpu(), st.cpu())
+        else:  # the chunked form against the per-token one, both on card
+            held("rwkv6_mix chunked vs per-token y", y, per_token[0])
+            held("rwkv6_mix chunked vs per-token state", st, per_token[1])
+    with torch.inference_mode():
+        held("rwkv6_channelmix y", ssm.rwkv6_channelmix(pc, xc)[0],
+             ssm.rwkv6_channelmix(p, x)[0])
+    del p, pc
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b"), dtype_str=f32)
+    p = _recurrent_layer(cfg, ("rglru", "dense"), gen)
+    x = torch.randn((B, S_, cfg.d_model), generator=gen)
+    with torch.inference_mode():
+        y_cpu, (h_cpu, tail_cpu) = ssm.rglru_block(p, x, cfg)
+        y, (h, tail) = ssm.rglru_block(on(p), x.to(dev), cfg)
+    held("rglru_block y", y, y_cpu)
+    held("rglru_block h", h, h_cpu)
+    held("rglru_block conv tail", tail, tail_cpu)
+    del p
+
+    # the loops alone at the serving shape, the inputs the card's
+    Bs, Ss = SERVE_BATCH, SERVE_PROMPT
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rcfg = get_config("rwkv6_3b")
+    H, D = rcfg.num_heads, rcfg.rwkv_head_dim
+    rkv = [torch.randn((Bs, Ss, H, D), generator=g, device=dev)
+           for _ in range(3)]
+    w = torch.rand((Bs, Ss, H, D), generator=g, device=dev) * 0.5 + 0.5
+    u = torch.randn((H, D), generator=g, device=dev)
+    s0 = torch.zeros((Bs, H, D, D), device=dev)
+    W = get_config("recurrentgemma_9b").lru_width
+    a = torch.rand((Bs, Ss, W), generator=g, device=dev) * 0.5 + 0.5
+    gx = torch.randn((Bs, Ss, W), generator=g, device=dev).to(
+        torch.bfloat16)
+    h0 = torch.zeros((Bs, W), device=dev)
+    loops = {
+        "rwkv6_recurrence": lambda: ssm._rwkv6_recurrence(*rkv, w, u, s0),
+        "rglru_recurrence": lambda: ssm._rglru_recurrence(
+            a, gx, h0, torch.bfloat16)}
+    for name, fn in loops.items():
+        with torch.inference_mode():
+            fn()  # warm-up
+            ms = []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            out[f"{name} serving shape"] = {
+                "B": Bs, "S": Ss, "ms_per_layer": statistics.median(ms),
+                "kernels_per_layer": _kernel_count(fn)}
+    del rkv, w, a, gx
+    torch.cuda.empty_cache()
+    return out
+
+
+def f3b_phase(dev, smi, counts, arch, n_params, prompts,
+              profile_repeats: int = 0):
+    """Phase 17 (a)/(b): one recurrent model whole on the card (bf16 from
+    ``SEED``), served at phase 10's traffic (8 requests of 2048 tokens,
+    batch 4, 32 greedy tokens, through ``serve_requests``): K7 once per
+    full-causal (local) layer of each prefill and nothing else, every
+    logit finite; then the continuation at batch 1 for each P of
+    ``prompts``: decode after a P-token prefill against the (P + 1)-token
+    prefill's last logits, with the whole model converted to float32 in
+    place within ``CONT_TOL_F32`` max|logits| and in bf16 within phase
+    16's bound (the larger of ``CONT_TOL`` max|logits| and twice the bf16
+    prefill's distance from the float32 prefill).  With
+    ``profile_repeats``, that many timed serving runs of one batch and one
+    under ``torch.profiler`` (a ``profile`` line).  Frees the model;
+    returns its line's fields."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import block_kinds
+
+    reset, read = counts
+    cfg = get_config(arch)
+    check(T.count_params(cfg) == n_params,
+          f"{arch} params {T.count_params(cfg)}")
+    local = sum(1 for m, _ in block_kinds(cfg) if m == "local")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (
+        SERVE_REQUESTS, max(SERVE_PROMPT, max(prompts) + 1)),
+        generator=gen, device=dev)
+    inputs = tokens[:, :SERVE_PROMPT]
+
+    def run(rows=SERVE_REQUESTS):
+        return serve_requests(params, cfg, inputs[:rows], SERVE_BATCH,
+                              SERVE_NEW)
+
+    serve_requests(params, cfg, inputs[:SERVE_BATCH, :64], SERVE_BATCH,
+                   2)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    completed, stats = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_kernel": stats["batches"] * local}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"{arch} launches {launches}: K7 once per "
+          f"local layer ({local}) of each of {stats['batches']} prefills, "
+          "nothing else")
+    check(stats["nonfinite_logits"] == 0,
+          f"{arch}: {stats['nonfinite_logits']} non-finite logits")
+    prefill_tokens = stats["batches"] * SERVE_BATCH * SERVE_PROMPT
+    if profile_repeats:  # one batch: its prefill and decode
+        print(json.dumps({"profile": profile_run(
+            lambda: run(SERVE_BATCH), lambda r: r[1]["batches"],
+            f"serve {arch}", profile_repeats, categories=F3B_CATEGORIES),
+            "card": smi}))
+
+    def continuation(p, c, P):
+        """(decode after a P-token prefill, the last logits of a (P +
+        1)-token prefill), float32, at batch 1."""
+        seq = tokens[:1, :P + 1]
+        with torch.inference_mode():
+            _, caches, n = T.prefill(p, c, seq[:, :P], cache_len=P + 1)
+            dec, _, _ = T.decode_step(p, caches, n, c, seq[:, P])
+            del caches
+            ref, _, _ = T.prefill(p, c, seq)
+        return dec.float(), ref.float()
+
+    bf16 = {P: continuation(params, cfg, P) for P in prompts}
+    p32, cfg32 = to_float32_in_place(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = {P: continuation(p32, cfg32, P) for P in prompts}
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    cont = {}
+    for P in prompts:
+        (dec, ref), (dec32, ref32) = bf16[P], f32[P]
+        noise = float((ref - ref32).abs().max())
+        cont[P] = {
+            "max_abs_err": float((dec - ref).abs().max()),
+            "max_abs_logit": float(ref.abs().max()),
+            "f32_max_abs_err": float((dec32 - ref32).abs().max()),
+            "f32_max_abs_logit": float(ref32.abs().max()),
+            "bf16_vs_f32_prefill_max_abs_err": noise,
+            # phase 16's rule: the bf16 layers move the prefill's logits
+            # 26% (RWKV6-3B) and 5-6% (RecurrentGemma-9B) from the float32
+            # prefill's; decode vs prefill read 2.0% and 3.5-3.9% in bf16
+            # where float32 holds 1.6e-5 at most
+            "bf16_bound": max(CONT_TOL * float(ref.abs().max()), 2 * noise),
+            "argmax_agreement": float(
+                (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+            "past_window": bool(cfg.window and P > cfg.window)}
+    out = {
+        "arch": cfg.name, "num_layers": cfg.num_layers, "reduced": {},
+        "params": n_params, "local_attention_layers": local,
+        "batch": SERVE_BATCH, "requests": SERVE_REQUESTS,
+        "prompt_len": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+        "seconds": secs, "prefill_seconds": stats["prefill_seconds"],
+        "prefill_tokens_per_second": prefill_tokens
+        / stats["prefill_seconds"],
+        "decode_steps": stats["decode_steps"],
+        "decode_ms_per_step": stats["decode_seconds"]
+        / stats["decode_steps"] * 1e3,
+        "tokens_generated": sum(len(v) for v in completed.values()),
+        "launches": launches, "continuation": cont,
+        "init_params_seconds": init_s, "peak_bytes_allocated": peak,
+        "sample_output": completed[0][:8], "card": smi,
+    }
+    print(json.dumps({"serve_f3b": out}))  # before its checks
+    for P, c in cont.items():
+        check(c["f32_max_abs_err"] <= CONT_TOL_F32 * c["f32_max_abs_logit"],
+              f"{arch} float32 continuation at P {P}: {c}")
+        check(c["max_abs_err"] <= c["bf16_bound"],
+              f"{arch} bf16 continuation at P {P}: {c}")
     return out
 
 
@@ -2988,6 +3322,22 @@ def main() -> int:
                                   f32_layers,
                                   args.repeats if args.profile else 0)
 
+    # -- 17. the recurrent families (RWKV6, RG-LRU) -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    f3b_k7_err, f3b_k7_args = check_k7(
+        dev, F3B_K7_CASES, tuple(c[0] for c in F3B_K7_CASES))
+    print(f"K7 vs plain: {[c[0] for c in F3B_K7_CASES]} within tolerance, "
+          f"max|do| {f3b_k7_err:.3e}")
+    rec_out = recurrent_check(dev)
+    print(json.dumps({"recurrent_check": rec_out, "card": smi}))
+    f3b_out = {}
+    for arch, n_params, prompts in F3B_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        f3b_out[arch] = f3b_phase(dev, smi, counts, arch, n_params, prompts,
+                                  args.repeats if args.profile else 0)
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -3091,6 +3441,8 @@ def main() -> int:
     k7_shapes.update({name: k7_timing(f3a_k7_args[name],
                                       MLA_DV if how == "v128" else None)
                       for name, *_, how in F3A_K7_CASES})
+    k7_shapes.update({name: k7_timing(f3b_k7_args[name])
+                      for name, *_ in F3B_K7_CASES})
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
     entries = [
@@ -3165,7 +3517,8 @@ def main() -> int:
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             err=max(k7_err, f3a_k7_err), **k7_main, shapes=k7_shapes),
+             err=max(k7_err, f3a_k7_err, f3b_k7_err), **k7_main,
+             shapes=k7_shapes),
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:145",
@@ -3186,7 +3539,7 @@ def main() -> int:
                "secure_train": secure_out["launches"],
                "wires": wire_launches,
                **{f"serve_{arch}": out["launches"]
-                  for arch, out in f3a_out.items()}}
+                  for arch, out in (*f3a_out.items(), *f3b_out.items())}}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -3252,6 +3605,12 @@ def main() -> int:
             "prefill_tokens_per_second", "decode_ms_per_step",
             "peak_bytes_allocated", "continuation_max_abs_err",
             "continuation_f32_max_abs_err")} for arch, out in f3a_out.items()},
+        "f3b_serve": {arch: {k: out[k] for k in (
+            "prefill_tokens_per_second", "decode_ms_per_step",
+            "peak_bytes_allocated", "continuation")}
+            for arch, out in f3b_out.items()},
+        "recurrence_loops": {k: v for k, v in rec_out.items()
+                             if k.endswith("serving shape")},
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

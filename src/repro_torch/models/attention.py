@@ -11,10 +11,11 @@ K8.  Windowed attention over a prompt longer than
 the window keeps the JAX package's banded online-softmax scan, a Python
 loop over query blocks whose key span is constant (window + one block),
 in plain PyTorch, differentiated by torch autograd as JAX differentiates
-``_online_block_scan``.  Decode attends one token over the cache, in plain
-PyTorch, as the JAX package does.  The JAX function's ``q_offset``
-(chunked prefill) and ``q_block`` options come with the first ported
-caller that needs them.
+``_online_block_scan``; a prompt that is not a multiple of the query
+block (which JAX refuses) is padded at its tail.  Decode attends one
+token over the cache, in plain PyTorch, as the JAX package does.  The
+JAX function's ``q_offset`` (chunked prefill) and ``q_block`` options
+come with the first ported caller that needs them.
 
 V may be narrower than Q and K (MLA: Dk 192, Dv 128).  K7 takes one
 head_dim for q, k and v, so full-causal attention zero-pads V's last axis
@@ -106,7 +107,12 @@ def attend(q, k, v, *, window: int = 0):
     dev = q.device
     bq = min(Q_BLOCK, Sq)
     if Sq % bq:
-        raise ValueError(f"pad S ({Sq}) to a multiple of {bq}")
+        # JAX asserts S % q_block == 0; the port pads the tail with zero
+        # tokens, which causality hides from every real query, and drops
+        # their rows
+        pad = bq - Sq % bq
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        return attend(q, k, v, window=window)[:, :Sq]
     span = min(Skv, ((window + bq + bq - 1) // bq) * bq)
     qr = q.reshape(B, Sq, KVH, G, Dk)
     kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)

@@ -1,4 +1,5 @@
-"""Decode caches: full KV, ring (windowed) KV and MLA's compressed cache.
+"""Decode caches: full KV, ring (windowed) KV, MLA's compressed cache and
+the recurrent mixers' states.
 
 Cache layout is per segment (see ``config.segments``): every leaf carries a
 leading ``L_seg`` axis, so layer ``l`` of a segment reads ``leaf[l]``.  One
@@ -7,6 +8,11 @@ slot occupancy and absolute positions derive from it.
 
 Ring semantics (windowed attention): slot s of a T-slot cache holds the
 most recent position p < length with p % T == s.
+
+The recurrent mixers keep a fixed-size state whatever ``cache_len`` is:
+RWKV6 its (H, D, D) float32 state and the last token's inputs to the
+time mix (``prev_mix``) and the channel mix (``prev_cm``); RG-LRU its
+float32 carry ``h`` and the conv's last ``conv_width - 1`` inputs.
 
 Unlike the JAX package's functional caches, the port writes tokens into
 the cache in place: a decode step then moves one token's K/V per layer
@@ -46,10 +52,20 @@ def init_segment_cache(kind, n_layers: int, batch: int, cache_len: int,
                 "krope": torch.zeros((n_layers, batch, cache_len,
                                       cfg.mla_rope_dim), dtype=dtype,
                                      device=device)}
-    if mixer in ("rwkv6", "rglru"):
-        raise NotImplementedError(
-            f"the {mixer} state cache comes with the recurrent families "
-            "(ROADMAP slice F3b: RWKV6, RG-LRU)")
+    if mixer == "rwkv6":
+        H, D = cfg.num_heads, cfg.rwkv_head_dim
+        return {"state": torch.zeros((n_layers, batch, H, D, D),
+                                     dtype=torch.float32, device=device),
+                "prev_mix": torch.zeros((n_layers, batch, cfg.d_model),
+                                        dtype=dtype, device=device),
+                "prev_cm": torch.zeros((n_layers, batch, cfg.d_model),
+                                       dtype=dtype, device=device)}
+    if mixer == "rglru":
+        W = cfg.lru_width
+        return {"h": torch.zeros((n_layers, batch, W), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((n_layers, batch, cfg.conv_width - 1, W),
+                                    dtype=dtype, device=device)}
     raise ValueError(f"unknown mixer kind {mixer!r}")
 
 

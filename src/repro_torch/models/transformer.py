@@ -5,14 +5,21 @@ One parameterized stack.  Layers are grouped into homogeneous segments
 (``config.segments``); each segment's parameters are stacked along a
 leading layer axis as in JAX, so a JAX parameter tree converts leaf for
 leaf (``convert.lm_params_from_jax``), and a Python loop runs a segment's
-layers in turn.  The port serves and trains the attention families:
-mixers ``full``, ``swa`` and ``local`` (GQA/MQA) and ``mla`` (DeepSeek's
-multi-head latent attention, with its compressed cache and the absorbed
-decode), dense SwiGLU or GELU FFNs and the token-choice MoE FFN
-(``moe.py``), over the ``tokens`` or the ``embeddings`` frontend (audio
-frames, image patches: precomputed (B, S, d_model) embeddings).  RWKV6
-and RG-LRU raise ``NotImplementedError`` naming the slice that brings
-them.
+layers in turn.  Every mixer of the JAX package runs: ``full``, ``swa``
+and ``local`` (GQA/MQA), ``mla`` (DeepSeek's multi-head latent
+attention, with its compressed cache and the absorbed decode), and the
+recurrent ``rwkv6`` and ``rglru`` (``ssm.py``); with dense SwiGLU or GELU
+FFNs, the token-choice MoE FFN (``moe.py``) or RWKV6's channel mix, over
+the ``tokens`` or the ``embeddings`` frontend (audio frames, image
+patches: precomputed (B, S, d_model) embeddings).
+
+Caches are written in place (``kvcache``): a prefill fills each layer's
+views of its segment's cache, a decode step writes its token there.  The
+recurrent mixers' prefill starts from a zero state, whatever the cache
+holds, and leaves the state after its last token: RWKV6's ``state``, its
+normed input ``prev_mix`` and its channel mix's ``prev_cm``; RG-LRU's
+carry ``h`` and the conv's last inputs ``conv``.  A decode step reads
+them and writes the next.
 
 Entry points:
   * ``prefill``      — full-sequence pass filling a decode cache; its
@@ -44,23 +51,10 @@ from .config import ModelConfig, segments
 from .kvcache import init_segment_cache, ring_positions, write_token
 from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
 from .moe import moe_ffn
+from .ssm import rglru_block, rwkv6_channelmix, rwkv6_mix
 
 __all__ = ["init_params", "count_params", "forward", "loss_fn", "prefill",
            "decode_step", "init_cache"]
-
-_LATER = {
-    "rwkv6": "the RWKV6 mixer",
-    "rglru": "the RG-LRU mixer",
-    "channelmix": "the RWKV6 channel mix",
-}
-
-
-def _not_yet(what: str):
-    return NotImplementedError(
-        f"{_LATER[what]} comes with the recurrent families (ROADMAP slice "
-        "F3b: RWKV6, RG-LRU); the port serves and trains the GQA/MQA and "
-        "MLA mixers with dense or MoE FFNs")
-
 
 # ============================================================ initialization
 def _dense_ffn_shapes(cfg: ModelConfig, ffn_kind: str):
@@ -319,13 +313,25 @@ def _apply_block(kind, p, x, cfg, mode, cache, length):
     Returns (x, the block's aux loss: the MoE balance term, else a float32
     zero)."""
     mixer, ffn = kind
-    if mixer in _LATER:
-        raise _not_yet(mixer)
-    if ffn in _LATER:
-        raise _not_yet(ffn)
+    decode = mode == "decode"
     h = rms_norm(x, p["ln1"])
     if mixer == "mla":
         x = x + _mla_mixer(p, h, cfg, mode, cache, length)
+    elif mixer == "rwkv6":
+        y, (st, last) = rwkv6_mix(
+            p, h, cfg, state=cache["state"] if decode else None,
+            prev_x=cache["prev_mix"] if decode else None)
+        if cache is not None:  # last: the normed input h[:, -1]
+            cache["state"].copy_(st)
+            cache["prev_mix"].copy_(last)
+        x = x + y
+    elif mixer == "rglru":
+        y, (hs, conv) = rglru_block(
+            p, h, cfg, state=(cache["h"], cache["conv"]) if decode else None)
+        if cache is not None:
+            cache["h"].copy_(hs)
+            cache["conv"].copy_(conv)
+        x = x + y
     else:
         window = cfg.window if mixer in ("swa", "local") else 0
         x = x + _gqa_mixer(p, h, cfg, window, mode, cache, length)
@@ -333,6 +339,11 @@ def _apply_block(kind, p, x, cfg, mode, cache, length):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "moe":
         f, aux, _drop = moe_ffn(h2, p, cfg)
+    elif ffn == "channelmix":
+        f, prev_cm = rwkv6_channelmix(
+            p, h2, prev_x=cache["prev_cm"] if decode else None)
+        if cache is not None:
+            cache["prev_cm"].copy_(prev_cm)
     elif cfg.mlp_type == "swiglu":
         f = swiglu(h2, p["w1"], p["w3"], p["w2"])
     else:

@@ -1,8 +1,6 @@
 """Per-architecture smoke tests of the port, on the CPU: the mirror of
-``tests/test_arch_smoke.py`` for every LM architecture the port serves
-(all but the recurrent ``rwkv6_3b`` and ``recurrentgemma_9b``, which
-``tests/test_torch_lm.py::test_later_families_raise`` holds to their
-``NotImplementedError``), plus each one's logits
+``tests/test_arch_smoke.py`` for every LM architecture, the recurrent
+``rwkv6_3b`` and ``recurrentgemma_9b`` included, plus each one's logits
 held against the JAX package's on the same weights.
 
 Mirrored: forward, loss and finite gradients; prefill then a decode step;
@@ -28,8 +26,7 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import transformer as T
 
 RULES = MeshRules(mesh=None)
-RECURRENT = ("rwkv6_3b", "recurrentgemma_9b")
-LM_ARCHS = [a for a in ARCH_IDS if a != "logreg_paper" and a not in RECURRENT]
+LM_ARCHS = [a for a in ARCH_IDS if a != "logreg_paper"]
 B, S = 2, 32
 
 
@@ -151,25 +148,44 @@ def test_logits_match_jax(arch):
         close(logits, jl, f"decode {step}")
 
 
-MOE_MLA_LEAVES = {
+FAMILY_LEAVES = {
     "deepseek_v2_lite": {"router", "experts_w1", "experts_w3", "experts_w2",
                          "shared_w1", "shared_w3", "shared_w2", "wq_mla",
                          "wkv_a", "ln_kv", "wk_up", "wv_up"},
     "qwen3_moe_235b": {"router", "experts_w1", "experts_w3", "experts_w2"},
+    "rwkv6_3b": {"rwkv_mu_r", "rwkv_mu_k", "rwkv_mu_v", "rwkv_mu_g",
+                 "rwkv_mu_w", "rwkv_w_r", "rwkv_w_k", "rwkv_w_v", "rwkv_w_g",
+                 "rwkv_w_o", "rwkv_w_decay_a", "rwkv_w_decay_b", "rwkv_w0",
+                 "rwkv_u", "rwkv_mu_ck", "rwkv_mu_cr", "rwkv_w_ck",
+                 "rwkv_w_cr", "rwkv_w_cv"},
+    "recurrentgemma_9b": {"lru_in", "lru_gate", "lru_conv", "lru_conv_bias",
+                          "lru_wr", "lru_wi", "lru_br", "lru_bi",
+                          "lru_lambda", "lru_out"},
 }
 
 
-@pytest.mark.parametrize("arch", sorted(MOE_MLA_LEAVES))
+@pytest.mark.parametrize("arch", sorted(FAMILY_LEAVES))
 def test_lm_params_from_jax_carries_moe_and_mla_leaves(arch):
-    """Every leaf of a MoE / MLA parameter tree, bit for bit in bf16,
-    under the JAX package's names."""
+    """Every leaf of a MoE, MLA, RWKV6 or RG-LRU parameter tree, bit for
+    bit in bf16, under the JAX package's names; RG-LRU's ``lru_lambda``
+    keeps its linspace."""
     jparams = JT.init_params(jax.random.PRNGKey(1), jax_smoke_config(arch))
-    # nonzero norms, so ln_kv's bits are not all zero
-    jparams = jax.tree.map(lambda a: a + 0.5 if a.ndim == 2 else a, jparams)
+    # nonzero stacked vectors (norms, token-shift mixes, gates), so their
+    # bits are not all zero; lru_lambda is carried as drawn
+    jparams = jax.tree_util.tree_map_with_path(
+        lambda path, a: a + 0.5 if a.ndim == 2
+        and path[-1].key != "lru_lambda" else a, jparams)
     params = lm_params_from_jax(jax.tree.map(np.asarray, jparams),
                                 device="cpu")
     names = set().union(*(seg.keys() for seg in params["segments"]))
-    assert MOE_MLA_LEAVES[arch] <= names
+    assert FAMILY_LEAVES[arch] <= names
+    for seg in params["segments"]:
+        if "lru_lambda" in seg:
+            want = np.asarray(jnp.linspace(
+                1.0, 4.0, seg["lru_lambda"].shape[-1], dtype=jnp.bfloat16))
+            for row in seg["lru_lambda"]:
+                np.testing.assert_array_equal(row.view(torch.int16).numpy(),
+                                              want.view(np.int16))
     for seg, jseg in zip(params["segments"], jparams["segments"]):
         assert seg.keys() == jseg.keys()
         for name, t in seg.items():

@@ -502,6 +502,7 @@ def test_k3_and_k6_cuda_tensors_never_reach_the_plain_versions(
     (1, 200, 2, 2, 16, torch.float32, False),      # ragged S, small D
     (3, 1, 4, 2, 128, torch.float32, False),       # one token
     (1, 2048, 16, 1, 256, torch.bfloat16, False),  # recurrentgemma-like
+    (4, 2048, 16, 1, 256, torch.bfloat16, False),  # recurrentgemma serving
     (1, 300, 4, 2, 256, torch.float32, False),     # D 256 on CUDA cores
     (1, 200, 4, 2, 24, torch.bfloat16, False),     # D padded to 32
     (2, 130, 2, 1, 16, torch.bfloat16, False),     # D padded to 32
@@ -705,6 +706,119 @@ def test_new_families_on_the_card_match_the_cpu(cuda, arch):
         c = dataclasses.replace(cfg, mla_absorb=i == 2)
         want, cw, nw = T.decode_step(params, cw, nw, c, **step)
         got, cg, ng = T.decode_step(on_card, cg, ng, c, **_to(step, cuda))
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before
+
+
+# ------------------------------------------ RWKV6 and RG-LRU (F3b)
+def _recurrent_params(cfg, kind, seed):
+    """Seeded float32 leaves of one block's mixer (and channel mix) on
+    the CPU: token-shift mixes in [0, 1], decay logits around -1, the
+    rest normal, matrices scaled by fan_in**-0.5."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, shape in T._block_param_shapes(cfg, kind).items():
+        if not name.startswith(("rwkv", "lru")):
+            continue
+        if name.startswith("rwkv_mu"):
+            out[name] = torch.rand(shape, generator=gen)
+        elif name == "rwkv_w0":
+            out[name] = -1.0 + 0.5 * torch.randn(shape, generator=gen)
+        elif name == "lru_lambda":
+            out[name] = torch.linspace(1.0, 4.0, shape[0])
+        elif len(shape) == 2:
+            out[name] = torch.randn(shape, generator=gen) * shape[0] ** -0.5
+        else:
+            out[name] = 0.5 * torch.randn(shape, generator=gen)
+    return out
+
+
+def _card_close(got, want, tol=1e-4):
+    assert got.device.type == "cuda"
+    err = float((got.cpu() - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("S", [40, 1])
+def test_recurrent_mixers_on_the_card_match_the_cpu(cuda, S):
+    """RWKV6's time mix (per token and chunked, fresh and from a carried
+    state), its channel mix and RG-LRU's block (fresh and carried) in
+    float32, the card against the CPU on the same inputs: outputs and
+    states within 1e-4 of their max; the chunked form on the card within
+    the same of the per-token one."""
+    import dataclasses
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator().manual_seed(S)
+    cfg = _smoke_f32("rwkv6_3b")
+    B, d, H, D = 2, cfg.d_model, cfg.num_heads, cfg.rwkv_head_dim
+    p = _recurrent_params(cfg, ("rwkv6", "channelmix"), 60)
+    x = torch.randn((B, S, d), generator=gen)
+    carried = {"state": 0.3 * torch.randn((B, H, D, D), generator=gen),
+               "prev_x": torch.randn((B, d), generator=gen)}
+    for kw in ({}, carried):
+        per_token = None
+        for chunk in (0, 16):
+            c = dataclasses.replace(cfg, rwkv_chunk=chunk)
+            want = ssm.rwkv6_mix(p, x, c, **kw)
+            got = ssm.rwkv6_mix(_to(p, cuda), x.to(cuda), c,
+                                **_to(kw, cuda))
+            _card_close(got[0], want[0])
+            _card_close(got[1][0], want[1][0])
+            if per_token is None:
+                per_token = got
+            else:
+                _card_close(got[0], per_token[0].cpu())
+                _card_close(got[1][0], per_token[1][0].cpu())
+        want = ssm.rwkv6_channelmix(p, x, prev_x=kw.get("prev_x"))
+        got = ssm.rwkv6_channelmix(_to(p, cuda), x.to(cuda),
+                                   prev_x=_to(kw, cuda).get("prev_x"))
+        _card_close(got[0], want[0])
+    cfg = _smoke_f32("recurrentgemma_9b")
+    W, cw = cfg.lru_width, cfg.conv_width
+    p = _recurrent_params(cfg, ("rglru", "dense"), 61)
+    state = (torch.randn((B, W), generator=gen),
+             torch.randn((B, cw - 1, W), generator=gen))
+    for st in (None, state):
+        want = ssm.rglru_block(p, x, cfg, state=st)
+        got = ssm.rglru_block(_to(p, cuda), x.to(cuda), cfg,
+                              state=None if st is None else _to(list(st),
+                                                                cuda))
+        for g, w in ((got[0], want[0]), (got[1][0], want[1][0]),
+                     (got[1][1], want[1][1])):
+            _card_close(g, w)
+
+
+@pytest.mark.parametrize("arch,prompt,k7", [
+    ("rwkv6_3b", 40, 0), ("recurrentgemma_9b", 24, 1),
+    ("recurrentgemma_9b", 40, 0)])
+def test_recurrent_families_on_the_card_match_the_cpu(cuda, arch, prompt,
+                                                      k7):
+    """Prefill and 3 decode steps of the smoke config in float32, the card
+    against the CPU with the same weights, within 1e-4 max|logits|; K7
+    once a local layer of a prefill no longer than the window (none past
+    it: the banded scan), never in decode, never for RWKV6."""
+    cfg = _smoke_f32(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, cuda)
+    ins = torch.randint(0, cfg.vocab_size, (2, prompt + 3),
+                        generator=torch.Generator().manual_seed(6))
+    before = flash_attention_kernel.launches
+    want, cw, nw = T.prefill(params, cfg, ins[:, :prompt],
+                             cache_len=prompt + 4)
+    got, cg, ng = T.prefill(on_card, cfg, ins[:, :prompt].to(cuda),
+                            cache_len=prompt + 4)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches - before == k7
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    before = flash_attention_kernel.launches
+    for i in range(3):
+        tok = ins[:, prompt + i]
+        want, cw, nw = T.decode_step(params, cw, nw, cfg, tok)
+        got, cg, ng = T.decode_step(on_card, cg, ng, cfg, tok.to(cuda))
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before

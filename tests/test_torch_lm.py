@@ -125,18 +125,25 @@ def test_kvcache_matches_jax():
         got = kvcache.write_token(torch.from_numpy(cache.copy()),
                                   torch.from_numpy(tok), length)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    for arch in SERVED + ("deepseek_v2_lite",):  # MLA's compressed cache
+    # MLA's compressed cache; the recurrent states, the same size at 40
+    # and at 524,288 tokens (RG-LRU's local layers keep a window's ring)
+    for arch in SERVED + ("deepseek_v2_lite", "rwkv6_3b",
+                          "recurrentgemma_9b"):
         cfg, jcfg = smoke_config(arch), jax_smoke_config(arch)
+        long_len = 524_288 if arch in ("rwkv6_3b", "recurrentgemma_9b") \
+            else 40
         for kind, n in jsegments(jcfg):
-            want = jkv.init_segment_cache(kind, n, 2, 40, jcfg, jnp.float32)
-            got = kvcache.init_segment_cache(kind, n, 2, 40, cfg,
-                                             torch.float32)
-            assert {k: tuple(v.shape) for k, v in got.items()} == {
-                k: v.shape for k, v in want.items()}
-            assert all(not v.any() for v in got.values())
-    with pytest.raises(NotImplementedError, match="slice F"):
-        kvcache.init_segment_cache(("rwkv6", "channelmix"), 1, 1, 8,
-                                   smoke_config("rwkv6_3b"), torch.float32)
+            for cache_len, jdt, dt in ((40, jnp.float32, torch.float32),
+                                       (long_len, jnp.bfloat16,
+                                        torch.bfloat16)):
+                want = jax.eval_shape(lambda: jkv.init_segment_cache(
+                    kind, n, 2, cache_len, jcfg, jdt))
+                got = kvcache.init_segment_cache(kind, n, 2, cache_len, cfg,
+                                                 dt)
+                assert {k: (tuple(v.shape), str(v.dtype).removeprefix(
+                    "torch.")) for k, v in got.items()} == {
+                    k: (v.shape, str(v.dtype)) for k, v in want.items()}
+                assert all(not v.any() for v in got.values())
 
 
 # ---------------------------------------------------------------- attention
@@ -154,6 +161,24 @@ def test_attend_matches_jax(S, H, KVH, window):
     jv, v = _pair(rng.standard_normal((2, S, KVH, D)).astype(np.float32))
     got = attention.attend(q, k, v, window=window)
     want = jatt.attend(jq, jk, jv, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("S,window", [(1100, 64), (2100, 2048)])
+def test_attend_pads_a_ragged_banded_prompt(S, window):
+    """A prompt past the window that is no multiple of the 1024-query
+    block (JAX asserts one): the port's rows equal JAX's over the same
+    prompt zero-padded to the block, the padding hidden by causality;
+    (2100, 2048) is RecurrentGemma's past-the-window serving case."""
+    rng = np.random.default_rng(S)
+    Sp = -(-S // attention.Q_BLOCK) * attention.Q_BLOCK
+    arrays = [rng.standard_normal((1, S, n, 16)).astype(np.float32)
+              for n in (4, 1, 1)]
+    got = attention.attend(*(torch.from_numpy(a) for a in arrays),
+                           window=window)
+    want = jatt.attend(*(jnp.asarray(np.pad(a, ((0, 0), (0, Sp - S), (0, 0),
+                                                (0, 0)))) for a in arrays),
+                       window=window)[:, :S]
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
@@ -338,15 +363,6 @@ def test_init_params_shapes_and_seed():
     # a unit normal cut at +-3 has standard deviation 0.9866
     assert abs(float(w.std()) / std - 0.9866) < 0.02
     assert not a["segments"][0]["ln1"].any()
-
-
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "recurrentgemma_9b"])
-def test_later_families_raise(arch):
-    cfg = smoke_config(arch)
-    params = T.init_params(cfg, seed=0, device="cpu")
-    for call in (T.prefill, T.forward):
-        with pytest.raises(NotImplementedError, match="slice F3b"):
-            call(params, cfg, torch.zeros((1, 8), dtype=torch.long))
 
 
 def test_serve_driver_batched_decode():

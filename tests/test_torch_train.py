@@ -10,8 +10,15 @@ cases of ``tests/test_train_serve.py``; ``load_study``'s shapes.
 
 Tolerances: in float32 the loss within 1e-5 relative and each leaf's
 gradient within 1e-4 max|g| of that leaf; in bf16 2e-2 (the two
-frameworks round bf16 at other places).  Secure mean gradients within
-S * 2**-28 of the plain mean (fixed-point quantization of S addends).
+frameworks round bf16 at other places).  The recurrent families' bf16
+gradients carry more bf16 noise than that on a few leaves: both
+packages' bf16 gradients of RG-LRU's ``lru_lambda`` and ``lru_wr`` lie
+1.3-2.4% of max|g| from the float32 gradient at the same weights, and so
+up to 2.8% from each other; such a leaf is held instead to be no farther
+from the float32 gradient than twice the JAX package's bf16 gradient is
+(the port's measured at most 1.19 times as far, on every leaf).
+Secure mean gradients within S * 2**-28 of the plain mean (fixed-point
+quantization of S addends).
 Parameters after three ``train_step`` calls within 1e-6 of the JAX loop's
 in float32, with AdamW's eps at 1e-3 in both: AdamW with its default eps
 (1e-8) divides each first-step gradient by its own magnitude, so float32
@@ -51,6 +58,7 @@ QUANT = 2.0**-28
 # train_step against the JAX loop: an AdamW eps that keeps the update
 # Lipschitz in the gradient (see the module docstring)
 EPS = 1e-3
+RECURRENT = ("rwkv6_3b", "recurrentgemma_9b")
 
 
 def _np(x):
@@ -103,9 +111,11 @@ def _grads(params, batch, cfg):
 
 @pytest.mark.parametrize("dtype_str", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["qwen2_5_32b", "deepseek_7b",
-                                  "h2o_danube3_4b"])
+                                  "h2o_danube3_4b", "rwkv6_3b",
+                                  "recurrentgemma_9b"])
 def test_loss_fn_matches_jax(arch, dtype_str):
-    """48 tokens: past the h2o window (32), so its banded scan runs."""
+    """48 tokens: past the h2o and recurrentgemma windows (32), so their
+    banded scans run; the recurrent mixers' loops run 48 steps."""
     jcfg, cfg, jparams, params = _model(arch, dtype_str)
     jb, b = _batch(cfg.vocab_size, 2, 48, seed=5)
     (jloss, jaux), jgrads = _jax_value_and_grad(jcfg)(jparams, jb)
@@ -119,10 +129,26 @@ def test_loss_fn_matches_jax(arch, dtype_str):
     assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
     jleaves = jax.tree.leaves(jgrads)
     assert len(grads) == len(jleaves)
-    for g, jg in zip(grads, jleaves):
+    truth = [None] * len(jleaves)
+    if not f32 and arch in RECURRENT:
+        # the float32 gradient at the same (bf16) weights: the JAX
+        # package's own bf16 noise on a leaf
+        j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+        _, jg32 = _jax_value_and_grad(dataclasses.replace(
+            jcfg, dtype_str="float32"))(j32, jb)
+        truth = jax.tree.leaves(jg32)
+    for g, jg, t in zip(grads, jleaves, truth):
         assert g.dtype == cfg.dtype and tuple(g.shape) == jg.shape
         want = _np(jg)
         err = float(np.abs(_np(g) - want).max())
+        if t is not None and err > tol * float(np.abs(want).max()):
+            # a leaf whose two bf16 gradients differ by more than 2e-2:
+            # the port's no farther from the float32 gradient than twice
+            # the JAX package's bf16 gradient is
+            t = _np(t)
+            assert float(np.abs(_np(g) - t).max()) <= 2 * float(
+                np.abs(want - t).max()), err
+            continue
         assert err <= tol * float(np.abs(want).max()) + 1e-12, err
     if arch == "h2o_danube3_4b":
         assert cfg.window < 48
@@ -254,10 +280,12 @@ def test_corpus_draws_embeddings_for_the_embeddings_frontend():
 
 
 @pytest.mark.parametrize("arch", ["musicgen_medium", "deepseek_v2_lite",
-                                  "qwen3_moe_235b"])
+                                  "qwen3_moe_235b", "rwkv6_3b",
+                                  "recurrentgemma_9b"])
 def test_lm_driver_trains_the_moe_mla_and_embeddings_families(arch):
     """Two steps of the smoke config through the CLI, finite losses (the
-    embeddings frontend draws its frames; MoE adds its aux loss)."""
+    embeddings frontend draws its frames; MoE adds its aux loss; the
+    recurrent families backpropagate through their loops)."""
     rep = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch",
                       "4", "--seq-len", "16", "--device", "cpu"])
     assert rep["steps"] == 2 and len(rep["losses"]) == 2
@@ -265,11 +293,12 @@ def test_lm_driver_trains_the_moe_mla_and_embeddings_families(arch):
 
 
 # ---------------------------------------------------------------------- CLI
-def test_lm_driver_secure_agg_loss_decreases(tmp_path):
-    """As the JAX test, on a GQA arch (RWKV6 is not ported)."""
+@pytest.mark.parametrize("arch", ["qwen2_5_32b", "rwkv6_3b"])
+def test_lm_driver_secure_agg_loss_decreases(tmp_path, arch):
+    """As the JAX test (which trains rwkv6_3b), and on a GQA arch."""
     out = tmp_path / "m.json"
     train.main([
-        "--arch", "qwen2_5_32b", "--smoke", "--steps", "8",
+        "--arch", arch, "--smoke", "--steps", "8",
         "--batch", "4", "--seq-len", "32", "--lr", "1e-2",
         "--secure-agg", "shamir", "--institutions", "2",
         "--out", str(out), "--device", "cpu",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH]
+    python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH] [--only 18]
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
@@ -115,7 +115,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``loss_fn`` along u = g / |g| (h = 1e-2) against |g| within 2e-2
    relative, one sequence of 2048 tokens; (c) 8 bf16 ``train_step`` calls
    (2 institutions of one 2048-token sequence, lr 3e-4, AdamW, remat),
-   every loss and grad norm finite, the parameters moved, K7 8, K8a 4 and
+   every loss and grad norm finite, every weight matrix moved, K7 8, K8a 4 and
    K8b 4 launches a step, seconds a step, tokens/s and peak bytes in a
    ``{"train": ...}`` line (with ``--profile``, one profiled step and one
    profiled AdamW update); (d) ``run_lm`` with ``--secure-agg shamir`` at
@@ -217,8 +217,42 @@ Phases, each printing one line (any failure raises and exits non-zero):
    model (prefill tokens/s, decode ms a step, peak bytes, the card), and
    with ``--profile`` a ``profile`` line a model of one batch, the
    recurrences' step ops in categories of their own;
+18. the F3a and F3b families trained at full width, after phase 17, one
+   model on the card at a time, each cut in depth to fit 80 GB beside
+   its AdamW moments: K8a/K8b against their plain versions at the
+   families' training shapes (bf16, B 1, S 2048: MLA's 16 heads of Dk
+   192 with V and do zero past 128 columns, Qwen3-MoE's 64/4 GQA at D
+   128, MusicGen's 24 heads of 64); (b) ``moe_ffn``'s backward at
+   Qwen3-MoE's and DeepSeek-V2-Lite's widths (its shared experts too), T
+   2048, in float32 on the card against the CPU (x and the router on a
+   grid: expert ids, queue positions, slots and drops equal, the
+   gradients of x, the router and every expert and shared leaf within
+   1e-5 of their max; a ``{"moe_grad_check": ...}`` line each); the
+   float32 central difference of ``loss_fn`` along g / |g| (h 1e-2,
+   within 2e-2 of |g|) of MusicGen-medium whole, RWKV6-3B whole at
+   ``rwkv_chunk`` 32, RecurrentGemma-9B's first 6 layers and
+   DeepSeek-V2-Lite's dense MLA layer 0 alone (a ``{"grad_check_f4":
+   ...}`` line each); (a) 6 bf16 ``train_step`` calls of each of
+   DeepSeek-V2-Lite (4 of 27 layers: the dense layer and 3 MoE;
+   2,254,983,168 parameters), Qwen3-MoE-235B (1 of 94; 3,732,418,560),
+   MusicGen-medium whole (1,365,394,944, seeded bf16 frames), RWKV6-3B
+   whole (3,073,231,360, chunked at 32) and RecurrentGemma-9B (6 of 38:
+   4 RG-LRU and 2 local-attention layers; 3,275,968,512), phase 13's
+   traffic (2 institutions of one 2048-token sequence, lr 3e-4, warm-up
+   over half the run, remat): every loss and grad norm finite, every
+   weight matrix moved, and each step K7 twice per K7 layer and
+   institution (forward, remat), K8a and K8b once, nothing else (none at
+   all for RWKV6); a ``{"train_f4": ...}`` line each (seconds a step:
+   the median of steps 2-6, tokens/s, peak bytes, ``reduced``, the card;
+   with ``--profile``, a ``profile`` line of one step); (c) phase 13
+   (d)'s ``run_lm --secure-agg shamir`` at each family's smoke config
+   (one K1 and one K2 a step, exact wire bytes, the step-0 secure mean
+   within S * 2^-28 of the plain one; a ``{"secure_train_f4": ...}``
+   line each).  ``--only 18`` runs phases 1, 2 and 18 alone;
 12. (printed last) one JSON line with each kernel's time, bound and
-   launches, K8a/K8b with the SDPA backward as their one library call;
+   launches, K8a/K8b with the SDPA backward as their one library call
+   (also at phase 18's three training shapes, MLA's bound and SDPA call
+   counting the function's own work: V, do and dv at 128 columns);
    K7 also at RecurrentGemma's serving shape and at phase 16's three
    shapes (MLA's bound and SDPA call count
    the function's own work: V and o at 128 columns, 2 x 192 + 2 x 128
@@ -406,6 +440,43 @@ F3B_CHECK_B, F3B_CHECK_S, F3B_CHECK_CHUNK, F3B_CHECK_TOL = 2, 256, 16, 1e-4
 # 640) in float32 on the card against the CPU: ids, slots and drops
 # equal, y within this share of max|y| (summation order)
 MOE_CHECK_TOL = 1e-5
+# phase 18: the F3a and F3b families trained at full width, one model on
+# the card at a time, each cut in depth to fit 80 GB beside its AdamW
+# moments (16 B a parameter: bf16 weights and per-institution gradient,
+# float32 mean and two moments): (arch, layers kept (None: all),
+# parameters); bf16 from SEED with cell 8's traffic (TRAIN_INST
+# institutions of one TRAIN_SEQ-token sequence, TRAIN_LR, warm-up over
+# half the run, remat), F4_STEPS steps; RWKV6 in its chunked form at the
+# JAX package's training preset (``configs/perf_presets.py``: 32)
+F4_MODELS = (("deepseek_v2_lite", 4, 2_254_983_168),
+             ("qwen3_moe_235b", 1, 3_732_418_560),
+             ("musicgen_medium", None, 1_365_394_944),
+             ("rwkv6_3b", None, 3_073_231_360),
+             ("recurrentgemma_9b", 6, 3_275_968_512))
+F4_STEPS, F4_RWKV_CHUNK = 6, 32
+# (b) the float32 directional derivative (GRAD_TOL) of the families
+# without routing, and DeepSeek-V2-Lite's dense layer 0 alone (MLA):
+# (arch, layers kept, parameters, the steps h, the last one checked); a
+# MoE layer's finite difference can cross a routing boundary, so
+# moe_ffn's backward at F4_MOE_ARCHS' widths is held card against CPU.
+# RWKV6-3B's loss curves hard along g (|g| 163 at init, the token table's
+# share 98): its central difference converges as h^2 (relative error
+# 0.16, 0.046, 0.012, 0.0020 at h = 1e-2, 5e-3, 2.5e-3, 1e-3 on the
+# H100), so it is read at GRAD_H and held at 1e-3
+F4_GRAD_CHECKS = (("musicgen_medium", None, 1_365_394_944, (GRAD_H,)),
+                  ("rwkv6_3b", None, 3_073_231_360, (GRAD_H, 1e-3)),
+                  ("recurrentgemma_9b", 6, 3_275_968_512, (GRAD_H,)),
+                  ("deepseek_v2_lite", 1, 500_439_552, (GRAD_H,)))
+F4_MOE_ARCHS = ("qwen3_moe_235b", "deepseek_v2_lite")
+# K8a/K8b at the families' training shapes (bf16, B 1, S 2048): MLA's Dk
+# 192 with V and do zero past 128 columns, as ``attend`` pads V;
+# Qwen3-MoE's 64/4 GQA; MusicGen's 24 heads of 64 (RecurrentGemma's 16/1
+# at D 256 is K8_CASES' "d256"); checked at K7_TOL, timed in phase 12
+F4_K8_CASES = (
+    ("train_mla", 1, 2048, 16, 16, 192, "bfloat16", "v128"),
+    ("train_qwen3_moe", 1, 2048, 64, 4, 128, "bfloat16", None),
+    ("train_musicgen", 1, 2048, 24, 24, 64, "bfloat16", None),
+)
 
 
 def check(cond: bool, what: str) -> None:
@@ -542,6 +613,10 @@ TRAIN_CATEGORIES = (
     ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
 )
+# phase 18's training steps: cell 8's categories and the MoE FFN's
+# routing and dispatch
+F4_CATEGORIES = TRAIN_CATEGORIES[:4] + F3A_CATEGORIES[3:4] \
+    + TRAIN_CATEGORIES[4:]
 ADAMW_CATEGORIES = (
     ("reductions (grad norm)", ("reduce_kernel",)),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
@@ -1167,6 +1242,24 @@ def serving_phase(dev, smi, counts):
     return out, run
 
 
+def check_routing(what, card, cpu, top_k: int, capacity: int) -> None:
+    """The router's expert ids, and the queue positions, kept mask, slots
+    and drops ``moe._dispatch`` makes of them, equal on the card and the
+    CPU for ``card`` and ``cpu`` = (x (B, S, d), router (d, E))."""
+    import torch
+    from repro_torch.models import moe
+
+    routes = [moe._route(x.reshape(-1, x.shape[-1]), w, top_k)[1]
+              for x, w in (card, cpu)]
+    check(torch.equal(routes[0].cpu(), routes[1]),
+          f"{what}: expert ids on the card vs the CPU")
+    E = card[1].shape[1]
+    for name, a, b in zip(("queue positions", "kept", "slots", "dropped"),
+                          moe._dispatch(routes[0], capacity, 0, E, E),
+                          moe._dispatch(routes[1], capacity, 0, E, E)):
+        check(torch.equal(a.cpu(), b), f"{what}: {name} card vs CPU")
+
+
 def moe_check(dev):
     """Phase 16 (d): ``moe_ffn`` at Qwen3-MoE's prefill (T = 4 x 2048,
     d 4096, E 128, top 8, h 1536, capacity 640) in float32 on the card
@@ -1204,14 +1297,8 @@ def moe_check(dev):
     t0 = time.perf_counter()
     y_cpu, aux_cpu, drop_cpu = moe.moe_ffn(x_host, host, cfg)
     cpu_s = time.perf_counter() - t0
-    routes = [moe._route(xx.reshape(T_, d), pp["router"], k)[1]
-              for xx, pp in ((x, params), (x_host, host))]
-    check(torch.equal(routes[0].cpu(), routes[1]),
-          "moe_ffn: expert ids on the card vs the CPU")
-    for what, a, b in zip(("queue positions", "kept", "slots", "dropped"),
-                          moe._dispatch(routes[0], capacity, 0, E, E),
-                          moe._dispatch(routes[1], capacity, 0, E, E)):
-        check(torch.equal(a.cpu(), b), f"moe_ffn: {what} card vs CPU")
+    check_routing("moe_ffn", (x, params["router"]),
+                  (x_host, host["router"]), k, capacity)
     check(float(drop) == float(drop_cpu),
           f"moe_ffn drop fraction {float(drop)} vs {float(drop_cpu)}")
     scale = float(y_cpu.abs().max())
@@ -1766,11 +1853,12 @@ def f3b_phase(dev, smi, counts, arch, n_params, prompts,
     return out
 
 
-def check_k8(dev):
+def check_k8(dev, cases=K8_CASES, timed_names=("training",) + FLASH_TIMED):
     """K8a and K8b against their plain versions on the card at the shapes
-    of ``K8_CASES``, from K7's statistics; returns (the largest |dq|, |dk|,
-    |dv| error over them, the (q, k, v, do, m, linv, delta) of the
-    training shape and of ``FLASH_TIMED`` by name, for timing)."""
+    of ``cases``, from K7's statistics; returns (the largest |dq|, |dk|,
+    |dv| error over them, the (q, k, v, do, m, linv, delta) of the shapes
+    in ``timed_names`` by name, for timing).  A case's "v128" zeroes V and
+    do past MLA's 128 columns, as ``attend``'s padding leaves them."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
@@ -1778,10 +1866,13 @@ def check_k8(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     err, timed = 0.0, {}
-    for name, B, S_, H, KVH, Dh, dt, how in K8_CASES:
+    for name, B, S_, H, KVH, Dh, dt, how in cases:
         dtype = getattr(torch, dt)
         q, k, v, do = (torch.randn((B, S_, n, Dh), generator=gen,
                                    device=dev) for n in (H, KVH, KVH, H))
+        if how == "v128":
+            v[..., MLA_DV:] = 0.0
+            do[..., MLA_DV:] = 0.0
         shape_q(q, how)
         q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
         with torch.no_grad():
@@ -1802,7 +1893,7 @@ def check_k8(dev):
                 check(bool((d <= atol + rtol * w.float().abs()).all()),
                       f"K8 {name} {what} err {float(d.max())}")
             err = max(err, float(d.max()))
-        if name == "training" or name in FLASH_TIMED:
+        if name in timed_names:
             timed[name] = args
         del got, want
     torch.cuda.synchronize()
@@ -1855,14 +1946,16 @@ def k6_timing(X, w):
                     tf32_ops=3 * n * d * (d + 1)))
 
 
-def k8_timing(args):
+def k8_timing(args, dv=None):
     """Phase 12's K8a and K8b rows on one shape's (q, k, v, do, m, linv,
     delta), with SDPA's backward on the same tensors heads first as the
     one library call for both (its forward runs once, outside the
     timing).  Bounds: q, k, v, do (input dtype) and m, linv, delta
     (float32) read once, the outputs written; per allowed pair K8a 6 D
     (q.k, do.v, ds k), K8b 8 D (q.k, do.v, p do, ds q) at the bf16
-    tensor-core peak."""
+    tensor-core peak.  With ``dv`` (MLA: V and do zero past dv columns)
+    the bounds and SDPA count the function's own work: v, do and dv at dv
+    columns, K8a 4 D + 2 dv and K8b 4 D + 4 dv a pair."""
     import torch
     from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
         flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
@@ -1870,12 +1963,13 @@ def k8_timing(args):
     q, k, v, do = args[:4]
     b, s, h, d = q.shape
     kvh = k.shape[2]
+    dv = dv or d
     pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
-    n_in = ((2 * b * s * h * d + 2 * b * s * kvh * d) * q.element_size()
-            + 3 * b * h * s * 4)
+    n_in = ((b * s * h * (d + dv) + b * s * kvh * (d + dv))
+            * q.element_size() + 3 * b * h * s * 4)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in args[:3])
-    dot = do.transpose(1, 2).contiguous()
+                  for t in (q, k, v[..., :dv]))
+    dot = do[..., :dv].transpose(1, 2).contiguous()
     ot = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
 
@@ -1886,12 +1980,13 @@ def k8_timing(args):
                     plain=lambda: flash_dq_plain(*args),
                     library=sdpa_backward,
                     bound=bound(n_in + b * s * h * d * q.element_size(),
-                                bf16_ops=pairs * 6 * d)),
+                                bf16_ops=pairs * (4 * d + 2 * dv))),
         "K8b": dict(run=lambda: flash_dkdv_kernel(*args),
                     plain=lambda: flash_dkdv_plain(*args),
                     library=sdpa_backward,
-                    bound=bound(n_in + 2 * b * s * kvh * d * q.element_size(),
-                                bf16_ops=pairs * 8 * d)),
+                    bound=bound(n_in + b * s * kvh * (d + dv)
+                                * q.element_size(),
+                                bf16_ops=pairs * 4 * (d + dv))),
     }
 
 
@@ -2053,26 +2148,53 @@ def shamir_ptxas(log_text: str, lib_path) -> dict:
     return {"kernels": rows, "division_sass": shamir_sass(lib_path)}
 
 
-def grad_check(dev):
-    """Phase 13b: float32 ``loss_fn`` at Qwen2.5-32B's full width (2 of
-    64 layers, remat on), one sequence of 2048 tokens: the central
-    difference along u = g / |g| with step h against |g|.  The parameters
-    are moved in place (+h u, then -h u) and dropped afterwards."""
+def train_config(arch, layers, dtype_str=None):
+    """(``arch``'s full config, the one trained here: its first ``layers``
+    layers (None: all), in ``dtype_str`` (None: its own), RWKV6 in its
+    chunked form at ``F4_RWKV_CHUNK``)."""
     import dataclasses
 
-    import torch
     from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cut = {"num_layers": layers} if layers is not None else {}
+    if dtype_str:
+        cut["dtype_str"] = dtype_str
+    if full.mixer == "rwkv6":
+        cut["rwkv_chunk"] = F4_RWKV_CHUNK
+    return full, dataclasses.replace(full, **cut)
+
+
+def k7_layers(cfg, seq: int) -> int:
+    """Layers whose attention runs K7 on a ``seq``-token sequence: the
+    full-causal and MLA ones, and the windowed ones whose window covers
+    it."""
+    from repro_torch.models.config import block_kinds
+
+    return sum(1 for m, _ in block_kinds(cfg)
+               if m in ("full", "mla") or (m in ("swa", "local") and (
+                   not cfg.window or cfg.window >= seq)))
+
+
+def grad_check(dev, arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+               n_params=TRAIN_PARAMS, steps=(GRAD_H,)):
+    """Phase 13b (and 18 (b)): float32 ``loss_fn`` of ``arch`` at full
+    width (``layers`` layers, remat on), one sequence of 2048 tokens (or
+    frames): the central difference along u = g / |g| at each step h of
+    ``steps``, the last one held against |g|.  The parameters are moved
+    in place (to +h u, then -h u, for each h) and dropped afterwards."""
+    import torch
     from repro_torch.core.flatbuf import tree_flatten
     from repro_torch.launch.train import _loss_and_grads, corpus_batch
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              num_layers=TRAIN_LAYERS, dtype_str="float32")
-    check(cfg.remat and T.count_params(cfg) == TRAIN_PARAMS,
+    _, cfg = train_config(arch, layers, "float32")
+    check(cfg.remat and T.count_params(cfg) == n_params,
           f"grad-check config: remat {cfg.remat}, params "
           f"{T.count_params(cfg)}")
     params = T.init_params(cfg, seed=SEED, device=dev)
-    batch = corpus_batch(SEED, 0, 1, TRAIN_SEQ, cfg.vocab_size, dev)
+    batch = corpus_batch(SEED, 0, 1, TRAIN_SEQ, cfg.vocab_size, dev,
+                         cfg.d_model if cfg.frontend == "embeddings" else 0)
     t0 = time.perf_counter()
     loss0, grads = _loss_and_grads(params, batch, cfg)
     torch.cuda.synchronize()
@@ -2082,67 +2204,230 @@ def grad_check(dev):
     leaves = tree_flatten(params)[0]
     for g in grads:
         g.div_(gnorm)  # g is now u
+    at = 0.0  # where the parameters are now, along u
 
-    def loss_at(sign: float) -> float:
+    def loss_at(x: float) -> float:
+        nonlocal at
         for p, u in zip(leaves, grads):
-            p.add_(u, alpha=sign * GRAD_H)
+            p.add_(u, alpha=x - at)
+        at = x
         with torch.no_grad():
             return float(T.loss_fn(params, batch, cfg)[0])
 
-    f_plus = loss_at(1.0)
-    f_minus = loss_at(-2.0)  # from +h u to -h u
-    fd = (f_plus - f_minus) / (2 * GRAD_H)
-    rel = abs(fd - gnorm) / gnorm
-    check(all(map(lambda x: x == x and abs(x) < float("inf"),
-                  (loss0, f_plus, f_minus, gnorm))), "grad check finite")
-    check(rel <= GRAD_TOL, f"directional derivative {fd} vs |g| {gnorm} "
-          f"(rel {rel})")
+    sweep = []
+    for h in steps:
+        f_plus, f_minus = loss_at(h), loss_at(-h)
+        fd = (f_plus - f_minus) / (2 * h)
+        sweep.append({"h": h, "f_plus": f_plus, "f_minus": f_minus,
+                      "central_difference": fd,
+                      "rel_err": abs(fd - gnorm) / gnorm})
+    last = sweep[-1]
+    check(all(map(math.isfinite, [loss0, gnorm] + [
+        c[k] for c in sweep for k in ("f_plus", "f_minus")])),
+          "grad check finite")
+    check(last["rel_err"] <= GRAD_TOL,
+          f"{arch} directional derivative {last['central_difference']} vs "
+          f"|g| {gnorm} at h {last['h']} (rel {last['rel_err']})")
     del params, grads, leaves
     torch.cuda.empty_cache()
-    return {"loss": loss0, "grad_norm": gnorm, "f_plus": f_plus,
-            "f_minus": f_minus, "h": GRAD_H, "central_difference": fd,
-            "rel_err": rel, "grad_seconds": grad_s}
+    return {"arch": arch, "num_layers": cfg.num_layers, "params": n_params,
+            "rwkv_chunk": cfg.rwkv_chunk, "loss": loss0, "grad_norm": gnorm,
+            **last, "steps": sweep if len(sweep) > 1 else None,
+            "grad_seconds": grad_s}
 
 
-def training_phase(dev, smi, counts):
-    """Phase 13c: 8 bf16 ``train_step`` calls at Qwen2.5-32B's full width
-    (2 of 64 layers, remat on), 2 institutions of one 2048-token sequence
-    each; K7 8, K8a 4, K8b 4 launches a step.  Returns (the ``train``
-    line's fields, one more step for --profile, the AdamW update alone
-    for --profile)."""
-    import dataclasses
+def secure_phase(dev, counts, arch=TRAIN_ARCH):
+    """Phase 13d (and 18 (c)): ``run_lm`` with Shamir gradient aggregation
+    at ``arch``'s smoke config; then the step-0 secure mean against the
+    plain one."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.collective import SecureCollective
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
 
+    reset, read = counts
+    cfg = smoke_config(arch)
+    argv = ["--arch", arch] + SECURE_ARGV[2:]
+    args = train.parse_args(argv + ["--device", str(dev)])
+    S_ = args.institutions
+    reset()
+    rep = train.run_lm(args)
+    torch.cuda.synchronize()
+    launches = read()
+    n = T.count_params(cfg)
+    rows = math.ceil(math.ceil(n / 128) / 8) * 8  # 128 lanes, rows in 8s
+    agg = SecureCollective(backend="kernel", overflow_check=True)
+    w, r = agg.scheme.num_shares, agg.scheme.field.num_residues
+    want_bytes = S_ * w * r * rows * 128 * 4
+    check(rep["loss_last"] < rep["loss_first"],
+          f"secure loss {rep['loss_first']} -> {rep['loss_last']}")
+    check(rep["bytes_per_step"] == [want_bytes] * args.steps,
+          f"secure bytes per step {rep['bytes_per_step']} != {want_bytes}")
+    # smoke config: no remat
+    L = k7_layers(cfg, args.seq_len) * S_ * args.steps
+    want = {"encode_share_kernel": args.steps,
+            "reconstruct_kernel": args.steps,
+            "flash_attention_kernel": L, "flash_dq_kernel": L,
+            "flash_dkdv_kernel": L}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"secure training launches {launches}")
+    # step 0 again: the secure mean against the plain mean
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    b = train.corpus_batch(args.seed, 0, args.batch, args.seq_len,
+                           cfg.vocab_size, dev,
+                           cfg.d_model if cfg.frontend == "embeddings" else 0)
+    per = args.batch // S_
+    insts = [{k: v[j * per:(j + 1) * per] for k, v in b.items()}
+             for j in range(S_)]
+    _, plain, _ = train.mean_gradients(params, insts, cfg)
+    _, secure, nbytes = train.mean_gradients(
+        params, insts, cfg, agg, SecureCollective.round_key(args.seed, 0,
+                                                            dev))
+    err = max(float((a - p).abs().max()) for a, p in
+              zip(tree_flatten(secure)[0], tree_flatten(plain)[0]))
+    check(err <= S_ * 2.0**-FRAC_BITS, f"secure vs plain mean grads {err}")
+    check(nbytes == want_bytes, f"step-0 bytes {nbytes}")
+    return {"arch": cfg.name, "config": "smoke", "params": n,
+            "argv": argv, "losses": rep["losses"],
+            "loss_first": rep["loss_first"], "loss_last": rep["loss_last"],
+            "bytes_per_step": want_bytes, "launches": launches,
+            "step0_secure_vs_plain_max_abs": err,
+            "quantization_bound": S_ * 2.0**-FRAC_BITS,
+            "seconds": rep["seconds"],
+            "reduced": "smoke config: the int32 shares of the full-width "
+                       "2-layer model would take 24 B a parameter per "
+                       "institution (122 GB for two)"}
+
+
+def moe_grad_check(dev, arch):
+    """Phase 18 (b): ``moe_ffn``'s backward at ``arch``'s full width (its
+    shared experts too), T = TRAIN_SEQ tokens, in float32 on the card
+    against the CPU on the same inputs: the gradients of sum(y c) + aux
+    (c a seeded cotangent) for x, the router and every expert and shared
+    leaf.  x and the router on a grid (multiples of 1/8 and 1/64), so the
+    router's logits are exact: the expert ids, queue positions, kept slots
+    and drops must be equal, and each gradient within ``MOE_CHECK_TOL``
+    of its max on the CPU."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    d, E, k = cfg.d_model, cfg.moe_num_experts, cfg.moe_top_k
+    capacity = max(1, int(TRAIN_SEQ * k * cfg.capacity_factor / E))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    mixer = "mla" if cfg.attention == "mla" else "full"
+    shapes = {n: sh for n, sh in
+              T._block_param_shapes(cfg, (mixer, "moe")).items()
+              if n == "router" or n.startswith(("experts_", "shared_"))}
+    card = {"x": torch.randint(-8, 9, (1, TRAIN_SEQ, d), generator=gen,
+                               device=dev) / 8.0,
+            "router": torch.randint(-8, 9, shapes.pop("router"),
+                                    generator=gen, device=dev) / 64.0}
+    for name, shape in sorted(shapes.items()):
+        card[name] = min(0.02, shape[-2] ** -0.5) * torch.randn(
+            shape, generator=gen, device=dev)
+    cot = torch.randn((1, TRAIN_SEQ, d), generator=gen, device=dev)
+    host = {n: t.cpu() for n, t in card.items()}
+
+    def grads(tree, c):
+        names = sorted(tree)
+        req = {n: tree[n].detach().requires_grad_(True) for n in names}
+        x = req.pop("x")
+        y, aux, drop = moe.moe_ffn(x, req, cfg)
+        g = torch.autograd.grad((y * c).sum() + aux,
+                                [x] + [req[n] for n in names if n != "x"])
+        return drop, dict(zip(["x"] + [n for n in names if n != "x"], g))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drop, got = grads(card, cot)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drop_cpu, want = grads(host, cot.cpu())
+    cpu_s = time.perf_counter() - t0
+    check_routing(f"{arch} moe_ffn backward", (card["x"], card["router"]),
+                  (host["x"], host["router"]), k, capacity)
+    check(float(drop) == float(drop_cpu),
+          f"{arch} moe_ffn drop fraction {float(drop)} vs {float(drop_cpu)}")
+    out = {"arch": arch, "T": TRAIN_SEQ, "d_model": d, "experts": E,
+           "top_k": k, "d_ff": cfg.moe_d_ff, "shared": cfg.moe_num_shared,
+           "capacity": capacity, "dropped_fraction": float(drop),
+           "tol": MOE_CHECK_TOL, "grads": {},
+           "card_seconds_first_call": card_s, "cpu_seconds": cpu_s}
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[name].cpu() - w).abs().max())
+        out["grads"][name] = {"max_abs_err": err, "max_abs": scale}
+        check(scale > 0.0 and err <= MOE_CHECK_TOL * scale,
+              f"{arch} moe_ffn d{name} card vs CPU {err} (max {scale})")
+    del card, host, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_phase(dev, smi, counts, arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+                   n_params=TRAIN_PARAMS, steps=TRAIN_STEPS):
+    """Phase 13c (and 18 (a)): ``steps`` bf16 ``train_step`` calls of
+    ``arch`` at full width (``layers`` layers, remat on), 2 institutions
+    of one 2048-token sequence (or frames) each, lr 3e-4 with run_lm's
+    warm-up over half the run: every loss and grad norm finite, each step
+    K7 twice per K7 layer and institution (forward, remat), K8a and K8b
+    once, nothing else, and every weight matrix moved.  Returns (the
+    ``train`` line's fields, one more step for --profile, the AdamW
+    update alone for --profile); the model lives until both are freed."""
+    import torch
     from repro_torch.launch.train import corpus_batch, mean_gradients, \
         train_step
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
     reset, read = counts
-    full = get_config(TRAIN_ARCH)
-    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    full, cfg = train_config(arch, layers)
     check(cfg.remat and cfg.dtype == torch.bfloat16
-          and T.count_params(cfg) == TRAIN_PARAMS, "training config")
+          and T.count_params(cfg) == n_params,
+          f"{arch} training config: params {T.count_params(cfg)}")
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     # run_lm's schedule: warm-up over half the run
-    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(1, TRAIN_STEPS // 2))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(1, steps // 2))
     state = adamw_init(params)
-    watch = params["segments"][0]["wq"][0, :64].clone()
     per = TRAIN_BATCH // TRAIN_INST
+    embed_dim = cfg.d_model if cfg.frontend == "embeddings" else 0
 
     def insts(step):
         b = corpus_batch(SEED, step, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
-                         dev)
+                         dev, embed_dim)
         return [{k: v[j * per:(j + 1) * per] for k, v in b.items()}
                 for j in range(TRAIN_INST)]
 
-    want = {"flash_attention_kernel": TRAIN_LAYERS * TRAIN_INST * 2,
-            "flash_dq_kernel": TRAIN_LAYERS * TRAIN_INST,
-            "flash_dkdv_kernel": TRAIN_LAYERS * TRAIN_INST}
-    steps, total = [], collections.Counter()
-    for step in range(TRAIN_STEPS):
+    def matrices():
+        """The weight matrices (a segment's leaves of 3 dims, the lm_head)
+        and, where the model reads tokens, the token table's row of the
+        first token trained on: what a bf16 step of ~lr must move (a gain
+        near 1, or a row no batch reads, moves by less than a bf16
+        unit)."""
+        out = [params["lm_head"]] + [
+            leaf for seg in params["segments"] for leaf in seg.values()
+            if leaf.dim() >= 3]
+        if not embed_dim:
+            out.append(params["embed"][int(insts(0)[0]["tokens"][0, 0])])
+        return out
+
+    watch = [leaf.reshape(-1)[:64].clone() for leaf in matrices()]
+    n_k7 = k7_layers(cfg, TRAIN_SEQ)
+    want = {"flash_attention_kernel": 2 * n_k7 * TRAIN_INST,
+            "flash_dq_kernel": n_k7 * TRAIN_INST,
+            "flash_dkdv_kernel": n_k7 * TRAIN_INST}
+    ms, total = [], collections.Counter()
+    for step in range(steps):
         batches = insts(step)
         torch.cuda.synchronize()
         reset()
@@ -2154,32 +2439,39 @@ def training_phase(dev, smi, counts):
         total.update(got)
         w = dict(want)
         w.update({k: 0 for k in got if k not in w})
-        check(got == w, f"step {step} launches {got}: K7 twice per layer "
-              "and institution (forward, remat), K8a and K8b once")
-        check(all(x == x and abs(x) < float("inf")
-                  for x in (m["loss"], m["grad_norm"])),
-              f"step {step}: loss {m['loss']} grad norm {m['grad_norm']}")
-        steps.append(m)
+        check(got == w, f"{arch} step {step} launches {got}: K7 twice per "
+              f"K7 layer ({n_k7}) and institution, K8a and K8b once")
+        check(all(math.isfinite(x) for x in (m["loss"], m["grad_norm"])),
+              f"{arch} step {step}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+        ms.append(m)
     peak = torch.cuda.max_memory_allocated()
-    moved = float((params["segments"][0]["wq"][0, :64].float()
-                   - watch.float()).abs().max())
-    check(moved > 0.0, "the parameters moved")
-    secs = [m["seconds"] for m in steps]
+    moved = [float((leaf.reshape(-1)[:64].float() - w.float()).abs().max())
+             for leaf, w in zip(matrices(), watch)]
+    check(min(moved) > 0.0, f"{arch}: a weight matrix did not move "
+          f"({moved})")
+    secs = [m["seconds"] for m in ms]
     steady = statistics.median(secs[1:])
     out = {
-        "arch": full.name, "num_layers": TRAIN_LAYERS,
-        "reduced": {"num_layers": f"{TRAIN_LAYERS} of {full.num_layers}"},
-        "params": TRAIN_PARAMS, "dtype": "bfloat16", "remat": cfg.remat,
+        "arch": full.name, "num_layers": cfg.num_layers,
+        "reduced": ({"num_layers": f"{cfg.num_layers} of {full.num_layers}"}
+                    if cfg.num_layers < full.num_layers else {}),
+        "params": n_params, "params_full_depth": T.count_params(full),
+        "dtype": "bfloat16", "remat": cfg.remat,
+        "rwkv_chunk": cfg.rwkv_chunk, "frontend": cfg.frontend,
         "institutions": TRAIN_INST, "batch": TRAIN_BATCH,
-        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
-        "losses": [m["loss"] for m in steps],
-        "grad_norms": [m["grad_norm"] for m in steps],
+        "seq_len": TRAIN_SEQ, "steps": steps, "lr": TRAIN_LR,
+        "warmup_steps": opt.warmup_steps,
+        "losses": [m["loss"] for m in ms],
+        "grad_norms": [m["grad_norm"] for m in ms],
         "seconds_per_step": secs,
         "median_seconds_per_step_after_the_first": steady,
         "tokens_per_second": TRAIN_BATCH * TRAIN_SEQ / steady,
-        "launches_per_step": want, "launches": dict(total),
-        "peak_bytes_allocated": peak, "max_param_move": moved,
-        "card": smi,
+        "k7_layers": n_k7, "launches_per_step": want,
+        "launches": dict(total), "peak_bytes_allocated": peak,
+        "weight_matrices": len(moved), "min_matrix_move": min(moved),
+        "max_matrix_move": max(moved),
+        "init_params_seconds": init_s, "card": smi,
     }
 
     def profiled_step():
@@ -2195,65 +2487,45 @@ def training_phase(dev, smi, counts):
     return out, profiled_step, adamw_only
 
 
-def secure_phase(dev, counts):
-    """Phase 13d: ``run_lm`` with Shamir gradient aggregation at the
-    smoke config; then the step-0 secure mean against the plain one."""
+def training_families_phase(dev, smi, counts, profile_repeats: int = 0):
+    """Phase 18: the F3a and F3b families trained on the card (see the
+    module docstring).  Prints each part's line; returns (the largest K8
+    error at ``F4_K8_CASES``, their timing arguments by name, the
+    ``train_f4`` fields by arch, the secure runs' launches by arch)."""
     import torch
-    from repro_torch.configs import smoke_config
-    from repro_torch.core.collective import SecureCollective
-    from repro_torch.core.flatbuf import tree_flatten
-    from repro_torch.launch import train
-    from repro_torch.models import transformer as T
 
-    reset, read = counts
-    cfg = smoke_config(TRAIN_ARCH)
-    args = train.parse_args(SECURE_ARGV + ["--device", str(dev)])
-    S_ = args.institutions
-    reset()
-    rep = train.run_lm(args)
-    torch.cuda.synchronize()
-    launches = read()
-    n = T.count_params(cfg)
-    rows = math.ceil(math.ceil(n / 128) / 8) * 8  # 128 lanes, rows in 8s
-    agg = SecureCollective(backend="kernel", overflow_check=True)
-    w, r = agg.scheme.num_shares, agg.scheme.field.num_residues
-    want_bytes = S_ * w * r * rows * 128 * 4
-    check(rep["loss_last"] < rep["loss_first"],
-          f"secure loss {rep['loss_first']} -> {rep['loss_last']}")
-    check(rep["bytes_per_step"] == [want_bytes] * args.steps,
-          f"secure bytes per step {rep['bytes_per_step']} != {want_bytes}")
-    L = cfg.num_layers * S_ * args.steps  # smoke config: no remat
-    want = {"encode_share_kernel": args.steps,
-            "reconstruct_kernel": args.steps,
-            "flash_attention_kernel": L, "flash_dq_kernel": L,
-            "flash_dkdv_kernel": L}
-    want.update({k: 0 for k in launches if k not in want})
-    check(launches == want, f"secure training launches {launches}")
-    # step 0 again: the secure mean against the plain mean
-    params = T.init_params(cfg, seed=args.seed, device=dev)
-    b = train.corpus_batch(args.seed, 0, args.batch, args.seq_len,
-                           cfg.vocab_size, dev)
-    per = args.batch // S_
-    insts = [{k: v[j * per:(j + 1) * per] for k, v in b.items()}
-             for j in range(S_)]
-    _, plain, _ = train.mean_gradients(params, insts, cfg)
-    _, secure, nbytes = train.mean_gradients(
-        params, insts, cfg, agg, SecureCollective.round_key(args.seed, 0,
-                                                            dev))
-    err = max(float((a - p).abs().max()) for a, p in
-              zip(tree_flatten(secure)[0], tree_flatten(plain)[0]))
-    check(err <= S_ * 2.0**-FRAC_BITS, f"secure vs plain mean grads {err}")
-    check(nbytes == want_bytes, f"step-0 bytes {nbytes}")
-    return {"arch": cfg.name, "config": "smoke", "params": n,
-            "argv": SECURE_ARGV, "losses": rep["losses"],
-            "loss_first": rep["loss_first"], "loss_last": rep["loss_last"],
-            "bytes_per_step": want_bytes, "launches": launches,
-            "step0_secure_vs_plain_max_abs": err,
-            "quantization_bound": S_ * 2.0**-FRAC_BITS,
-            "seconds": rep["seconds"],
-            "reduced": "smoke config: the int32 shares of the full-width "
-                       "2-layer model would take 24 B a parameter per "
-                       "institution (122 GB for two)"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18: {torch.cuda.memory_allocated()} bytes on the card "
+          "from earlier phases")
+    k8_err, k8_args = check_k8(dev, F4_K8_CASES,
+                               tuple(c[0] for c in F4_K8_CASES))
+    print(f"K8a/K8b vs plain: {[c[0] for c in F4_K8_CASES]} within "
+          f"tolerance, max|d(dq, dk, dv)| {k8_err:.3e}")
+    for arch in F4_MOE_ARCHS:
+        print(json.dumps({"moe_grad_check": moe_grad_check(dev, arch),
+                          "card": smi}))
+    for arch, layers, n_params, steps in F4_GRAD_CHECKS:
+        print(json.dumps({"grad_check_f4": grad_check(
+            dev, arch, layers, n_params, steps), "card": smi}))
+    trained = {}
+    for arch, layers, n_params in F4_MODELS:
+        trained[arch], run, adamw_run = training_phase(
+            dev, smi, counts, arch, layers, n_params, F4_STEPS)
+        print(json.dumps({"train_f4": trained[arch]}))
+        if profile_repeats:
+            print(json.dumps({"profile": profile_run(
+                run, lambda r: 1, f"train_step {arch}", profile_repeats,
+                categories=F4_CATEGORIES), "card": smi}))
+        del run, adamw_run  # the model and its moments
+        gc.collect()
+        torch.cuda.empty_cache()
+    secure = {}
+    for arch, _, _ in F4_MODELS:
+        out = secure_phase(dev, counts, arch)
+        secure[arch] = out["launches"]
+        print(json.dumps({"secure_train_f4": out, "card": smi}))
+    return k8_err, k8_args, trained, secure
 
 
 def wire_tree(dev, params: int = WIRE_PARAMS):
@@ -2795,7 +3067,11 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
+    ap.add_argument("--only", type=int, choices=(18,), default=None,
+                    help="after the card and the build, run only this "
+                         "phase (no kernels line, no last line)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2830,6 +3106,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    counters = (encode_share_kernel, reconstruct_kernel, fused_irls_kernel,
+                fused_irls_cv_kernel, share_kernel, gram_hessian_kernel,
+                flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
+
+    def reset_counts():
+        for k in counters:
+            k.launches = 0
+
+    def read_counts():
+        return {k.__name__: k.launches for k in counters}
+
+    counts = (reset_counts, read_counts)
 
     # -- 1. the card -------------------------------------------------------
     smi = subprocess.run(
@@ -2880,6 +3168,10 @@ def main() -> int:
     check(len(irls_rep["kernels"]) == 17,
           f"{len(irls_rep['kernels'])} IRLS kernel instantiations (K3 7, "
           "K5 7, K6 3) in the ptxas report")
+    if args.only == 18:
+        training_families_phase(dev, smi, counts,
+                                args.repeats if args.profile else 0)
+        return 0
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
     study = generate_synthetic(SEED, num_institutions=1,
@@ -3026,17 +3318,6 @@ def main() -> int:
     secure_fit(parts, **fit_kw)  # warm-up: allocator, pack cache
     gold = centralized_fit(X_all, y_all, device=dev)
     torch.cuda.synchronize()
-    counters = (encode_share_kernel, reconstruct_kernel, fused_irls_kernel,
-                fused_irls_cv_kernel, share_kernel, gram_hessian_kernel,
-                flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
-
-    def reset_counts():
-        for k in counters:
-            k.launches = 0
-
-    def read_counts():
-        return {k.__name__: k.launches for k in counters}
-
     reset_counts()
     t0 = time.perf_counter()
     res = secure_fit(parts, **fit_kw)
@@ -3152,7 +3433,6 @@ def main() -> int:
           f"{coord_s:.4f} launches {coord_launches}")
 
     # -- 6. leaf-wise Shamir through the kernel scheme (K4, K2 residues) ---
-    counts = (reset_counts, read_counts)
     share_s, rec_s, leaf_launches = leafwise_phase(dev, counts)
     print(f"leaf-wise Shamir: n={LEAF_N} institutions {LEAF_INST} 2-of-3 "
           f"over {FIELD_WIDE.name}: every reveal from (1,2), (1,3), (2,3) "
@@ -3338,6 +3618,10 @@ def main() -> int:
         f3b_out[arch] = f3b_phase(dev, smi, counts, arch, n_params, prompts,
                                   args.repeats if args.profile else 0)
 
+    # -- 18. training the F3a and F3b families ------------------------------
+    f4_k8_err, f4_k8_args, f4_out, f4_secure = training_families_phase(
+        dev, smi, counts, args.repeats if args.profile else 0)
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -3445,6 +3729,9 @@ def main() -> int:
                       for name, *_ in F3B_K7_CASES})
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
+    k8_shapes.update({name: k8_timing(f4_k8_args[name],
+                                      MLA_DV if how == "v128" else None)
+                      for name, *_, how in F4_K8_CASES})
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
              path="secure_fit",
@@ -3522,13 +3809,15 @@ def main() -> int:
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:145",
-             library_covers="K8a + K8b", err=k8_err, **k8_main["K8a"],
-             shapes={n: k8_shapes[n]["K8a"] for n in FLASH_TIMED}),
+             library_covers="K8a + K8b", err=max(k8_err, f4_k8_err),
+             **k8_main["K8a"],
+             shapes={n: sh["K8a"] for n, sh in k8_shapes.items()}),
         dict(name="K8b flash_dkdv", fn=flash_dkdv_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:188",
-             library_covers="K8a + K8b", err=k8_err, **k8_main["K8b"],
-             shapes={n: k8_shapes[n]["K8b"] for n in FLASH_TIMED}),
+             library_covers="K8a + K8b", err=max(k8_err, f4_k8_err),
+             **k8_main["K8b"],
+             shapes={n: sh["K8b"] for n, sh in k8_shapes.items()}),
     ]
     by_path = {"secure_fit": launches, "lambda_path": path_launches,
                "leafwise": leaf_launches, "gram": gram_launches,
@@ -3539,7 +3828,11 @@ def main() -> int:
                "secure_train": secure_out["launches"],
                "wires": wire_launches,
                **{f"serve_{arch}": out["launches"]
-                  for arch, out in (*f3a_out.items(), *f3b_out.items())}}
+                  for arch, out in (*f3a_out.items(), *f3b_out.items())},
+               **{f"train_{arch}": out["launches"]
+                  for arch, out in f4_out.items()},
+               **{f"secure_train_{arch}": launches
+                  for arch, launches in f4_secure.items()}}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -3611,6 +3904,11 @@ def main() -> int:
             for arch, out in f3b_out.items()},
         "recurrence_loops": {k: v for k, v in rec_out.items()
                              if k.endswith("serving shape")},
+        "script_seconds_to_here": time.perf_counter() - t_script,
+        "f4_train": {arch: {k: out[k] for k in (
+            "median_seconds_per_step_after_the_first", "tokens_per_second",
+            "peak_bytes_allocated", "launches_per_step")}
+            for arch, out in f4_out.items()},
         "card": smi,
     }))
     print(json.dumps({"ok": True, "device": {

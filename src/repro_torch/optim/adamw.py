@@ -12,7 +12,11 @@ Unlike JAX, :func:`adamw_update` writes the new parameters and moments
 into the tensors it was given, one leaf at a time under
 ``torch.no_grad()``: at Qwen2.5-32B's width a second copy of the moments
 alone would be 20 GB.  It returns the same tensors.  No ``_foreach`` or
-fused optimizer runs here.
+fused optimizer runs here.  A leaf larger than ``UPDATE_CHUNK`` elements
+is updated a slice of its flat view at a time, so the float32
+temporaries of one pass stay near 1 GB (a whole Qwen3-MoE expert leaf,
+805,306,368 elements, would take ~10 GB of them); the update is
+elementwise, so the numbers do not change.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ import torch
 from ..core.flatbuf import tree_flatten, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update"]
+
+# elements of a leaf that one pass of the update takes at a time
+UPDATE_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +70,19 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm.to(torch.float32)
 
 
+def _pieces(p, g, m, v):
+    """(p, g, m, v) as slices of at most ``UPDATE_CHUNK`` elements of
+    their flat views, written through to the leaves; a leaf that is not
+    contiguous is one piece."""
+    n = p.numel()
+    if n <= UPDATE_CHUNK or not all(t.is_contiguous() for t in (p, m, v)):
+        yield p, g, m, v
+        return
+    flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+    for i in range(0, n, UPDATE_CHUNK):
+        yield tuple(t[i:i + UPDATE_CHUNK] for t in flat)
+
+
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}):
@@ -83,15 +103,16 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
                                        device=stepf.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g = g.to(torch.float32) * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        del g
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        p32 = p.to(torch.float32)
-        p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
-        del delta, p32
+    for leaf in zip(flat_p, flat_g, flat_m, flat_v):
+        for p, g, m, v in _pieces(*leaf):
+            g = g.to(torch.float32) * scale
+            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+            del g
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            p32 = p.to(torch.float32)
+            p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
+            del delta, p32
     return (tree_unflatten(treedef, flat_p), AdamWState(step, state.mu,
                                                         state.nu),
             {"grad_norm": gnorm, "lr": lr})

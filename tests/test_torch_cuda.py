@@ -852,6 +852,12 @@ def _to(tree, dev):
     (1, 2048, 40, 8, 128, torch.bfloat16, 4.0),
     (1, 1000, 16, 1, 256, torch.bfloat16, 4.0),
     (2, 300, 8, 2, 64, torch.bfloat16, 4.0),
+    # the MoE, MLA and embeddings families' training shapes: MLA's Dk 192
+    # (its padded V: test_attend_mla_backward_matches_plain), Qwen3-MoE's
+    # 64/4 GQA, MusicGen's 24 heads of 64
+    (1, 2048, 16, 16, 192, torch.bfloat16, 1.0),
+    (1, 2048, 64, 4, 128, torch.bfloat16, 1.0),
+    (1, 2048, 24, 24, 64, torch.bfloat16, 1.0),
 ])
 def test_k8_kernels_match_plain(cuda, B, S, H, KVH, D, dtype, q_scale):
     gen = torch.Generator(device=cuda).manual_seed(S + D + 1)
@@ -921,6 +927,44 @@ def test_attend_head_dim_256_matches_plain(cuda, dtype):
                 float(err.max())
 
 
+@pytest.mark.parametrize("S", [2048, 300])
+def test_attend_mla_backward_matches_plain(cuda, S):
+    """MLA's training attention (16 heads, Dk 192, Dv 128, bf16): ``attend``
+    pads V to 192 for K7, so K8a and K8b see V and do zero past 128
+    columns; dq, dk and dv against the plain backward on the padded
+    tensors, dv cut back to 128, at K8's bf16 tolerance."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+
+    B, H, Dk, Dv = 1, 16, 192, 128
+    gen = torch.Generator(device=cuda).manual_seed(S + 192)
+    q, k = (torch.randn((B, S, H, Dk), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn((B, S, H, Dv), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_dq_kernel.launches, flash_dkdv_kernel.launches)
+    o = attention.attend(*leaves)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_dq_kernel.launches, flash_dkdv_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    v_pad, do_pad = F.pad(v, (0, Dk - Dv)), F.pad(do, (0, Dk - Dv))
+    with torch.no_grad():
+        o_pad, m, l = flash_attention_kernel(q, k, v_pad)
+    delta = (do_pad.float() * o_pad.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    args = (q, k, v_pad, do_pad, m, 1.0 / torch.clamp(l, min=1e-30), delta)
+    dk_plain, dv_plain = flash_dkdv_plain(*args)
+    want = (flash_dq_plain(*args), dk_plain, dv_plain[..., :Dv])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= 5e-3 + 1e-2 * w.float().abs()).all()), \
+            float(err.max())
+
+
 def _smoke_f32(arch="qwen2_5_32b", remat=False):
     import dataclasses
 
@@ -987,6 +1031,147 @@ def test_train_step_launches_and_matches_the_cpu(cuda, remat):
     runs = [c.launches - b for c, b in zip(counters, before)]
     L = cfg.num_layers
     assert runs == [L * 2 * (2 if remat else 1), L * 2, L * 2]
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
+    assert abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= 1e-4 * \
+        m_cpu["grad_norm"]
+    for g, w in zip(tree_flatten(p_gpu)[0], tree_flatten(p_cpu)[0]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6
+
+
+# ------------------- training the MoE, MLA, embeddings and recurrent families
+def _grads_of(fn, tree):
+    """(fn's output, d(sum of each output times a fixed cosine weight)/d
+    every leaf of ``tree``), leaves in sorted-name order."""
+    names = sorted(tree)
+    req = {n: tree[n].detach().requires_grad_(True) for n in names}
+    outs = fn(req)
+    loss = 0.0
+    for o in outs:
+        w = torch.cos(torch.arange(o.numel(), dtype=torch.float32,
+                                   device=o.device)).reshape(o.shape)
+        loss = loss + (o.float() * w).sum()
+    return outs, dict(zip(names, torch.autograd.grad(
+        loss, [req[n] for n in names])))
+
+
+def _grads_close(got, want, tol=1e-4):
+    for name, w in want.items():
+        assert got[name].device.type == "cuda"
+        err = float((got[name].cpu() - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "deepseek_v2_lite"])
+def test_moe_ffn_backward_on_the_card_matches_the_cpu(cuda, arch):
+    """``moe_ffn``'s backward (x, the router, every expert and shared leaf)
+    in float32 on the card against the CPU on the same inputs, through the
+    aux loss too: x and the router on a grid, so the routing is equal;
+    each gradient within 1e-5 of its max."""
+    from repro_torch.models import moe
+
+    cfg = smoke_config(arch)
+    gen = torch.Generator().manual_seed(12)
+    d, E, h = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+    tree = {"x": torch.randint(-8, 9, (2, 64, d), generator=gen) / 8.0,
+            "router": torch.randint(-8, 9, (d, E), generator=gen) / 64.0,
+            **{n: 0.1 * torch.randn(shape, generator=gen) for n, shape in
+               (("experts_w1", (E, d, h)), ("experts_w3", (E, d, h)),
+                ("experts_w2", (E, h, d)))}}
+    if cfg.moe_num_shared:
+        hs = cfg.moe_num_shared * h
+        tree.update({n: 0.1 * torch.randn(shape, generator=gen)
+                     for n, shape in (("shared_w1", (d, hs)),
+                                      ("shared_w3", (d, hs)),
+                                      ("shared_w2", (hs, d)))})
+
+    def fn(t):
+        p = dict(t)
+        y, aux, drop = moe.moe_ffn(p.pop("x"), p, cfg)
+        return y, aux, drop
+
+    (y_cpu, _, drop_cpu), want = _grads_of(fn, tree)
+    (y, _, drop), got = _grads_of(fn, _to(tree, cuda))
+    y, y_cpu = y.detach().cpu(), y_cpu.detach()
+    assert float(drop) == float(drop_cpu)
+    assert float((y - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())
+    _grads_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("S", [70, 32])
+def test_recurrent_backward_on_the_card_matches_the_cpu(cuda, S):
+    """RWKV6's time mix in its chunked form at ``rwkv_chunk`` 32 (the JAX
+    package's training preset; S 70 runs two chunks and a ragged tail,
+    each chunk under the checkpoint), its channel mix, and RG-LRU's block
+    backward in float32: every gradient on the card within 1e-4 of the
+    CPU's max."""
+    import dataclasses
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator().manual_seed(S + 32)
+    cfg = dataclasses.replace(_smoke_f32("rwkv6_3b"), rwkv_chunk=32)
+    tree = dict(_recurrent_params(cfg, ("rwkv6", "channelmix"), 62),
+                x=torch.randn((2, S, cfg.d_model), generator=gen))
+
+    def rwkv(t):
+        p = dict(t)
+        x = p.pop("x")
+        y, (state, _) = ssm.rwkv6_mix(p, x, cfg)
+        return y, state, ssm.rwkv6_channelmix(p, x)[0]
+
+    _, want = _grads_of(rwkv, tree)
+    _, got = _grads_of(rwkv, _to(tree, cuda))
+    _grads_close(got, want)
+    cfg = _smoke_f32("recurrentgemma_9b")
+    tree = dict(_recurrent_params(cfg, ("rglru", "dense"), 63),
+                x=torch.randn((2, S, cfg.d_model), generator=gen))
+
+    def rglru(t):
+        p = dict(t)
+        y, (h, _) = ssm.rglru_block(p, p.pop("x"), cfg)
+        return y, h
+
+    _, want = _grads_of(rglru, tree)
+    _, got = _grads_of(rglru, _to(tree, cuda))
+    _grads_close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite", "qwen3_moe_235b",
+                                  "musicgen_medium", "rwkv6_3b",
+                                  "recurrentgemma_9b"])
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One ``train_step`` of the smoke config in float32 with remat, two
+    institutions (MusicGen on seeded frames; RWKV6 chunked at 16, two
+    chunks a sequence), on the card against the CPU: loss and grad norm,
+    and the parameters within 1e-6 (AdamW eps 1e-3, as above); K7 twice
+    per K7 layer and institution, K8a and K8b once."""
+    import dataclasses
+
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.launch.train import corpus_batch, train_step
+    from repro_torch.models.config import block_kinds
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _smoke_f32(arch, remat=True)
+    if cfg.mixer == "rwkv6":
+        cfg = dataclasses.replace(cfg, rwkv_chunk=16)
+    opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=2)
+    b = corpus_batch(3, 0, 2, 32, cfg.vocab_size, "cpu",
+                     cfg.d_model if cfg.frontend == "embeddings" else 0)
+    insts = [{k: v[j:j + 1].float() if k == "embeds" else v[j:j + 1]
+              for k, v in b.items()} for j in range(2)]
+    params = T.init_params(cfg, seed=2, device="cpu")
+    card = _to(params, cuda)
+    p_cpu, _, m_cpu = train_step(params, adamw_init(params), insts, cfg, opt)
+    counters = (flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
+    before = [c.launches for c in counters]
+    p_gpu, _, m_gpu = train_step(card, adamw_init(card),
+                                 [_to(x, cuda) for x in insts], cfg, opt)
+    torch.cuda.synchronize()
+    n_k7 = sum(1 for m, _ in block_kinds(cfg)
+               if m in ("full", "mla") or (m == "local" and cfg.window >= 32))
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        4 * n_k7, 2 * n_k7, 2 * n_k7]
     assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
     assert abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= 1e-4 * \
         m_cpu["grad_norm"]

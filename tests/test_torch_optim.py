@@ -108,6 +108,37 @@ def test_adamw_updates_in_place_and_without_clip():
     assert isinstance(st2, AdamWState) and int(st2.step) == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_pieces_is_bit_identical(monkeypatch, dtype):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated a slice of its flat
+    view at a time (ragged last slice here: 20 and 24 elements in pieces
+    of 7); three steps give the parameters and moments of the whole-leaf
+    update bit for bit.  A leaf that is not contiguous (a transposed
+    view) is updated whole, in place."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    rng = np.random.default_rng(3)
+    tree = _tree_np(rng, np.float32)
+    grads = [_to_torch(_tree_np(rng, np.float32), torch.float32)
+             for _ in range(3)]
+    out = {}
+    for chunk in (adamw_mod.UPDATE_CHUNK, 7):
+        monkeypatch.setattr(adamw_mod, "UPDATE_CHUNK", chunk)
+        p = _to_torch(tree, dtype)
+        p["embed"] = p["embed"].t().contiguous().t()  # (6, 4), strided
+        leaf = p["segments"][0]["w1"]
+        st = adamw_init(p)
+        for g in grads:
+            p, st, _ = adamw_update(g, st, p, AdamWConfig(warmup_steps=2))
+        assert p["segments"][0]["w1"] is leaf
+        assert not p["embed"].is_contiguous()
+        out[chunk] = [t.clone() for t in
+                      tree_flatten((p, st.mu, st.nu))[0]]
+    whole, pieces = out.values()
+    for a, b in zip(whole, pieces):
+        assert torch.equal(a, b)
+
+
 def test_compression_matches_jax():
     g = np.random.default_rng(2).standard_normal((7, 5)).astype(np.float32)
     q, scale, resid = compression._quantize(torch.from_numpy(g))

@@ -82,8 +82,8 @@ def test_chunked_strong_decay_exact():
     assert bool(torch.isfinite(o_chk).all())
 
 
-def test_chunked_gradients_match():
-    r, k, v, w, u, s0 = _t(_inputs(2, S=32, B=1, H=2, D=6))
+def _chunked_gradients_match(S, chunk):
+    r, k, v, w, u, s0 = _t(_inputs(2, S=S, B=1, H=2, D=6))
 
     def grads(fn):
         rr, kk = (t.clone().requires_grad_(True) for t in (r, k))
@@ -93,9 +93,19 @@ def test_chunked_gradients_match():
         return torch.autograd.grad((o * weight).sum() + s.sum(), (rr, kk))
 
     g_ref = grads(ssm._rwkv6_recurrence)
-    g_chk = grads(lambda *a: ssm._rwkv6_chunked(*a, chunk=8))
+    g_chk = grads(lambda *a: ssm._rwkv6_chunked(*a, chunk=chunk))
     for a, b in zip(g_chk, g_ref):
         torch.testing.assert_close(a, b, rtol=5e-5, atol=5e-5)
+
+
+def test_chunked_gradients_match():
+    _chunked_gradients_match(32, 8)
+
+
+def test_chunked_gradients_match_at_the_training_chunk():
+    """``rwkv_chunk`` 32, the JAX package's training preset, over two
+    chunks and a ragged tail (each chunk under the checkpoint)."""
+    _chunked_gradients_match(70, 32)
 
 
 def test_chunked_state_carry_composes():
@@ -113,7 +123,7 @@ def test_chunked_state_carry_composes():
 
 
 # ------------------------------------------------------- against the JAX ssm
-@pytest.mark.parametrize("S,chunk", [(48, 0), (50, 16), (48, 8)])
+@pytest.mark.parametrize("S,chunk", [(48, 0), (50, 16), (48, 8), (80, 32)])
 def test_rwkv6_recurrences_match_jax(S, chunk):
     arrays = _inputs(10 + S, S=S)
     if chunk:

@@ -1,9 +1,10 @@
 """The port's LM training path and training CLI against the JAX package,
 on the CPU.
 
-``loss_fn`` (value and every leaf's gradient, through K7/K8's plain
-versions on the full-causal layers and autograd of the banded scan on
-H2O's) on three smoke configs with JAX's weights; remat; ``train_step``
+``loss_fn`` (value, aux loss and every leaf's gradient, through K7/K8's
+plain versions on the full-causal layers and autograd of the banded scan
+on H2O's) on the smoke configs of the dense, recurrent, MoE, MLA and
+embeddings families with JAX's weights; remat; ``train_step``
 against the JAX driver's loop (per-institution ``value_and_grad``, the
 mean, ``adamw_update``), plain and under Shamir aggregation; the CLI
 cases of ``tests/test_train_serve.py``; ``load_study``'s shapes.
@@ -106,18 +107,38 @@ def _grads(params, batch, cfg):
     leaves, treedef = tree_flatten(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
     loss, aux = T.loss_fn(tree_unflatten(treedef, req), batch, cfg)
-    return loss, aux, torch.autograd.grad(loss, req)
+    return loss, aux, torch.autograd.grad(loss, req,
+                                          materialize_grads=True)
+
+
+def _frames(batch, d, seed):
+    """``batch`` with seeded standard normal frames (B, S, d) in place of
+    its tokens (the ``embeddings`` frontend), as (JAX, port) batches."""
+    jb, b = batch
+    B, S = b["labels"].shape
+    e = np.random.default_rng(seed).standard_normal((B, S, d)).astype(
+        np.float32)
+    return ({"embeds": jnp.asarray(e), "labels": jb["labels"]},
+            {"embeds": torch.from_numpy(e), "labels": b["labels"]})
 
 
 @pytest.mark.parametrize("dtype_str", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["qwen2_5_32b", "deepseek_7b",
                                   "h2o_danube3_4b", "rwkv6_3b",
-                                  "recurrentgemma_9b"])
+                                  "recurrentgemma_9b", "deepseek_v2_lite",
+                                  "qwen3_moe_235b", "musicgen_medium",
+                                  "qwen2_72b", "llava_next_34b"])
 def test_loss_fn_matches_jax(arch, dtype_str):
     """48 tokens: past the h2o and recurrentgemma windows (32), so their
-    banded scans run; the recurrent mixers' loops run 48 steps."""
+    banded scans run; the recurrent mixers' loops run 48 steps.  Every LM
+    arch of the registry: the MoE families' aux loss (nonzero) against
+    JAX's; the embeddings frontend (MusicGen, LLaVA-NeXT) takes seeded
+    frames through ``embeds=`` and its token table gets a zero gradient,
+    as ``jax.grad`` gives it."""
     jcfg, cfg, jparams, params = _model(arch, dtype_str)
     jb, b = _batch(cfg.vocab_size, 2, 48, seed=5)
+    if cfg.frontend == "embeddings":
+        jb, b = _frames((jb, b), cfg.d_model, seed=7)
     (jloss, jaux), jgrads = _jax_value_and_grad(jcfg)(jparams, jb)
     loss, aux, grads = _grads(params, b, cfg)
     f32 = dtype_str == "float32"
@@ -126,7 +147,18 @@ def test_loss_fn_matches_jax(arch, dtype_str):
                                rtol=1e-5 if f32 else 2e-2)
     np.testing.assert_allclose(float(aux["ce"].detach()), float(jaux["ce"]),
                                rtol=1e-5 if f32 else 2e-2)
-    assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
+    if cfg.moe_num_experts:
+        assert float(jaux["aux"]) > 0.0
+        np.testing.assert_allclose(float(aux["aux"].detach()),
+                                   float(jaux["aux"]),
+                                   rtol=1e-5 if f32 else 2e-2)
+    else:
+        assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
+    if cfg.frontend == "embeddings":
+        i = next(i for i, leaf in enumerate(tree_flatten(params)[0])
+                 if leaf is params["embed"])
+        assert not bool(grads[i].any())
+        assert not np.any(_np(jax.tree.leaves(jgrads)[i]))
     jleaves = jax.tree.leaves(jgrads)
     assert len(grads) == len(jleaves)
     truth = [None] * len(jleaves)
@@ -214,9 +246,20 @@ def _jax_loop(jcfg, jparams, jbatches, steps, secure):
     return jparams, means, losses
 
 
-@pytest.mark.parametrize("secure", [False, True], ids=["plain", "shamir"])
-def test_train_step_matches_jax_loop(secure):
-    jcfg, cfg, jparams, params = _model("qwen2_5_32b", "float32", seed=1)
+@pytest.mark.parametrize("arch,secure", [
+    ("qwen2_5_32b", False), ("qwen2_5_32b", True),
+    ("deepseek_v2_lite", False), ("deepseek_v2_lite", True),
+    ("qwen3_moe_235b", False), ("rwkv6_3b", False),
+    ("recurrentgemma_9b", False)],
+    ids=["plain", "shamir", "deepseek_v2_lite-plain",
+         "deepseek_v2_lite-shamir", "qwen3_moe_235b-plain",
+         "rwkv6_3b-plain", "recurrentgemma_9b-plain"])
+def test_train_step_matches_jax_loop(arch, secure):
+    """Three steps of two institutions; DeepSeek-V2-Lite's smoke config
+    (MLA, a dense layer, then MoE with a shared expert) and Qwen3-MoE's
+    add their aux loss and train through the capacity gather; RWKV6 and
+    RecurrentGemma through their recurrences' loops."""
+    jcfg, cfg, jparams, params = _model(arch, "float32", seed=1)
     steps, S = 3, 2
     batches = [[_batch(cfg.vocab_size, 1, 16, seed=10 * s + j,
                        masked=False) for j in range(S)]

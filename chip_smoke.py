@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH] [--only 18]
+    python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH]
+                          [--only 18|19]
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
@@ -249,6 +250,37 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (one K1 and one K2 a step, exact wire bytes, the step-0 secure mean
    within S * 2^-28 of the plain one; a ``{"secure_train_f4": ...}``
    line each).  ``--only 18`` runs phases 1, 2 and 18 alone;
+19. the LM's sharded serving (``rules=``, ``distributed.sharding``),
+   after phase 18: K7 against its plain version at the local heads a rank
+   runs under a (1, 4) mesh (bf16, B 4, S 2048: Qwen2.5-32B's 10/2 of
+   128, Qwen3-MoE's 16/1 of 128, RecurrentGemma's 4/1 of 256); (a) one
+   NCCL rank with a (1, 1) mesh serves phase 10's requests (Qwen2.5-32B
+   at 8 of 64 layers, batch 4, prompts of 2048, 32 greedy tokens)
+   through ``serve_requests(..., rules=)``: the model's one program runs
+   under the mesh, its specs and coordinates read from it, and skips
+   every collective at size 1, so NCCL carries none; the tokens equal
+   phase 10's, the prefill logits within phase 10's bf16 tolerance of the
+   unsharded ones, K7 once per layer of each prefill; (b) 4 spawned ranks
+   on one gloo group, all on cuda:0 (NCCL refuses two ranks on one card), a
+   (1, 4) mesh, one model at a time, bf16 from a seed: Qwen2.5-32B at 2
+   of 64 layers, Qwen3-MoE-235B at 1 of 94 (32 experts a rank),
+   H2O-Danube3-4B at 2 of 24 with ``seq_parallel_prefill`` (S 8192: two
+   halo chunks at window 4096) and RecurrentGemma-9B at 3 of 38 (its
+   16/1 heads the mixed q/KV case, RG-LRU's channels split); each a
+   batch of 4 prompts (Qwen3-MoE 1, drop-free), a teacher-forced
+   prefill and 8 decode steps fed the unsharded run's greedy tokens
+   (rank 0 serves it), every gathered logit within the larger of 2e-2
+   max|logits| and twice the bf16 prefill's distance from the float32
+   prefill (phase 16's rule); Qwen3-MoE's ``moe_ffn`` at 4 x 2048 tokens
+   (capacity factor 1.0: assignments drop) expert-parallel against the
+   unsharded function, its drop fraction the largest of the ranks' own
+   drops (JAX's pmax), which add up to the unsharded drops; per rank the
+   parameter and cache bytes beside the whole (about a quarter, by
+   ``param_pspec``), ``wire_stats`` bytes per collective kind and staged
+   through the host, K7 launches (equal to the count the config implies:
+   one per attention layer a prefill runs through K7) and host
+   seconds (gloo's host ring: no fabric is measured); a ``{"d2a": ...}``
+   line.  ``--only 19`` runs phases 1, 2 and 19 alone;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call
    (also at phase 18's three training shapes, MLA's bound and SDPA call
@@ -261,7 +293,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    over 5 x 8 slices of 136 rows, K2 over the 5 aggregates) and at 2^24
    elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, and
    (phase 14c) K1 and K4 at (2, 17) and (17, 20), K2 at k = 17 and 20, each
-   held bit-identical to its plain version there (``at_shapes``); before
+   held bit-identical to its plain version there (``at_shapes``), and
+   K7 at phase 19's local-head shapes; before
    it, the event floor: an empty launch
    (``torch.cuda._sleep(0)``) timed as the kernels are.
 
@@ -476,6 +509,33 @@ F4_K8_CASES = (
     ("train_mla", 1, 2048, 16, 16, 192, "bfloat16", "v128"),
     ("train_qwen3_moe", 1, 2048, 64, 4, 128, "bfloat16", None),
     ("train_musicgen", 1, 2048, 24, 24, 64, "bfloat16", None),
+)
+# phase 19: the sharded serving path.  (b): D2A_RANKS spawned gloo ranks
+# on cuda:0 with a D2A_MESH (data, model) mesh, one model at a time:
+# (arch, layers kept, flags, prompt length, batch); a teacher-forced
+# prefill and D2A_STEPS decode steps fed the unsharded run's greedy
+# tokens, held to it by phase 16's rule (CONT_TOL or twice the bf16
+# noise).  The MoE serves drop-free (capacity_factor E / k: a capacity
+# of T, so a token the two runs route a hair differently drops nothing),
+# at batch 1: the unsharded (E, T, d) buffer of 4 x 2048 tokens would
+# take 8.6 GB in bf16 (64 GB at capacity_factor E); its moe_ffn check
+# runs at D2A_MOE_BATCH x 2048 tokens at a capacity factor of D2A_MOE_CF,
+# a capacity of the mean load, so that assignments drop
+D2A_RANKS, D2A_MESH, D2A_STEPS, D2A_MOE_BATCH = 4, (1, 4), 8, 4
+D2A_MOE_CF = 1.0
+D2A_MODELS = (("qwen2_5_32b", 2, {}, 2048, 4),
+              ("qwen3_moe_235b", 1, {}, 2048, 1),
+              ("h2o_danube3_4b", 2, {"seq_parallel_prefill": True}, 8192, 4),
+              ("recurrentgemma_9b", 3, {}, 2048, 4))
+D2A_DEADLINE_S = 600.0  # the spawned ranks, imports and CUDA init included
+# K7 at the local heads a rank runs under the (1, 4) mesh (bf16, B 4, S
+# 2048): Qwen2.5-32B's 40/8 -> 10/2, Qwen3-MoE's 64/4 -> 16/1,
+# RecurrentGemma's 16/1 -> 4/1 at D 256 (its one KV head whole on every
+# rank); checked at K7_TOL, timed in phase 12
+D2A_K7_CASES = (
+    ("tp4_qwen2_5", 4, 2048, 10, 2, 128, "bfloat16", None),
+    ("tp4_qwen3_moe", 4, 2048, 16, 1, 128, "bfloat16", None),
+    ("tp4_recurrentgemma", 4, 2048, 4, 1, 256, "bfloat16", None),
 )
 
 
@@ -1137,7 +1197,8 @@ def check_k7(dev, cases=K7_CASES, timed_names=("serving",) + FLASH_TIMED):
 def serving_phase(dev, smi, counts):
     """Phase 10b: 8 requests at Qwen2.5-32B's full width (8 of 64 layers)
     through ``launch.serve.serve_requests``, then the continuation check.
-    Returns (the ``serve`` line's fields, the timed run for --profile)."""
+    Returns (the ``serve`` line's fields, the timed run for --profile, the
+    served tokens by request)."""
     import dataclasses
 
     import torch
@@ -1239,7 +1300,7 @@ def serving_phase(dev, smi, counts):
         "sample_output": completed[0][:8],
         "card": smi,
     }
-    return out, run
+    return out, run, completed
 
 
 def check_routing(what, card, cpu, top_k: int, capacity: int) -> None:
@@ -3059,6 +3120,383 @@ def privacy_gate_phase(dev, smi, counts, parts, fit_kw) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 19
+def _owned(tree):
+    """``tree`` with every tensor copied to storage of its own (a rank's
+    blocks, so the whole parameters can be freed)."""
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_owned(v) for v in tree]
+    return tree.clone()
+
+
+def _d2a_config(arch, layers, flags, smoke):
+    """Phase 19 (b)'s config: the arch at full width (its smoke config in
+    a CPU rehearsal) cut to ``layers``, with ``flags``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+
+    base = smoke_config(arch) if smoke else get_config(arch)
+    return dataclasses.replace(base, num_layers=layers, **flags)
+
+
+def _k7_prefill_launches(cfg, rules, batch, prompt):
+    """K7 launches a rank's prefill implies: one per attention layer that
+    attends through ``attend``'s K7 branch (no window, or one the prompt
+    does not pass), none for a windowed layer in the ``seq`` layout
+    (``swa_attend_cp``'s scan); a decode step launches none."""
+    from repro_torch.distributed._tp import block_layout
+    from repro_torch.models.config import segments
+
+    n = 0
+    for (mixer, _), layers in segments(cfg):
+        if mixer not in ("full", "swa", "local", "mla"):
+            continue
+        window = cfg.window if mixer in ("swa", "local") else 0
+        if block_layout(cfg, rules, batch, prompt, mixer, "prefill") == "seq":
+            continue
+        if not window or window >= prompt:
+            n += layers
+    return n
+
+
+def _moe_rank_drops(x, router, cfg, ranks):
+    """(the unsharded function's dropped assignments, each of ``ranks``
+    expert-parallel ranks' drops among its own E / ranks experts): the
+    router's choices of ``x`` (B, S, d) and ``moe._dispatch``'s queues."""
+    from repro_torch.models import moe
+
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    T = x.shape[0] * x.shape[1]
+    _, experts, _ = moe._route(x.reshape(T, -1), router, k)
+    capacity = max(1, int(T * k * cfg.capacity_factor / E))
+    e_loc = E // ranks
+    per_rank = [int(moe._dispatch(experts, capacity, r * e_loc, e_loc, E)[3])
+                for r in range(ranks)]
+    return int(moe._dispatch(experts, capacity, 0, E, E)[3]), per_rank
+
+
+def _d2a_model(rank, dev, rules, arch, layers, flags, prompt, batch,
+               smoke):
+    """One model of phase 19 (b) on this rank; returns its record (rank
+    0's with the comparison against the unsharded run)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import shard_params, tree_bytes
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = _d2a_config(arch, layers, flags, smoke)
+    serve_cfg = cfg
+    if cfg.moe_num_experts:  # drop-free: a capacity of T
+        serve_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    _sync()
+    out = {"arch": cfg.name, "num_layers": layers, "flags": flags,
+           "prompt_len": prompt, "batch": batch,
+           "capacity_factor": serve_cfg.capacity_factor,
+           "init_params_seconds": time.perf_counter() - t0}
+    local = _owned(shard_params(params, rules, cfg))
+    whole_moe = None
+    if rank == 0 and cfg.moe_num_experts:  # for the moe_ffn check
+        seg = next(s for s in params["segments"] if "router" in s)
+        whole_moe = {k: v[0] for k, v in seg.items()
+                     if k.startswith(("router", "experts_", "shared_"))}
+    if rank != 0:  # rank 0 serves the unsharded run first
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=gen).to(dev)
+    cache_len = prompt + D2A_STEPS
+    ref = None
+    if rank == 0:  # the unsharded run: greedy tokens, logits, bf16 noise
+        with torch.inference_mode():
+            logits, caches, n = T.prefill(params, serve_cfg, tokens,
+                                          cache_len=cache_len)
+            ref, picks = [logits.float()], []
+            for _ in range(D2A_STEPS):
+                picks.append(torch.argmax(logits, dim=-1))
+                logits, caches, n = T.decode_step(params, caches, n,
+                                                  serve_cfg, picks[-1])
+                ref.append(logits.float())
+            del caches
+            p32 = {k: (v.float() if torch.is_tensor(v) else
+                       [{m: t.float() for m, t in seg.items()} for seg in v])
+                   for k, v in params.items()}
+            ref32, _, _ = T.prefill(p32, dataclasses.replace(
+                serve_cfg, dtype_str="float32"), tokens, cache_len=cache_len)
+            del p32
+        out["bf16_vs_f32_prefill_max_abs_err"] = float(
+            (ref[0] - ref32.float()).abs().max())
+        del ref32, params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        picks = torch.stack(picks).cpu()
+    else:
+        picks = None
+    box = [picks]
+    dist.broadcast_object_list(box, src=0)
+    picks = box[0].to(dev)
+    out["param_bytes"] = tree_bytes(local)
+    out["param_bytes_whole"] = T.count_params(cfg) * 2
+    # the sharded run, every rank
+    flash_attention_kernel.launches = 0
+    compat.reset_wire_stats()
+    got = []
+    _sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, caches, n = T.prefill(local, serve_cfg, tokens,
+                                      cache_len=cache_len, rules=rules)
+        got.append(T.gather_logits(logits, serve_cfg, rules).float())
+        _sync()
+        t1 = time.perf_counter()
+        for i in range(D2A_STEPS):
+            logits, caches, n = T.decode_step(local, caches, n, serve_cfg,
+                                              picks[i], rules=rules)
+            got.append(T.gather_logits(logits, serve_cfg, rules).float())
+        _sync()
+    t2 = time.perf_counter()
+    want_k7 = _k7_prefill_launches(serve_cfg, rules, batch, prompt) \
+        if dev.type == "cuda" else 0
+    check(flash_attention_kernel.launches == want_k7,
+          f"{arch} rank {rank}: K7 launched {flash_attention_kernel.launches}"
+          f" times, the config implies {want_k7}")
+    out.update({
+        "prefill_seconds": t1 - t0, "decode_seconds_per_step":
+        (t2 - t1) / D2A_STEPS,
+        "k7_launches": flash_attention_kernel.launches,
+        "k7_launches_implied": want_k7,
+        "wire_stats": compat.wire_stats(),
+        "cache_bytes": tree_bytes(list(caches)),
+        "cache_bytes_whole": tree_bytes(T.init_cache(
+            serve_cfg, batch, cache_len, device="meta"))})
+    del caches
+    if cfg.moe_num_experts:  # moe_ffn at D2A_MOE_BATCH prompts, cf 1.0
+        mcfg = dataclasses.replace(cfg, capacity_factor=D2A_MOE_CF)
+        x = torch.randn((D2A_MOE_BATCH, prompt, cfg.d_model), generator=torch.
+                        Generator().manual_seed(SEED + 19)).to(dev).to(
+                            cfg.dtype)
+        mseg = next(i for i, s in enumerate(local["segments"])
+                    if "router" in s)
+        mine = {k: v[0] for k, v in local["segments"][mseg].items()
+                if k.startswith(("router", "experts_", "shared_"))}
+        with torch.inference_mode(), compat.use_mesh(rules.mesh):
+            y, aux, drop = moe_ffn(x, mine, mcfg, rules=rules)
+        if rank == 0:
+            with torch.inference_mode():
+                y0, aux0, drop0 = moe_ffn(x, whole_moe, mcfg)
+                total, per_rank = _moe_rank_drops(
+                    x, whole_moe["router"], mcfg, rules.tp_size)
+            tk = x.shape[0] * x.shape[1] * cfg.moe_top_k
+            err, scale = float((y - y0).abs().max()), float(y0.abs().max())
+            out["moe_check"] = {
+                "tokens": D2A_MOE_BATCH * prompt,
+                "capacity_factor": mcfg.capacity_factor, "experts_a_rank":
+                mine["experts_w1"].shape[0], "y_max_abs_err": err,
+                "y_max_abs": scale, "aux": float(aux),
+                "aux_unsharded": float(aux0), "drop_fraction": float(drop),
+                "drop_fraction_unsharded": float(drop0),
+                "dropped_unsharded": total, "dropped_by_rank": per_rank}
+            check(total > 0, f"{arch} moe_ffn check: no assignment drops at "
+                  f"capacity factor {mcfg.capacity_factor}")
+            check(total == sum(per_rank), f"{arch} moe_ffn: the ranks' "
+                  f"drops {per_rank} do not add up to {total}")
+            check(round(float(drop0) * tk) == total,
+                  f"{arch} moe_ffn unsharded drop {float(drop0)} vs "
+                  f"{total} of {tk}")
+            # each rank drops over its own experts' capacity; JAX's pmax
+            # over the model axis keeps the largest
+            want = float(torch.tensor(max(per_rank), dtype=torch.float32)
+                         / tk)
+            check(float(drop) == want, f"{arch} moe_ffn expert-parallel "
+                  f"drop {float(drop)} != max{per_rank} / {tk}")
+            check(err <= CONT_TOL * scale, f"{arch} moe_ffn expert-parallel "
+                  f"y err {err} (max|y| {scale})")
+            check(abs(float(aux) - float(aux0)) <= 1e-5 * abs(float(aux0)),
+                  f"{arch} moe_ffn aux {float(aux)} != {float(aux0)}")
+        del whole_moe, x, y
+    if rank == 0:
+        noise = out["bf16_vs_f32_prefill_max_abs_err"]
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        scale = max(float(r.abs().max()) for r in ref)
+        bound = max(CONT_TOL * scale, 2 * noise)
+        out.update({"max_abs_err_by_step": errs, "max_abs_logit": scale,
+                    "bound": bound, "argmax_agreement": float(
+                        (torch.stack(got).argmax(-1)
+                         == torch.stack(ref).argmax(-1)).float().mean())})
+        check(max(errs) <= bound, f"{arch} sharded logits: max|err| by step "
+              f"{errs} > {bound} (max|logit| {scale}, bf16 noise {noise})")
+    return out
+
+
+def _d2a_rank(rank, world, rdzv, out_path, args):
+    """One of phase 19 (b)'s spawned ranks on ``device`` (cuda:0 on the
+    card) over one gloo group, a (data, model) mesh of ``D2A_MESH``:
+    every model of ``models`` in turn; rank 0 saves every rank's
+    records.  A failed check exits the rank non-zero."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+
+    dist.init_process_group(
+        "gloo", init_method=rdzv, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    device, models, mesh_shape, smoke = args
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        rules = MeshRules(compat.make_mesh(mesh_shape, ("data", "model")))
+        recs = {}
+        for arch, layers, flags, prompt, batch in models:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            recs[arch] = _d2a_model(rank, dev, rules, arch, layers, flags,
+                                    prompt, batch, smoke)
+            if dev.type == "cuda":
+                recs[arch]["peak_bytes_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        gathered = [None] * world
+        dist.all_gather_object(gathered, recs)
+        if rank == 0:
+            torch.save(gathered, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def d2a_phase(dev, smi, counts, phase10_tokens=None, models=D2A_MODELS,
+              smoke=False):
+    """Phase 19: the sharded serving path.  (a) one rank (NCCL on the
+    card, gloo in a CPU rehearsal) with a (1, 1) mesh serves phase 10's
+    requests through ``rules=``; (b) ``D2A_RANKS`` spawned ranks on one
+    gloo group, all on ``dev``, with a ``D2A_MESH`` mesh: ``models`` one
+    at a time (``_d2a_model``).  ``smoke`` runs the smoke configs (a CPU
+    rehearsal).  Returns the ``{"d2a": ...}`` record."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as T
+
+    reset, read = counts
+    t_phase = time.perf_counter()
+    base = smoke_config(SERVE_ARCH) if smoke else get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(base, num_layers=SERVE_LAYERS)
+    prompt = 64 if smoke else SERVE_PROMPT
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    served = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, prompt + 1),
+                           generator=gen).to(dev)[:, :prompt]
+    single = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rdzv", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+            single["backend"] = dist.get_backend()
+            if phase10_tokens is None:
+                phase10_tokens, _ = serve_requests(params, cfg, served,
+                                                   SERVE_BATCH, SERVE_NEW)
+                single["reference"] = "served unsharded in this phase"
+            else:
+                single["reference"] = "phase 10's tokens"
+            _sync()
+            reset()
+            t0 = time.perf_counter()
+            completed, stats = serve_requests(params, cfg, served,
+                                              SERVE_BATCH, SERVE_NEW,
+                                              rules=rules)
+            _sync()
+            secs = time.perf_counter() - t0
+            launches = read()
+            with torch.inference_mode():
+                got, _, _ = T.prefill(params, cfg, served[:SERVE_BATCH],
+                                      rules=rules)
+                want, _, _ = T.prefill(params, cfg, served[:SERVE_BATCH])
+        finally:
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(completed == phase10_tokens,
+          "phase 19 (a): the (1, 1) mesh's tokens differ from phase 10's")
+    check(err <= CONT_TOL * scale, f"phase 19 (a): prefill logits err {err}"
+          f" (max|logit| {scale})")
+    if dev.type == "cuda":
+        want_k7 = {"flash_attention_kernel": stats["batches"] * SERVE_LAYERS}
+        want_k7.update({k: 0 for k in launches if k not in want_k7})
+        check(launches == want_k7, f"phase 19 (a) launches {launches}")
+    single.update({
+        "arch": cfg.name, "num_layers": SERVE_LAYERS, "mesh": [1, 1],
+        "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+        "prompt_len": prompt, "new_tokens": SERVE_NEW,
+        "tokens_equal_reference": True, "prefill_max_abs_err": err,
+        "prefill_max_abs_logit": scale, "seconds": secs,
+        "launches": launches})
+    # (b) D2A_RANKS ranks, spawned, one gloo group, every rank on dev
+    t0 = time.perf_counter()
+    from repro_torch.distributed import multihost
+
+    ranks = multihost.spawn_ranks(
+        D2A_RANKS, _d2a_rank,
+        ("cuda:0" if dev.type == "cuda" else str(dev), models, D2A_MESH,
+         smoke), deadline_s=D2A_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    per_model = {}
+    for arch, *_ in models:
+        recs = [r[arch] for r in ranks]
+        for r in recs:  # about a quarter of the parameters on each rank
+            check(r["param_bytes"] <= 0.3 * r["param_bytes_whole"],
+                  f"{arch}: {r['param_bytes']} parameter bytes on a rank of "
+                  f"{r['param_bytes_whole']}")
+        per_model[arch] = {**recs[0], "ranks": [
+            {k: r[k] for k in ("param_bytes", "cache_bytes", "k7_launches",
+                               "wire_stats", "prefill_seconds",
+                               "decode_seconds_per_step",
+                               "peak_bytes_allocated") if k in r}
+            for r in recs]}
+        for k in ("param_bytes", "cache_bytes", "k7_launches", "wire_stats",
+                  "prefill_seconds", "decode_seconds_per_step",
+                  "peak_bytes_allocated"):
+            per_model[arch].pop(k, None)
+    return {"single_rank": single, "gloo_ranks": {
+        "ranks": D2A_RANKS, "mesh": list(D2A_MESH),
+        "transport": "gloo over the host (the ranks share one card): "
+                     "times are host-ring times, no fabric is measured",
+        "spawn_seconds": spawn_s, "models": per_model},
+        "phase_seconds": time.perf_counter() - t_phase, "card": smi}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3067,7 +3505,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
-    ap.add_argument("--only", type=int, choices=(18,), default=None,
+    ap.add_argument("--only", type=int, choices=(18, 19), default=None,
                     help="after the card and the build, run only this "
                          "phase (no kernels line, no last line)")
     args = ap.parse_args()
@@ -3171,6 +3609,12 @@ def main() -> int:
     if args.only == 18:
         training_families_phase(dev, smi, counts,
                                 args.repeats if args.profile else 0)
+        return 0
+    if args.only == 19:
+        d2a_k7_err, _ = check_k7(dev, D2A_K7_CASES, ())
+        print(f"K7 vs plain: {[c[0] for c in D2A_K7_CASES]} within "
+              f"tolerance, max|do| {d2a_k7_err:.3e}")
+        print(json.dumps({"d2a": d2a_phase(dev, smi, counts)}))
         return 0
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
@@ -3504,7 +3948,7 @@ def main() -> int:
     k7_err, k7_args = check_k7(dev)
     print(f"K7 vs plain: {[c[0] for c in K7_CASES]} within tolerance, "
           f"max|do| {k7_err:.3e}")
-    serve_out, serve_run = serving_phase(dev, smi, counts)
+    serve_out, serve_run, serve_tokens = serving_phase(dev, smi, counts)
     print(json.dumps({"serve": serve_out}))
 
     # -- 11. where the time goes (--profile) --------------------------------
@@ -3622,6 +4066,16 @@ def main() -> int:
     f4_k8_err, f4_k8_args, f4_out, f4_secure = training_families_phase(
         dev, smi, counts, args.repeats if args.profile else 0)
 
+    # -- 19. the sharded serving path ---------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    d2a_k7_err, d2a_k7_args = check_k7(
+        dev, D2A_K7_CASES, tuple(c[0] for c in D2A_K7_CASES))
+    print(f"K7 vs plain: {[c[0] for c in D2A_K7_CASES]} within tolerance, "
+          f"max|do| {d2a_k7_err:.3e}")
+    d2a_out = d2a_phase(dev, smi, counts, phase10_tokens=serve_tokens)
+    print(json.dumps({"d2a": d2a_out}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -3727,6 +4181,8 @@ def main() -> int:
                       for name, *_, how in F3A_K7_CASES})
     k7_shapes.update({name: k7_timing(f3b_k7_args[name])
                       for name, *_ in F3B_K7_CASES})
+    k7_shapes.update({name: k7_timing(d2a_k7_args[name])
+                      for name, *_ in D2A_K7_CASES})
     k8_main = k8_timing(k8_args["training"])
     k8_shapes = {n: k8_timing(k8_args[n]) for n in FLASH_TIMED}
     k8_shapes.update({name: k8_timing(f4_k8_args[name],
@@ -3804,7 +4260,7 @@ def main() -> int:
              path="serve",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             err=max(k7_err, f3a_k7_err, f3b_k7_err), **k7_main,
+             err=max(k7_err, f3a_k7_err, f3b_k7_err, d2a_k7_err), **k7_main,
              shapes=k7_shapes),
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3827,6 +4283,7 @@ def main() -> int:
                "train": train_out["launches"],
                "secure_train": secure_out["launches"],
                "wires": wire_launches,
+               "serve_d2a_single_rank": d2a_out["single_rank"]["launches"],
                **{f"serve_{arch}": out["launches"]
                   for arch, out in (*f3a_out.items(), *f3b_out.items())},
                **{f"train_{arch}": out["launches"]
@@ -3904,6 +4361,10 @@ def main() -> int:
             for arch, out in f3b_out.items()},
         "recurrence_loops": {k: v for k, v in rec_out.items()
                              if k.endswith("serving shape")},
+        "d2a_phase_seconds": d2a_out["phase_seconds"],
+        "d2a_k7_launches_per_rank": {
+            arch: [r["k7_launches"] for r in m["ranks"]]
+            for arch, m in d2a_out["gloo_ranks"]["models"].items()},
         "script_seconds_to_here": time.perf_counter() - t_script,
         "f4_train": {arch: {k: out[k] for k in (
             "median_seconds_per_step_after_the_first", "tokens_per_second",

@@ -87,7 +87,10 @@ def stack_studies(studies) -> PackedPartitions:
 
 def fused_multistudy_iteration(betas, generator, X, X32, y, counts, lams,
                                agg: SecureCollective, protect: str,
-                               l1: float):
+                               l1: float,
+                               points: Sequence[int] | None = None,
+                               include_count: bool = False,
+                               summaries_backend: str = "kernel"):
     """M independent secure Newton rounds as ONE collective round.
 
     Tensors carry a leading study-slot axis: ``betas`` (M, d), ``lams``
@@ -98,16 +101,21 @@ def fused_multistudy_iteration(betas, generator, X, X32, y, counts, lams,
     ``(betas_new, objectives, grad_norms, step_norms)``, each with the
     leading M axis, on the device.
 
-    ``protect``/``l1`` are shared across slots (one wire contract per
-    deployment); per-study λ rides in ``lams``.  The summaries are K3's
-    (its plain version for CPU tensors), the shares go to every holder
-    and no count leaf rides along.  Unprotected leaves leave the round
-    per slot only as cross-institution sums through ``declassify_sum``.
+    ``protect``/``l1``/``points``/``include_count`` are shared across
+    slots (one wire contract per deployment); per-study λ rides in
+    ``lams``.  ``points`` are the live centers the aggregate is revealed
+    from (default: the first t); ``include_count`` adds the per-slot
+    institution ``counts`` as a float64 ``count`` leaf to the protected
+    tree, as the coordinator's round does.  ``summaries_backend`` is
+    ``"kernel"`` (K3, its plain version for CPU tensors), ``"reference"``
+    or ``"mixed"`` (``batched_summaries``; the JAX package's ``"pallas"``
+    is ``"kernel"`` here).  Unprotected leaves leave the round per slot
+    only as cross-institution sums through ``declassify_sum``.
     """
     sms = [
         batched_local_summaries(
             betas[m], PackedPartitions(X[m], X32[m], y[m], counts[m]),
-            backend="kernel",
+            backend=summaries_backend,
         )
         for m in range(X.shape[0])
     ]
@@ -116,8 +124,11 @@ def fused_multistudy_iteration(betas, generator, X, X32, y, counts, lams,
     dev = torch.stack([sm.deviance for sm in sms])       # (M, S)
     revealed = {}
     tree = _protected_tree(protect, hessian, gradient, dev)
+    if tree and include_count:
+        tree["count"] = counts.to(torch.float64)
     if tree:
-        revealed = agg.secure_round_multiconfig(generator, tree)
+        revealed = agg.secure_round_multiconfig(generator, tree,
+                                                points=points)
     global_h = revealed["hessian"] if protect in ("hessian", "both") \
         else declassify_sum(hessian, axis=1)
     global_g = revealed["gradient"] if protect in ("gradient", "both") \
@@ -135,7 +146,8 @@ def fused_multistudy_iteration(betas, generator, X, X32, y, counts, lams,
 def run_multistudy_rounds(studies: Sequence, lams, num_rounds: int,
                           aggregator: SecureCollective | None = None,
                           protect: str = "both", l1: float = 0.0,
-                          seed: int = 0, device=None):
+                          seed: int = 0, device=None,
+                          summaries_backend: str = "kernel"):
     """Advance M studies ``num_rounds`` rounds, one collective round each.
 
     ``studies`` holds each study's list of ``(X_j, y_j)`` partitions
@@ -146,6 +158,8 @@ def run_multistudy_rounds(studies: Sequence, lams, num_rounds: int,
     (num_rounds, M), float64 on the device.  Round r draws its sharing
     polynomials from ``SecureCollective.round_key(seed, r)``, though the
     revealed aggregates (and so the betas) do not depend on them.
+    ``summaries_backend`` picks the summaries' rung, as in
+    :func:`fused_multistudy_iteration`.
     """
     dev = resolve_device(device)
     agg = aggregator or SecureCollective(backend="kernel")
@@ -160,6 +174,7 @@ def run_multistudy_rounds(studies: Sequence, lams, num_rounds: int,
         betas, objs, _, _ = fused_multistudy_iteration(
             betas, agg.round_key(seed, r, dev), packed.X, packed.X32,
             packed.y, packed.counts, lams, agg, protect, l1,
+            summaries_backend=summaries_backend,
         )
         trace.append(objs)
     return betas, torch.stack(trace)

@@ -6,21 +6,27 @@ The torch counterpart of the JAX package's ``distributed/``: a rank of a
 is the mesh (:mod:`.compat`), and :mod:`.multihost` is the launcher layer
 around the wires on :class:`repro_torch.core.collective.SecureCollective`.
 
+The LM's tensor-parallel sharding rules (:mod:`.sharding`:
+``MeshRules``, ``param_pspec``, ``param_shardings``, ``shard_params``)
+say which block of each parameter a rank holds; the models run each
+rank's part under ``rules=`` (:mod:`._tp`), with the collectives of
+:mod:`.compat`.
+
 Lazy re-exports (PEP 562), as in the JAX package: ``core.collective``
 imports ``distributed.compat`` while ``multihost`` imports
-``core.collective``, so no submodule loads before its first use.  The
-tensor-parallel half of the JAX package's ``distributed/sharding.py``
-(``MeshRules``, ``param_pspec``, ``param_shardings``) is not ported yet.
+``core.collective``, so no submodule loads before its first use.
 """
 from __future__ import annotations
 
-__all__ = ["POD_AXIS", "SHARE_AXIS", "axis_index", "axis_size",
-           "initialize_distributed", "make_mesh", "pod_mesh",
-           "pod_share_mesh", "run_scanned_rounds", "scan_secure_rounds",
-           "secure_psum_2d", "use_mesh"]
+__all__ = ["MeshRules", "POD_AXIS", "SHARE_AXIS", "axis_index",
+           "axis_size", "initialize_distributed", "make_mesh",
+           "param_pspec", "param_shardings", "pod_mesh", "pod_share_mesh",
+           "run_scanned_rounds", "scan_secure_rounds", "secure_psum_2d",
+           "shard_params", "use_mesh"]
 
 _COMPAT = ("axis_index", "axis_size", "make_mesh", "use_mesh")
-_SHARDING = ("POD_AXIS", "SHARE_AXIS")
+_SHARDING = ("MeshRules", "POD_AXIS", "SHARE_AXIS", "param_pspec",
+             "param_shardings", "shard_params")
 _MULTIHOST = ("initialize_distributed", "pod_mesh", "pod_share_mesh",
               "run_scanned_rounds", "scan_secure_rounds", "secure_psum_2d")
 

@@ -10,14 +10,19 @@ of the ``jax.lax`` collectives its wires call by axis name:
   part of ``shard_map`` a torch program needs, since a rank already *is*
   the SPMD program — and :func:`axis_size`, :func:`axis_index` and
   :func:`axis_group` resolve a named axis of that mesh;
-* :func:`psum`, :func:`pmax`, :func:`psum_scatter` and
-  :func:`all_gather` are ``jax.lax.psum`` / ``pmax`` / ``psum_scatter(...,
-  tiled=True)`` / ``all_gather(..., tiled=True)`` over ``axis_name``'s
-  process group, so every wire keeps JAX's ``axis_name: str``.
+* :func:`psum`, :func:`pmax`, :func:`psum_scatter`, :func:`all_gather`
+  and :func:`ppermute` are ``jax.lax.psum`` / ``pmax`` /
+  ``psum_scatter(..., tiled=True)`` / ``all_gather(..., tiled=True)`` /
+  ``ppermute`` over ``axis_name``'s process group, so every wire keeps
+  JAX's ``axis_name``.  As in JAX, an axis name may also be a tuple of
+  names: the ranks that differ only along those dimensions, in row-major
+  order over them (the LM's FSDP axes, ``("pod", "data")``, and the full
+  mesh).
 
 Transport.  NCCL carries CUDA tensors for every collective here.  Gloo
 carries CUDA tensors only for ``all_reduce`` (and ``broadcast``), so for
-a reduce-scatter or an all-gather of a CUDA tensor on a gloo group the
+a reduce-scatter, an all-gather or a permute of a CUDA tensor on a gloo
+group the
 operand goes to the host and the result comes back through ONE function,
 :func:`stage_through_host`, which counts the bytes it moves.  This is a
 transport, not a fallback: the kernels still run on the card.  A CUDA
@@ -39,15 +44,19 @@ import torch.distributed as dist
 from ..obs import gate as _gate
 
 __all__ = ["Pending", "all_gather", "axis_group", "axis_index", "axis_size",
-           "current_mesh", "make_mesh", "pmax", "psum", "psum_scatter",
-           "reset_wire_stats", "stage_through_host", "use_mesh",
-           "wire_stats"]
+           "current_mesh", "make_mesh", "pmax", "ppermute", "psum",
+           "psum_scatter", "reset_wire_stats", "stage_through_host",
+           "use_mesh", "wire_stats"]
 
 _MESHES: list = []  # innermost last: the meshes use_mesh entered
 _STATS: collections.Counter = collections.Counter()
+# (id(mesh), dims) -> (the mesh, this rank's group over those mesh
+# dimensions); holding the mesh keeps its id from being reused
+_GROUPS: dict = {}
 
 # the collectives each backend carries on CUDA tensors
-_CUDA_OPS = {"nccl": ("all_reduce", "reduce_scatter", "all_gather"),
+_CUDA_OPS = {"nccl": ("all_reduce", "reduce_scatter", "all_gather",
+                      "ppermute"),
              "gloo": ("all_reduce",)}
 
 # torch 2.13 renamed the tensor forms; older builds have only the old names
@@ -94,31 +103,60 @@ def current_mesh():
     return _MESHES[-1]
 
 
-def _dim(name: str) -> tuple:
+def _dims(axis_name) -> tuple:
+    """(the current mesh, the dimension index of each name in
+    ``axis_name``, a name or a tuple of names)."""
     mesh = current_mesh()
-    names = mesh.mesh_dim_names or ()
-    if name not in names:
-        raise ValueError(f"axis {name!r} is not a dimension of the mesh "
-                         f"{tuple(names)}")
-    return mesh, names.index(name)
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    for name in axes:
+        if name not in names:
+            raise ValueError(f"axis {name!r} is not a dimension of the mesh "
+                             f"{names}")
+    return mesh, tuple(names.index(name) for name in axes)
 
 
-def axis_size(axis_name: str) -> int:
-    """Size of a named axis of the current mesh."""
-    mesh, d = _dim(axis_name)
-    return int(mesh.size(d))
+def axis_size(axis_name) -> int:
+    """Size of a named axis (or the product over a tuple of them) of the
+    current mesh."""
+    mesh, dims = _dims(axis_name)
+    n = 1
+    for d in dims:
+        n *= int(mesh.size(d))
+    return n
 
 
-def axis_index(axis_name: str) -> int:
-    """This rank's coordinate along a named axis of the current mesh."""
-    mesh, _ = _dim(axis_name)
-    return int(mesh.get_local_rank(axis_name))
+def axis_index(axis_name) -> int:
+    """This rank's coordinate along a named axis of the current mesh (over
+    a tuple of axes, row-major over them)."""
+    mesh, dims = _dims(axis_name)
+    names = mesh.mesh_dim_names
+    idx = 0
+    for d in dims:
+        idx = idx * int(mesh.size(d)) + int(mesh.get_local_rank(names[d]))
+    return idx
 
 
-def axis_group(axis_name: str):
-    """The process group of this rank's line along ``axis_name``."""
-    mesh, _ = _dim(axis_name)
-    return mesh.get_group(axis_name)
+def axis_group(axis_name):
+    """The process group of this rank's line along ``axis_name``.  A tuple
+    of two or more dimensions gets a group of its own, made on first use
+    (every rank must reach that use, as in any SPMD program): group rank
+    i is the rank at row-major coordinate i over those dimensions."""
+    mesh, dims = _dims(axis_name)
+    if len(dims) == 1:
+        return mesh.get_group(mesh.mesh_dim_names[dims[0]])
+    key = (id(mesh), dims)
+    if key not in _GROUPS:
+        ranks = mesh.mesh
+        rest = [d for d in range(ranks.dim()) if d not in dims]
+        lines = ranks.permute(*rest, *dims).reshape(-1, axis_size(
+            axis_name)).tolist()
+        me = dist.get_rank()
+        for line in lines:  # every rank makes every group, in one order
+            group = dist.new_group(line)
+            if me in line:
+                _GROUPS[key] = (mesh, group)
+    return _GROUPS[key][1]
 
 
 # -- transport ---------------------------------------------------------------
@@ -235,7 +273,7 @@ def psum_scatter(t: torch.Tensor, axis_name: str, scatter_dimension: int = 0,
 
 
 @_gate.collective("all_gather")
-def all_gather(t: torch.Tensor, axis_name: str, axis: int = 0):
+def all_gather(t: torch.Tensor, axis_name, axis: int = 0):
     """Concatenate every rank's ``t`` along ``axis`` in axis order
     (``jax.lax.all_gather(..., tiled=True)``)."""
     group = axis_group(axis_name)
@@ -247,3 +285,33 @@ def all_gather(t: torch.Tensor, axis_name: str, axis: int = 0):
     _all_gather(out, buf, group=group)
     out = out if home is None else stage_through_host(out, home)
     return out.movedim(0, axis)
+
+
+@_gate.collective("ppermute")
+def ppermute(t: torch.Tensor, axis_name, perm):
+    """Send ``t`` along ``perm``, pairs (source, destination) of
+    coordinates on ``axis_name`` (``jax.lax.ppermute``): this rank gets
+    the tensor its source sent, or zeros if no pair names it as a
+    destination."""
+    group = axis_group(axis_name)
+    ranks = dist.get_process_group_ranks(group)
+    me = axis_index(axis_name)
+    sources = [s for s, d in perm if d == me]
+    dests = [d for s, d in perm if s == me]
+    out = torch.zeros_like(t)
+    buf, home = _operand(t.contiguous(), group, "ppermute")
+    recv = torch.empty_like(buf)
+    works = []
+    for d in dests:
+        if d == me:
+            recv.copy_(buf)
+        else:
+            works.append(dist.isend(buf, ranks[d], group=group))
+    for s in sources:
+        if s != me:
+            works.append(dist.irecv(recv, ranks[s], group=group))
+    for w in works:
+        w.wait()
+    if sources:
+        out.copy_(recv if home is None else stage_through_host(recv, home))
+    return out

@@ -49,14 +49,17 @@ def parse_args(argv=None):
 
 
 def serve_requests(params, cfg, prompts, batch: int, new_tokens: int,
-                   cache_len: int | None = None):
+                   cache_len: int | None = None, *, rules=None):
     """Serve every row of ``prompts`` (R, P) on ``params``' device in
     batches of ``batch`` slots, ``new_tokens`` greedy tokens each.
 
     Returns (completed: request id -> its tokens, stats): the seconds spent
     in prefill (through the first token read back) and in decode steps,
     the decode steps, the batches and the count of non-finite logits
-    (read once, at the end).
+    (read once, at the end).  Under a mesh (``rules``) every rank calls
+    it with the same prompts and its blocks of the parameters; each step's
+    logits are gathered (``transformer.gather_logits``) before the greedy
+    pick, so every rank serves the same tokens.
     """
     P = prompts.shape[1]
     cache_len = cache_len or (P + new_tokens)
@@ -71,14 +74,18 @@ def serve_requests(params, cfg, prompts, batch: int, new_tokens: int,
             ids = (slot_ids + [slot_ids[-1]] * batch)[:batch]
             t0 = time.perf_counter()
             logits, caches, length = T.prefill(params, cfg, prompts[ids],
-                                               cache_len=cache_len)
+                                               cache_len=cache_len,
+                                               rules=rules)
+            logits = T.gather_logits(logits, cfg, rules)
             nonfinite += (~torch.isfinite(logits)).sum()
             tok = torch.argmax(logits, dim=-1)
             outs = [[t] for t in tok.tolist()]  # the read waits for the card
             t1 = time.perf_counter()
             for _ in range(new_tokens - 1):
                 logits, caches, length = T.decode_step(params, caches,
-                                                       length, cfg, tok)
+                                                       length, cfg, tok,
+                                                       rules=rules)
+                logits = T.gather_logits(logits, cfg, rules)
                 nonfinite += (~torch.isfinite(logits)).sum()
                 tok = torch.argmax(logits, dim=-1)
                 for out, t in zip(outs, tok.tolist()):

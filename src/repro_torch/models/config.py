@@ -48,7 +48,8 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 0
     # the JAX package's sharding and training knobs, kept so a config
-    # carries over unchanged; the port reads none of them
+    # carries over unchanged; the sharded program (``rules=``) reads
+    # rwkv_batch_parallel, fsdp_only and seq_parallel_prefill
     rwkv_batch_parallel: bool = False
     # ignored: it picks JAX's backward for full-causal attention, which
     # in the port is always K8

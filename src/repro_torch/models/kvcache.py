@@ -17,12 +17,28 @@ float32 carry ``h`` and the conv's last ``conv_width - 1`` inputs.
 Unlike the JAX package's functional caches, the port writes tokens into
 the cache in place: a decode step then moves one token's K/V per layer
 instead of copying every layer's cache.
+
+Under a mesh an attention cache's T slots may be split over the model
+axis, ``T / tp`` a rank (JAX's layout): ``write_token`` and
+``fill_cache`` take the whole cache's ``num_slots`` and this rank's
+``rank`` on that axis and write only the slots the rank holds.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["init_segment_cache", "ring_positions", "write_token"]
+__all__ = ["LocalCaches", "fill_cache", "init_segment_cache",
+           "ring_positions", "write_token"]
+
+
+class LocalCaches(list):
+    """Decode caches, one dict per segment, with the whole cache's length
+    (``cache_len``) and batch: under a mesh a rank's part, whose blocks
+    need them to place slots and rows."""
+
+    def __init__(self, segs, cache_len: int, batch: int):
+        super().__init__(segs)
+        self.cache_len, self.batch = cache_len, batch
 
 
 def ring_positions(length: int, num_slots: int, device=None):
@@ -69,8 +85,32 @@ def init_segment_cache(kind, n_layers: int, batch: int, cache_len: int,
     raise ValueError(f"unknown mixer kind {mixer!r}")
 
 
-def write_token(cache_kv, new_kv, length: int):
+def write_token(cache_kv, new_kv, length: int, num_slots: int | None = None,
+                rank: int = 0):
     """Write one token's (B, 1, ...) entry at ring slot ``length % T`` of
-    ``cache_kv`` (B, T, ...), in place; returns ``cache_kv``."""
-    cache_kv[:, length % cache_kv.shape[1]] = new_kv[:, 0]
+    a cache of T = ``num_slots`` slots (default: all of ``cache_kv`` (B,
+    T, ...)), in place, if this rank holds that slot; returns
+    ``cache_kv``."""
+    t_loc = cache_kv.shape[1]
+    T = num_slots or t_loc
+    slot = length % T
+    if t_loc == T or slot // t_loc == rank:
+        cache_kv[:, slot % t_loc] = new_kv[:, 0]
+    return cache_kv
+
+
+def fill_cache(cache_kv, new_kv, window: int, num_slots: int | None = None,
+               rank: int = 0):
+    """A prefill's write of a fresh (zero) cache from the whole (B, S, ...)
+    K/V (or latents): with a ``window`` and S >= T the last T tokens rolled
+    into ring order, else the S tokens from slot 0; this rank's slots of
+    them (T and ``rank`` as in :func:`write_token`)."""
+    t_loc = cache_kv.shape[1]
+    T = num_slots or t_loc
+    S = new_kv.shape[1]
+    if window and S >= T:
+        new_kv = torch.roll(new_kv[:, S - T:], S % T, dims=1)
+    lo = rank * t_loc if t_loc != T else 0
+    part = new_kv[:, lo:lo + t_loc]
+    cache_kv[:, :part.shape[1]] = part
     return cache_kv

@@ -1,5 +1,6 @@
-"""Token-choice top-k MoE FFN: the JAX package's ``models/moe.py`` on one
-device (its ``mesh is None`` path, ``inner_local``).
+"""Token-choice top-k MoE FFN: the JAX package's ``models/moe.py``, on
+one device (its ``mesh is None`` path, ``inner_local``) and expert-parallel
+under a mesh (``rules=``).
 
 Each token's router picks its top-k experts; each expert takes at most
 ``capacity = max(1, int(T k capacity_factor / E))`` assignments, in token
@@ -17,10 +18,19 @@ Which assignments are dropped follows the JAX package exactly:
     its expert, by a stable argsort of the flat (T k) expert ids;
   * capacity is computed in Python floats from the static T.
 
-The expert-parallel path (experts sharded over a model axis, one
-all-reduce merging their outputs) needs a mesh and comes with the
-tensor-parallel slice (ROADMAP slice D2).  ``rules`` is therefore not an
-argument.
+Expert parallelism (``rules=`` with a mesh; JAX's ``inner`` under
+``shard_map``): a rank holds E / tp experts (``experts_*`` split over the
+model axis; E must divide it, as JAX asserts) and its data shard's
+tokens, replicated over the model axis.  It routes its tokens (the
+router is replicated), runs its experts at ``e_offset = rank * E / tp``
+with the capacity of its own token count (with dp > 1 not the unsharded
+capacity, as in JAX), adds its column/row-parallel part of the shared
+experts when their width divides tp, and one sum over the model axis
+merges everything; the aux loss is averaged and the drop fraction
+maximised over the model axis.  Where the shared experts' width does not
+divide tp they are replicated, and the port adds them once, after the
+sum: JAX adds them inside its ``psum`` and so counts them tp times (no
+shipped configuration reaches this; ROADMAP queue 3).
 
 The combine gathers a (T, k, d) tensor of expert rows before the weighted
 sum, which XLA fuses away and eager PyTorch does not (537 MB at
@@ -124,26 +134,56 @@ def _local_expert_pass(x, gates, experts, w1, w3, w2, capacity: int,
     return y, dropped
 
 
-def moe_ffn(x, params, cfg):
+def _shared(xt, w1, w3, w2):
+    return (xt @ w1 * F.silu(xt @ w3)) @ w2
+
+
+def moe_ffn(x, params, cfg, *, rules=None):
     """MoE FFN.  x: (B, S, d).  Returns (y (B, S, d), aux loss (float32
     scalar), dropped fraction of the T k assignments (float32 scalar)).
 
     params: router (d, E); experts_w1/w3 (E, d, h); experts_w2 (E, h, d);
-    optional shared_w1/w3 (d, hs), shared_w2 (hs, d).
+    optional shared_w1/w3 (d, hs), shared_w2 (hs, d).  Under ``rules``
+    with a mesh (called under ``compat.use_mesh(rules.mesh)``): x is this
+    rank's data shard and ``params`` its blocks
+    (``sharding.shard_params``); the expert-parallel path above, whose
+    collectives a mesh of one rank skips.
     """
-    B, S, d = x.shape
+    from ..distributed import compat
+    from ..distributed._tp import TP
+
+    ctx = TP(rules, cfg)
     E, k = cfg.moe_num_experts, cfg.moe_top_k
+    if E % ctx.ntp:
+        raise ValueError(f"{E} experts do not divide the model axis of "
+                         f"{ctx.ntp} ranks")
+    B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    gates, experts, probs = _route(xt, params["router"], k)
+    gates, experts, probs = _route(
+        xt, ctx.weight(params["router"], ctx.spec("router", (d, E))), k)
     aux = router_aux_loss(probs, experts, E)
     capacity = max(1, int(T * k * cfg.capacity_factor / E))
+    w1 = params["experts_w1"]  # (E / tp, d, h): split over the model axis
     y, dropped = _local_expert_pass(
-        xt, gates, experts, params["experts_w1"], params["experts_w3"],
-        params["experts_w2"], capacity, 0, E)
+        xt, gates, experts, w1, params["experts_w3"], params["experts_w2"],
+        capacity, ctx.tp_rank * w1.shape[0], E)
+    shared_after = None
     if "shared_w1" in params:
-        h = xt @ params["shared_w1"]
-        g = F.silu(xt @ params["shared_w3"])
-        y = y + (h * g) @ params["shared_w2"]
-    return (y.reshape(B, S, d), aux,
-            dropped.to(torch.float32) / (T * k))
+        hs = cfg.moe_num_shared * cfg.moe_d_ff
+        ws = [ctx.weight(params[n], ctx.spec(n, shape)) for n, shape in (
+            ("shared_w1", (d, hs)), ("shared_w3", (d, hs)),
+            ("shared_w2", (hs, d)))]
+        if hs % ctx.ntp == 0:  # column/row-parallel: a partial sum
+            y = y + _shared(xt, *ws)
+        else:  # replicated: added once, after the sum
+            shared_after = _shared(xt, *ws)
+    # one all-reduce merges the experts' outputs and the shared partials
+    y = ctx.psum_tp(y)
+    if shared_after is not None:
+        y = y + shared_after
+    drop = dropped.to(torch.float32) / (T * k)
+    if ctx.ntp > 1:
+        aux = compat.psum(aux, ctx.tp) / ctx.ntp
+        drop = compat.pmax(drop, ctx.tp)
+    return y.reshape(B, S, d), aux, drop

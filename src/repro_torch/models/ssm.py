@@ -132,12 +132,20 @@ def _rwkv6_recurrence(r, k, v, w, u, state0):
     return torch.stack(outs, dim=1), state  # (B, S, H, Dv)
 
 
-def rwkv6_mix(p, x, cfg, state=None, prev_x=None):
+def _matmul(p):
+    """The projections' default: ``t @ p[name]``."""
+    return lambda t, name: t @ p[name]
+
+
+def rwkv6_mix(p, x, cfg, state=None, prev_x=None, mm=None):
     """RWKV6 time-mix.  x: (B, S, d).  Returns (y, (state, last_x)).
 
     ``state`` (B, H, D, D) float32 and ``prev_x`` (B, d), the previous
     token's input, default to zeros (a prefill).  The chunked form runs
-    iff ``cfg.rwkv_chunk`` is set and S > 1."""
+    iff ``cfg.rwkv_chunk`` is set and S > 1.  ``mm(t, name)`` computes
+    each projection ``t @ p[name]`` (under a mesh, the sharded program's
+    linear; every ``rwkv_w_*`` result is whole)."""
+    mm = mm or _matmul(p)
     B, S, d = x.shape
     H, D = cfg.num_heads, cfg.rwkv_head_dim
     dt = x.dtype
@@ -152,13 +160,13 @@ def rwkv6_mix(p, x, cfg, state=None, prev_x=None):
     def heads(t):
         return t.reshape(B, S, H, D)
 
-    r = heads(lerp(p["rwkv_mu_r"]) @ p["rwkv_w_r"])
-    k = heads(lerp(p["rwkv_mu_k"]) @ p["rwkv_w_k"])
-    v = heads(lerp(p["rwkv_mu_v"]) @ p["rwkv_w_v"])
-    g = F.silu(lerp(p["rwkv_mu_g"]) @ p["rwkv_w_g"])
+    r = heads(mm(lerp(p["rwkv_mu_r"]), "rwkv_w_r"))
+    k = heads(mm(lerp(p["rwkv_mu_k"]), "rwkv_w_k"))
+    v = heads(mm(lerp(p["rwkv_mu_v"]), "rwkv_w_v"))
+    g = F.silu(mm(lerp(p["rwkv_mu_g"]), "rwkv_w_g"))
     # data-dependent decay (low-rank): w = exp(-exp(w0 + tanh(x A) B))
-    dd = torch.tanh(lerp(p["rwkv_mu_w"]) @ p["rwkv_w_decay_a"])
-    logit = p["rwkv_w0"] + dd @ p["rwkv_w_decay_b"]
+    dd = torch.tanh(mm(lerp(p["rwkv_mu_w"]), "rwkv_w_decay_a"))
+    logit = p["rwkv_w0"] + mm(dd, "rwkv_w_decay_b")
     w = heads(torch.exp(-torch.exp(logit.to(f32))))
 
     if state is None:
@@ -172,22 +180,23 @@ def rwkv6_mix(p, x, cfg, state=None, prev_x=None):
         out, state = _rwkv6_recurrence(r.to(f32), k.to(f32), v.to(f32), w,
                                        u, state)
     out = out.reshape(B, S, H * D).to(dt)
-    y = (out * g) @ p["rwkv_w_o"]
+    y = mm(out * g, "rwkv_w_o")
     return y, (state, x[:, -1])
 
 
-def rwkv6_channelmix(p, x, prev_x=None):
+def rwkv6_channelmix(p, x, prev_x=None, mm=None):
     """RWKV channel-mix FFN (relu^2), with token shift.  Returns (y, the
-    last token's input)."""
+    last token's input).  ``mm`` as in :func:`rwkv6_mix`."""
+    mm = mm or _matmul(p)
     B, S, d = x.shape
     if prev_x is None:
         prev_x = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     x_shift = torch.cat([prev_x[:, None], x[:, :-1]], dim=1)
     xk = x + (x_shift - x) * p["rwkv_mu_ck"]
     xr = x + (x_shift - x) * p["rwkv_mu_cr"]
-    h = torch.square(torch.relu(xk @ p["rwkv_w_ck"]))
-    gate = torch.sigmoid(xr @ p["rwkv_w_cr"])
-    return gate * (h @ p["rwkv_w_cv"]), x[:, -1]
+    h = torch.square(torch.relu(mm(xk, "rwkv_w_ck")))
+    gate = torch.sigmoid(mm(xr, "rwkv_w_cr"))
+    return gate * mm(h, "rwkv_w_cv"), x[:, -1]
 
 
 # -------------------------------------------------------------------- RG-LRU
@@ -212,18 +221,23 @@ def _rglru_recurrence(a, gated_x, h0, out_dtype=torch.float32):
     return torch.stack(outs, dim=1), h
 
 
-def rglru_block(p, x, cfg, state=None):
+def rglru_block(p, x, cfg, state=None, mm=None):
     """Griffin recurrent block: in-proj + conv1d + RG-LRU + gated out-proj.
 
     x: (B, S, d).  state = (h (B, W) float32, conv tail (B, cw-1, W)),
-    zeros when None (a prefill).  Returns (y, state).
+    zeros when None (a prefill).  Returns (y, state).  The block runs on
+    the W channels ``p``'s per-channel leaves hold: under a mesh, this
+    rank's channels, with ``mm`` (as in :func:`rwkv6_mix`) giving this
+    rank's channels of ``lru_in``/``lru_gate`` and the whole ``lru_out``
+    product.
     """
+    mm = mm or _matmul(p)
     B, S, d = x.shape
-    W = cfg.lru_width
+    W = p["lru_lambda"].shape[-1]
     cw = cfg.conv_width
     dt = x.dtype
-    u = x @ p["lru_in"]  # (B, S, W)
-    gate_branch = F.gelu(x @ p["lru_gate"], approximate="tanh")
+    u = mm(x, "lru_in")  # (B, S, W)
+    gate_branch = F.gelu(mm(x, "lru_gate"), approximate="tanh")
 
     if state is None:
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
@@ -249,5 +263,5 @@ def rglru_block(p, x, cfg, state=None):
     a = torch.exp(log_a.to(torch.float32))
     gx = i_g * conv  # the activation dtype; float32 inside the step
     hs, h_last = _rglru_recurrence(a, gx, h0, out_dtype=dt)
-    y = (hs * gate_branch) @ p["lru_out"]
+    y = mm(hs * gate_branch, "lru_out")
     return y, (h_last, new_tail)

@@ -34,27 +34,80 @@ Entry points:
 Each takes ``tokens`` (its first argument after the config, or the
 cache) or, for the ``embeddings`` frontend, ``embeds=``.
 
-``rules`` (the JAX package's mesh sharding rules) is not an argument:
-on one device it does nothing, and the multi-device slice brings
-``torch.distributed`` in its place.
+``forward``, ``prefill``, ``decode_step`` and ``init_cache`` take the JAX
+package's mesh rules as the keyword ``rules=`` (a documented deviation:
+JAX's ``rules`` is positional, after the config, and the port's
+positional signatures already differ from JAX's).
+
+One program serves both.  What the JAX package leaves to XLA's
+partitioner (``rules.constrain`` and the specs of ``param_pspec``), each
+rank runs here explicitly on its blocks of the parameters
+(``distributed.sharding.shard_params``) through the steps of
+``distributed/_tp.py``; without a mesh (``rules=None``) every spec is
+replicated and every step is the plain product, and on a mesh of one rank
+every collective is skipped, so both give the unsharded result bit for
+bit.  Under a larger mesh every rank calls the entry point with the whole
+batch:
+
+* it keeps its rows of the dp axes (JAX's ``constrain(x, batch_spec(),
+  ...)``); ``embed`` (V, d) is vocab-parallel when V divides tp;
+  ``lm_head`` (d, V) is column-parallel, so logits come back (B/dp, ...,
+  V/tp) per rank, as JAX constrains them (:func:`gather_logits` puts them
+  together);
+* GQA runs local heads when H and KVH divide tp; where wq is
+  column-parallel and wk/wv fall back to row-parallel (K/V whole on every
+  rank), a rank takes the KV heads of its own query heads
+  (``global_q_head // G``); K7 runs on the local heads through
+  ``attention.attend``;
+* decode caches keep JAX's layout: slots over the model axis, (B/dp,
+  T/tp, KVH, Dh) per rank (MLA's latent ``ckv``/``krope`` likewise).  A
+  decode step writes its token on the rank that owns slot ``length %
+  T``; each rank attends every head over its slots and the partial
+  softmaxes merge over the model axis.  Where T does not divide tp the
+  cache is whole on every rank (:func:`gather_caches` puts a rank's parts
+  together);
+* windowed prefill under ``seq_parallel_prefill`` shards the block's
+  activations over S (``attention.swa_attend_cp``), and the windowed
+  cache is written from the gathered K/V;
+* the MoE FFN is expert-parallel (``moe.moe_ffn``); RWKV6's projections
+  are row-parallel (its recurrence runs on whole activations); RG-LRU's
+  ``lru_in``/``lru_gate`` are column-parallel over channels, so a rank
+  runs the conv and the scan on its channels (its slice of the
+  replicated ``lru_conv`` and per-channel vectors) and ``lru_out`` is
+  row-parallel; its recurrent cache is split the same way;
+* ``fsdp_only`` blocks and ``rwkv_batch_parallel`` RWKV6 blocks shard the
+  batch over every axis with their weights gathered whole
+  (``_tp.block_layout``).
+
+The aux loss a rank returns is its data shard's (JAX's per-device value).
+No gradients flow through the collectives yet: ``forward`` under a mesh
+of more than one rank with gradients enabled raises (slice D2b), and
+``loss_fn`` takes no ``rules``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any
 
 import torch
 import torch.utils.checkpoint
 
 from .._device import resolve_device
-from .attention import NEG_INF, attend, decode_attend
+from ..distributed import compat
+from ..distributed._tp import TP, block_layout, cut, gather
+from .attention import (NEG_INF, attend, decode_attend, merged_softmax,
+                        swa_attend_cp)
 from .config import ModelConfig, segments
-from .kvcache import init_segment_cache, ring_positions, write_token
+from .kvcache import (LocalCaches, fill_cache, init_segment_cache,
+                      ring_positions, write_token)
 from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
 from .moe import moe_ffn
 from .ssm import rglru_block, rwkv6_channelmix, rwkv6_mix
 
-__all__ = ["init_params", "count_params", "forward", "loss_fn", "prefill",
-           "decode_step", "init_cache"]
+__all__ = ["init_params", "abstract_params", "count_params", "forward",
+           "loss_fn", "prefill", "decode_step", "init_cache",
+           "gather_caches", "gather_logits"]
 
 # ============================================================ initialization
 def _dense_ffn_shapes(cfg: ModelConfig, ffn_kind: str):
@@ -188,6 +241,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree of ``init_params`` on the ``meta`` device: every
+    leaf's shape and dtype, no storage (any configuration, Qwen3-MoE-235B
+    included)."""
+    meta = torch.device("meta")
+    params: dict[str, Any] = {
+        "embed": torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.dtype,
+                             device=meta),
+        "final_norm": torch.empty((cfg.d_model,), dtype=cfg.dtype,
+                                  device=meta),
+        "lm_head": torch.empty((cfg.d_model, cfg.vocab_size),
+                               dtype=cfg.dtype, device=meta)}
+    params["segments"] = [
+        {name: torch.empty((n, *shape), dtype=cfg.dtype, device=meta)
+         for name, shape in sorted(_block_param_shapes(cfg, kind).items())}
+        for kind, n in segments(cfg)]
+    return params
+
+
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     total = cfg.vocab_size * cfg.d_model * 2 + cfg.d_model
     for kind, n in segments(cfg):
@@ -203,48 +275,128 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 # ================================================================== blocks
-def _gqa_mixer(p, h, cfg, window, mode, cache, length):
-    """GQA/MQA attention of one layer.  In ``prefill`` mode the layer's
-    cache is filled in place (zero-padded to its length, or the last T
-    tokens rolled into ring order for a window); in ``decode`` mode the
-    token is written at its ring slot in place."""
+ATTENTION = ("full", "swa", "local", "mla")
+
+
+def _slots(cfg: ModelConfig, mixer: str, cache_len: int) -> int:
+    """T, the slots of a whole attention cache of ``cache_len``."""
+    return min(cfg.window, cache_len) if mixer in ("swa", "local") \
+        else cache_len
+
+
+def _num_slots(leaf, cfg: ModelConfig, mixer: str, cache_len) -> int:
+    """T of a layer's whole cache: from ``cache_len`` where the caches
+    carry it (``LocalCaches``: a rank may hold T / tp of the slots), else
+    the cache ``leaf``'s own."""
+    return leaf.shape[1] if cache_len is None \
+        else _slots(cfg, mixer, cache_len)
+
+
+def _slot_positions(length: int, T: int, t_loc: int, ctx: TP, dev):
+    """(absolute positions of this rank's cache slots, the axis the
+    partial softmaxes over them merge across: None when the rank holds
+    all T slots)."""
+    cpos = ring_positions(length, T, device=dev)
+    if t_loc == T:
+        return cpos, None
+    return cpos[ctx.tp_rank * t_loc:(ctx.tp_rank + 1) * t_loc], ctx.tp
+
+
+def _kv_for_heads(k, v, q0: int, hq: int, G: int):
+    """K/V (all KVH heads) for query heads q0 .. q0 + hq - 1 (global),
+    each global head h reading KV head h // G, shaped so ``attend``'s
+    grouping (local head i -> KV head i // (hq / kv)) maps them.  The
+    local heads never cover whole groups here (then KVH would divide tp
+    and K/V would be column-parallel): they read one KV head, or
+    (a tp that is no power of two, e.g. 40/8 heads at tp 5) straddle two
+    and each gets its own copy."""
+    first, last = q0 // G, (q0 + hq - 1) // G
+    if first == last:  # every local head reads one KV head
+        return k[:, :, first:first + 1], v[:, :, first:first + 1]
+    idx = torch.div(q0 + torch.arange(hq, device=k.device), G,
+                    rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _gqa_mixer(p, h, cfg, ctx, specs, layout, window, mode, cache, length,
+               cache_len):
+    """GQA/MQA attention of one layer on this rank's part.  In ``prefill``
+    mode the layer's cache is filled in place (zero-padded to its length,
+    or the last T tokens rolled into ring order for a window); in
+    ``decode`` mode the token is written at its ring slot in place.
+
+    Under a mesh: local heads where wq (and wk/wv) are column-parallel;
+    where wq is column-parallel and wk/wv fall back to row-parallel (K/V
+    whole on every rank), a rank takes the KV heads of its own query
+    heads.  A decode step attends every head over this rank's slots and
+    the partial softmaxes merge over the model axis.  The ``seq`` layout
+    (windowed prefill under ``seq_parallel_prefill``) runs
+    ``swa_attend_cp`` on this rank's chunk of the sequence."""
     B, S, _ = h.shape
     Dh = cfg.resolved_head_dim
     H, KVH = cfg.num_heads, cfg.num_kv_heads
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, KVH, Dh)
-    v = v.reshape(B, S, KVH, Dh)
-    offset = length if mode == "decode" else 0
+    whole = layout != "dp"
+    q = ctx.linear(h, p["wq"], specs["wq"], whole=whole)
+    k = ctx.linear(h, p["wk"], specs["wk"], whole=whole)
+    v = ctx.linear(h, p["wv"], specs["wv"], whole=whole)
+    tp_split = ctx.ntp > 1 and not whole
+    q_sh = tp_split and specs["wq"][1] == ctx.tp  # this rank's heads
+    kv_sh = tp_split and specs["wk"][1] == ctx.tp
+    hq = H // ctx.ntp if q_sh else H
+    hk = KVH // ctx.ntp if kv_sh else KVH
+    q0 = ctx.tp_rank * hq if q_sh else 0
+    k0 = ctx.tp_rank * hk if kv_sh else 0
+    if "bq" in p:  # replicated biases: this rank's columns of them
+        q = q + p["bq"][q0 * Dh:(q0 + hq) * Dh]
+        k = k + p["bk"][k0 * Dh:(k0 + hk) * Dh]
+        v = v + p["bv"][k0 * Dh:(k0 + hk) * Dh]
+    q = q.reshape(B, S, hq, Dh)
+    k = k.reshape(B, S, hk, Dh)
+    v = v.reshape(B, S, hk, Dh)
+    if mode == "decode":
+        offset = length
+    else:
+        offset = ctx.tp_rank * S if layout == "seq" else 0
     pos = offset + torch.arange(S, dtype=torch.int32, device=h.device)
     cos, sin = rotary(pos, Dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    mixer = "swa" if window else "full"
 
-    if mode == "decode":
-        kc = write_token(cache["k"], k, length)
-        vc = write_token(cache["v"], v, length)
-        cpos = ring_positions(length + 1, kc.shape[1], device=h.device)
-        out = decode_attend(q, kc, vc, cpos, length, window=window)
+    if mode == "decode":  # every head, this rank's slots
+        if q_sh:
+            q = gather(q, 2, ctx.tp)
+        if kv_sh:
+            k, v = gather(k, 2, ctx.tp), gather(v, 2, ctx.tp)
+        T = _num_slots(cache["k"], cfg, mixer, cache_len)
+        write_token(cache["k"], k, length, T, ctx.tp_rank)
+        write_token(cache["v"], v, length, T, ctx.tp_rank)
+        cpos, axis = _slot_positions(length + 1, T, cache["k"].shape[1], ctx,
+                                     h.device)
+        out = decode_attend(q, cache["k"], cache["v"], cpos, length,
+                            window=window, axis_name=axis)
+        return ctx.linear(out.reshape(B, S, H * Dh), p["wo"], specs["wo"],
+                          gather_out=True)
+    if layout == "seq":
+        out = swa_attend_cp(q, k, v, window=window, rules=ctx.rules)
+    elif q_sh and not kv_sh:  # wq column-, wk/wv row-parallel
+        ka, va = _kv_for_heads(k, v, q0, hq, H // KVH)
+        out = attend(q, ka, va, window=window)
     else:
         out = attend(q, k, v, window=window)
-        if mode == "prefill":
-            T = cache["k"].shape[1]
-            if window and S >= T:
-                shift = S % T
-                cache["k"].copy_(torch.roll(k[:, S - T:], shift, dims=1))
-                cache["v"].copy_(torch.roll(v[:, S - T:], shift, dims=1))
-            else:  # the rest of the fresh cache stays zero
-                cache["k"][:, :S] = k
-                cache["v"][:, :S] = v
-    return out.reshape(B, S, H * Dh) @ p["wo"]
+    if mode == "prefill":
+        T = _num_slots(cache["k"], cfg, mixer, cache_len)
+        for name, t in (("k", k), ("v", v)):
+            t = ctx.relayout(t, layout, "dp")
+            if kv_sh:
+                t = gather(t, 2, ctx.tp)
+            fill_cache(cache[name], t, window, T, ctx.tp_rank)
+    return ctx.linear(out.reshape(B, S, hq * Dh), p["wo"], specs["wo"],
+                      split_in=q_sh, gather_out=True, whole=whole)
 
 
-def _mla_mixer(p, h, cfg, mode, cache, length):
+def _mla_mixer(p, h, cfg, ctx, specs, layout, mode, cache, length,
+               cache_len):
     """Multi-head latent attention (DeepSeek-V2).  K and V come from a
     compressed latent c (``mla_kv_lora`` wide, RMS-normed) and one rope
     key shared by every head; the cache holds only those two.  Prefill
@@ -252,151 +404,312 @@ def _mla_mixer(p, h, cfg, mode, cache, length):
     (``mla_v_dim``) and attend (K7, V zero-padded to K's width); decode
     expands the whole cache each step or, with ``cfg.mla_absorb``, folds
     ``wk_up`` into q and ``wv_up`` into the output and attends in the
-    latent space (plain PyTorch, float32, as the JAX package)."""
+    latent space (plain PyTorch, float32, as the JAX package).  Under a
+    mesh the latent caches are split by slot as the GQA caches are, and
+    prefill expands this rank's heads where ``wk_up``/``wv_up`` are
+    column-parallel."""
     B, S, _ = h.shape
     H = cfg.num_heads
     nope, rope_d = cfg.mla_nope_dim, cfg.mla_rope_dim
     vdim, lora = cfg.mla_v_dim, cfg.mla_kv_lora
-    q = (h @ p["wq_mla"]).reshape(B, S, H, nope + rope_d)
+    whole = layout != "dp"
+    q = ctx.linear(h, p["wq_mla"], specs["wq_mla"], whole=whole).reshape(
+        B, S, H, nope + rope_d)
     offset = length if mode == "decode" else 0
     pos = offset + torch.arange(S, dtype=torch.int32, device=h.device)
     cos, sin = rotary(pos, rope_d, cfg.rope_theta)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], cos, sin)
     q = torch.cat([q_nope, q_rope], dim=-1)
-
-    ckv = h @ p["wkv_a"]  # (B, S, lora + rope_d)
+    ckv = ctx.linear(h, p["wkv_a"], specs["wkv_a"], whole=whole)
     c = rms_norm(ckv[..., :lora], p["ln_kv"])
     k_rope = apply_rope(ckv[..., None, lora:], cos, sin)  # (B, S, 1, rope)
+    up_sh = ctx.ntp > 1 and not whole and specs["wk_up"][1] == ctx.tp
+    wk_up = ctx.weight(p["wk_up"], specs["wk_up"], whole)
+    wv_up = ctx.weight(p["wv_up"], specs["wv_up"], whole)
 
-    def expand(c_all, kr_all):
+    def expand(c_all, kr_all, heads):
         T = c_all.shape[1]
-        k_nope = (c_all @ p["wk_up"]).reshape(B, T, H, nope)
-        v = (c_all @ p["wv_up"]).reshape(B, T, H, vdim)
-        k = torch.cat([k_nope, kr_all.expand(B, T, H, rope_d)], dim=-1)
+        k_nope = (c_all @ wk_up).reshape(B, T, heads, nope)
+        v = (c_all @ wv_up).reshape(B, T, heads, vdim)
+        k = torch.cat([k_nope, kr_all.expand(B, T, heads, rope_d)], dim=-1)
         return k, v
 
-    if mode == "decode":
-        cc = write_token(cache["ckv"], c, length)
-        krc = write_token(cache["krope"], k_rope[:, :, 0], length)
-        cpos = ring_positions(length + 1, cc.shape[1], device=h.device)
+    if mode == "decode":  # every head, this rank's slots
+        if up_sh:
+            wk_up = gather(wk_up, 1, ctx.tp)
+            wv_up = gather(wv_up, 1, ctx.tp)
+        T = _num_slots(cache["ckv"], cfg, "mla", cache_len)
+        cc = write_token(cache["ckv"], c, length, T, ctx.tp_rank)
+        krc = write_token(cache["krope"], k_rope[:, :, 0], length, T,
+                          ctx.tp_rank)
+        cpos, axis = _slot_positions(length + 1, T, cc.shape[1], ctx,
+                                     h.device)
         if cfg.mla_absorb:
             f32 = torch.float32
             scale = (nope + rope_d) ** -0.5
             q_c = torch.einsum("bshn,lhn->bshl", q_nope.to(f32),
-                               p["wk_up"].reshape(lora, H, nope).to(f32))
+                               wk_up.reshape(lora, H, nope).to(f32))
             s = torch.einsum("bshl,btl->bhst", q_c, cc.to(f32))[:, :, 0]
             s = s + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
                                  krc.to(f32))[:, :, 0]
             s = s * scale  # (B, H, T)
             allow = (cpos <= length) & (cpos >= 0)
-            pr = torch.softmax(torch.where(allow, s, NEG_INF), dim=-1)
-            o_c = torch.einsum("bht,btl->bhl", pr, cc.to(f32))
-            out = torch.einsum(
-                "bhl,lhn->bhn", o_c,
-                p["wv_up"].reshape(lora, H, vdim).to(f32),
-            ).to(h.dtype)[:, None]  # (B, 1, H, vdim)
+            s = torch.where(allow, s, NEG_INF)
+            if axis is None:
+                o_c = torch.einsum("bht,btl->bhl", torch.softmax(s, dim=-1),
+                                   cc.to(f32))
+            else:
+                pr, l = merged_softmax(s, axis)
+                tot = compat.psum(torch.cat([torch.einsum(
+                    "bht,btl->bhl", pr, cc.to(f32)), l], dim=-1), axis,
+                    donate=True)
+                o_c = tot[..., :-1] / tot[..., -1:]
+            out = torch.einsum("bhl,lhn->bhn", o_c,
+                               wv_up.reshape(lora, H, vdim).to(f32)
+                               ).to(h.dtype)[:, None]  # (B, 1, H, vdim)
         else:
-            k_all, v_all = expand(cc, krc[:, :, None, :])
-            out = decode_attend(q, k_all, v_all, cpos, length)
-    else:
-        k_all, v_all = expand(c, k_rope)
-        out = attend(q, k_all, v_all)
-        if mode == "prefill":  # the rest of the fresh cache stays zero
-            cache["ckv"][:, :S] = c
-            cache["krope"][:, :S] = k_rope[:, :, 0]
-    return out.reshape(B, S, H * vdim) @ p["wo"]
+            k_all, v_all = expand(cc, krc[:, :, None, :], H)
+            out = decode_attend(q, k_all, v_all, cpos, length,
+                                axis_name=axis)
+        return ctx.linear(out.reshape(B, S, H * vdim), p["wo"], specs["wo"],
+                          gather_out=True)
+    hl = H // ctx.ntp if up_sh else H
+    h0 = ctx.tp_rank * hl if up_sh else 0
+    k_all, v_all = expand(c, k_rope, hl)
+    out = attend(q[:, :, h0:h0 + hl], k_all, v_all)
+    if mode == "prefill":  # the rest of the fresh cache stays zero
+        T = _num_slots(cache["ckv"], cfg, "mla", cache_len)
+        fill_cache(cache["ckv"], ctx.relayout(c, layout, "dp"), 0, T,
+                   ctx.tp_rank)
+        fill_cache(cache["krope"], ctx.relayout(k_rope[:, :, 0], layout,
+                                                "dp"), 0, T, ctx.tp_rank)
+    return ctx.linear(out.reshape(B, S, hl * vdim), p["wo"], specs["wo"],
+                      split_in=up_sh, gather_out=True, whole=whole)
 
 
-def _apply_block(kind, p, x, cfg, mode, cache, length):
-    """One residual block: x + mixer(norm(x)), then + ffn(norm(x)).
-    Returns (x, the block's aux loss: the MoE balance term, else a float32
-    zero)."""
+def _apply_block(kind, p, x, cfg, ctx, specs, layout, mode, cache, length,
+                 cache_len):
+    """One residual block on this rank's part: x + mixer(norm(x)), then
+    + ffn(norm(x)).  Returns (x, the block's aux loss: the MoE balance
+    term, else a float32 zero)."""
     mixer, ffn = kind
+    whole = layout != "dp"
     decode = mode == "decode"
+
+    def mm(t, name):
+        return ctx.linear(t, p[name], specs[name], whole=whole)
+
     h = rms_norm(x, p["ln1"])
     if mixer == "mla":
-        x = x + _mla_mixer(p, h, cfg, mode, cache, length)
+        y = _mla_mixer(p, h, cfg, ctx, specs, layout, mode, cache, length,
+                       cache_len)
     elif mixer == "rwkv6":
         y, (st, last) = rwkv6_mix(
             p, h, cfg, state=cache["state"] if decode else None,
-            prev_x=cache["prev_mix"] if decode else None)
+            prev_x=cache["prev_mix"] if decode else None, mm=mm)
         if cache is not None:  # last: the normed input h[:, -1]
             cache["state"].copy_(st)
             cache["prev_mix"].copy_(last)
-        x = x + y
     elif mixer == "rglru":
+        W = cfg.lru_width
+        pr, mm_r = p, mm
+        if not whole and ctx.ntp > 1 and specs["lru_in"][1] == ctx.tp:
+            # this rank's channels: its slice of the replicated conv and
+            # per-channel leaves; lru_out row-parallel on them
+            wl = W // ctx.ntp
+            pr = {n: (t.narrow(-1, ctx.tp_rank * wl, wl)
+                      if n.startswith("lru_") and n not in (
+                          "lru_in", "lru_gate", "lru_out") else t)
+                  for n, t in p.items()}
+
+            def mm_r(t, name):
+                return ctx.linear(t, p[name], specs[name],
+                                  split_in=name == "lru_out")
         y, (hs, conv) = rglru_block(
-            p, h, cfg, state=(cache["h"], cache["conv"]) if decode else None)
+            pr, h, cfg, state=(cache["h"], cache["conv"]) if decode else None,
+            mm=mm_r)
         if cache is not None:
             cache["h"].copy_(hs)
             cache["conv"].copy_(conv)
-        x = x + y
     else:
         window = cfg.window if mixer in ("swa", "local") else 0
-        x = x + _gqa_mixer(p, h, cfg, window, mode, cache, length)
+        y = _gqa_mixer(p, h, cfg, ctx, specs, layout, window, mode, cache,
+                       length, cache_len)
+    x = x + y
     h2 = rms_norm(x, p["ln2"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if ffn == "moe":
-        f, aux, _drop = moe_ffn(h2, p, cfg)
+    if ffn == "moe":  # expert-parallel over the dp layout's rows
+        f, aux, _drop = moe_ffn(ctx.relayout(h2, layout, "dp"), p, cfg,
+                                rules=ctx.rules)
+        f = ctx.relayout(f, "dp", layout)
     elif ffn == "channelmix":
         f, prev_cm = rwkv6_channelmix(
-            p, h2, prev_x=cache["prev_cm"] if decode else None)
+            p, h2, prev_x=cache["prev_cm"] if decode else None, mm=mm)
         if cache is not None:
             cache["prev_cm"].copy_(prev_cm)
-    elif cfg.mlp_type == "swiglu":
-        f = swiglu(h2, p["w1"], p["w3"], p["w2"])
     else:
-        f = gelu_mlp(h2, p["w1"], p["w2"])
+        w = {n: ctx.weight(p[n], specs[n], whole)
+             for n in ("w1", "w3", "w2") if n in p}
+        if cfg.mlp_type == "swiglu":
+            f = swiglu(h2, w["w1"], w["w3"], w["w2"])
+        else:
+            f = gelu_mlp(h2, w["w1"], w["w2"])
+        if not whole and specs["w2"][0] == ctx.tp:  # a partial sum
+            f = ctx.psum_tp(f)
     return x + f, aux
 
 
-def _run_segments(params, x, cfg, mode, caches, length):
-    """Each segment's layers in turn; caches are updated in place.
-    Returns (x, the blocks' aux losses summed in float32, in layer order
-    as the JAX package's scan carries them).  In ``train`` mode with
-    ``cfg.remat`` every block runs under ``torch.utils.checkpoint`` (the
-    JAX package's ``jax.checkpoint`` per scanned block): its activations
-    are recomputed in the backward."""
+def _run_segments(params, x, cfg, ctx, mode, caches, length, batch: int,
+                  seq: int):
+    """Each segment's layers in turn on this rank's part; caches are
+    updated in place.  Returns (x in the dp layout, the blocks' aux losses
+    summed in float32, in layer order as the JAX package's scan carries
+    them).  A segment's blocks run in the layout ``_tp.block_layout``
+    gives them.  In ``train`` mode with ``cfg.remat`` every block runs
+    under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
+    per scanned block): its activations are recomputed in the
+    backward."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    cache_len = getattr(caches, "cache_len", None)
+    layout = "dp"
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, ((kind, n), p_seg) in enumerate(zip(segments(cfg),
                                                 params["segments"])):
+        lay = block_layout(cfg, ctx.rules, batch, seq, kind[0], mode)
+        x = ctx.relayout(x, layout, lay)
+        layout = lay
+        specs = ctx.specs(kind)
         for i in range(n):
             p_l = {name: leaf[i] for name, leaf in p_seg.items()}
             c_l = ({name: leaf[i] for name, leaf in caches[si].items()}
                    if caches is not None else None)
+            args = (kind, p_l, x, cfg, ctx, specs, lay, mode, c_l, length,
+                    cache_len)
             if remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    _apply_block, kind, p_l, x, cfg, mode, c_l, length,
-                    use_reentrant=False)
+                    _apply_block, *args, use_reentrant=False)
             else:
-                x, aux = _apply_block(kind, p_l, x, cfg, mode, c_l, length)
+                x, aux = _apply_block(*args)
             aux_total = aux_total + aux
-    return x, aux_total
+    return ctx.relayout(x, layout, "dp"), aux_total
 
 
 # ============================================================== entry points
-def _embed_in(params, cfg, tokens=None, embeds=None):
-    """(B, S, d) inputs: the token embeddings, or for the ``embeddings``
-    frontend the caller's embeddings cast to the model's dtype."""
+def _sharded(rules) -> bool:
+    """True under a mesh of more than one rank."""
+    return rules is not None and rules.mesh is not None and rules.size > 1
+
+
+@contextlib.contextmanager
+def _on_mesh(rules):
+    """Run the block under ``rules``' mesh, if it has one (``compat``'s
+    named axes resolve against it); under more than one rank without
+    autograd (the collectives carry none)."""
+    if rules is None or rules.mesh is None:
+        yield
+        return
+    with compat.use_mesh(rules.mesh), (
+            torch.no_grad() if _sharded(rules) else contextlib.nullcontext()):
+        yield
+
+
+def _embed_in(params, cfg, ctx, tokens=None, embeds=None):
+    """This rank's rows (the dp layout) of the (B, S, d) inputs: the token
+    embeddings, or for the ``embeddings`` frontend the caller's
+    embeddings cast to the model's dtype.  ``embed`` (V, d) is
+    vocab-parallel when V divides tp: a rank looks up its rows, zeroes the
+    other tokens, and the lookups are summed over the model axis."""
     if cfg.frontend == "embeddings":
         if embeds is None:
             raise ValueError(f"{cfg.name} takes embeddings: pass embeds=")
-        return embeds.to(cfg.dtype)
+        return cut(embeds, 0, ctx.dp).to(cfg.dtype)
     if tokens is None:
         raise ValueError(f"{cfg.name} takes tokens")
-    return params["embed"][tokens]
+    t = cut(tokens, 0, ctx.dp)
+    spec = ctx.spec("embed", (cfg.vocab_size, cfg.d_model))
+    table = ctx.weight(params["embed"], spec)
+    if spec[0] != ctx.tp or ctx.ntp == 1:
+        return table[t]
+    rows = table.shape[0]  # vocab-parallel: this rank's rows
+    lo = ctx.tp_rank * rows
+    mine = (t >= lo) & (t < lo + rows)
+    x = table[torch.where(mine, t - lo, 0)] * mine[..., None].to(
+        table.dtype)
+    return ctx.psum_tp(x)
 
 
-def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None):
+def _head(params, cfg, ctx, x):
+    """Logits of this rank: its rows, and its vocabulary columns when V
+    divides tp (``lm_head`` column-parallel)."""
+    spec = ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))
+    return rms_norm(x, params["final_norm"]) @ ctx.weight(params["lm_head"],
+                                                          spec)
+
+
+def _batch_of(cfg, tokens, embeds) -> int:
+    return (embeds if cfg.frontend == "embeddings" else tokens).shape[0]
+
+
+def gather_logits(logits, cfg: ModelConfig, rules=None):
+    """The whole (B, ..., V) logits from every rank's (B/dp, ..., V/tp)
+    block (a collective; as they are without a mesh of more than one
+    rank)."""
+    if not _sharded(rules):
+        return logits
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        if ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))[1] == ctx.tp:
+            logits = gather(logits, -1, ctx.tp)
+        return gather(logits, 0, ctx.dp)
+
+
+def gather_caches(caches, cfg: ModelConfig, rules=None):
+    """The whole caches, (L, B, ...) leaves as ``init_cache`` lays them
+    out without a mesh, from every rank's part (a collective; as they are
+    without a mesh of more than one rank)."""
+    if not _sharded(rules):
+        return caches
+    out = []
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        for (kind, _), seg in zip(segments(cfg), caches):
+            mixer = kind[0]
+            whole = {}
+            for name, leaf in seg.items():
+                if mixer in ATTENTION:
+                    if leaf.shape[2] != _slots(cfg, mixer, caches.cache_len):
+                        leaf = gather(leaf, 2, ctx.tp)
+                    leaf = gather(leaf, 1, ctx.dp)
+                elif block_layout(cfg, rules, caches.batch, 1, mixer,
+                                  "decode") == "full":
+                    leaf = gather(leaf, 1, ctx.dp + (ctx.tp,))
+                else:
+                    if mixer == "rglru" and leaf.shape[-1] != cfg.lru_width:
+                        leaf = gather(leaf, -1, ctx.tp)
+                    leaf = gather(leaf, 1, ctx.dp)
+                whole[name] = leaf
+            out.append(whole)
+    return out
+
+
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            rules=None):
     """Training forward: (logits (B, S, V) for every position of
     ``tokens`` (B, S) or ``embeds`` (B, S, d), the aux loss: the MoE
-    balance terms summed over blocks, a float32 zero without MoE)."""
-    x, aux = _run_segments(params, _embed_in(params, cfg, tokens, embeds),
-                           cfg, "train", None, None)
-    logits = rms_norm(x, params["final_norm"]) @ params["lm_head"]
-    return logits, aux
+    balance terms summed over blocks, a float32 zero without MoE).  Under
+    a mesh of more than one rank, this rank's (B/dp, S, V/tp) block and
+    its data shard's aux loss, with gradients disabled."""
+    if _sharded(rules) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "forward under a mesh computes no gradients (slice D2b): "
+            "run it under torch.no_grad()")
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        x = _embed_in(params, cfg, ctx, tokens, embeds)
+        x, aux = _run_segments(params, x, cfg, ctx, "train", None, None,
+                               _batch_of(cfg, tokens, embeds), x.shape[1])
+        return _head(params, cfg, ctx, x), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01):
@@ -415,33 +728,67 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01):
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Zero caches, one dict per segment (see ``kvcache``)."""
-    return [
-        init_segment_cache(kind, n, batch, cache_len, cfg, cfg.dtype,
-                           device=device)
-        for kind, n in segments(cfg)
-    ]
+def _init_cache(cfg, ctx, batch: int, cache_len: int, device):
+    out = []
+    for kind, n in segments(cfg):
+        mixer = kind[0]
+        if mixer in ATTENTION:  # this rank's rows and slots
+            T = _slots(cfg, mixer, cache_len)
+            t_loc = T // ctx.ntp if T % ctx.ntp == 0 else T
+            layout = "dp"
+        else:  # this rank's rows (and RG-LRU's channels)
+            t_loc = cache_len
+            layout = block_layout(cfg, ctx.rules, batch, 1, mixer, "decode")
+        n_ranks = ctx.ndp * (ctx.ntp if layout == "full" else 1)
+        if batch % n_ranks:
+            raise ValueError(f"a batch of {batch} does not split over "
+                             f"{n_ranks} ranks")
+        c = cfg
+        if mixer == "rglru" and layout == "dp" \
+                and cfg.lru_width % ctx.ntp == 0:
+            c = dataclasses.replace(cfg, lru_width=cfg.lru_width // ctx.ntp)
+        out.append(init_segment_cache(kind, n, batch // n_ranks, t_loc, c,
+                                      cfg.dtype, device=device))
+    return LocalCaches(out, cache_len, batch)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               *, rules=None):
+    """Zero caches, one dict per segment (see ``kvcache``); under a mesh,
+    this rank's part: its rows, its slots of each attention cache (all T
+    where T does not divide tp) and its RG-LRU channels."""
+    with _on_mesh(rules):
+        return _init_cache(cfg, TP(rules, cfg), batch, cache_len, device)
 
 
 def prefill(params, cfg: ModelConfig, tokens=None,
-            cache_len: int | None = None, *, embeds=None):
+            cache_len: int | None = None, *, embeds=None, rules=None):
     """Full-sequence pass over ``tokens`` (B, S) or ``embeds`` (B, S, d)
-    -> (last-position logits (B, V), caches, length S)."""
-    x = _embed_in(params, cfg, tokens, embeds)
-    B, S = x.shape[0], x.shape[1]
-    caches = init_cache(cfg, B, cache_len or S, device=x.device)
-    x, _ = _run_segments(params, x, cfg, "prefill", caches, None)
-    logits = rms_norm(x[:, -1], params["final_norm"]) @ params["lm_head"]
-    return logits, caches, S
+    -> (last-position logits (B, V), caches, length S).  Under a mesh,
+    this rank's logits block and caches."""
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        x = _embed_in(params, cfg, ctx, tokens, embeds)
+        B, S = _batch_of(cfg, tokens, embeds), x.shape[1]
+        caches = _init_cache(cfg, ctx, B, cache_len or S, x.device)
+        x, _ = _run_segments(params, x, cfg, ctx, "prefill", caches, None,
+                             B, S)
+        return _head(params, cfg, ctx, x[:, -1]), caches, S
 
 
 def decode_step(params, caches, length: int, cfg: ModelConfig, tokens=None,
-                *, embeds=None):
+                *, embeds=None, rules=None):
     """One-step decode of ``tokens`` (B,) int or ``embeds`` (B, d).
     Writes the step into ``caches`` in place and returns (logits (B, V),
-    caches, length + 1)."""
-    x = _embed_in(params, cfg, tokens, embeds)[:, None, :]
-    x, _ = _run_segments(params, x, cfg, "decode", caches, length)
-    logits = rms_norm(x[:, 0], params["final_norm"]) @ params["lm_head"]
-    return logits, caches, length + 1
+    caches, length + 1).  Under a mesh, this rank's logits block; the
+    caches must be the ones ``prefill`` or ``init_cache`` returned under
+    the same rules."""
+    if _sharded(rules) and not isinstance(caches, LocalCaches):
+        raise TypeError("under a mesh, decode_step takes the caches that "
+                        "prefill or init_cache(rules=) returned")
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        x = _embed_in(params, cfg, ctx, tokens, embeds)[:, None, :]
+        x, _ = _run_segments(params, x, cfg, ctx, "decode", caches, length,
+                             _batch_of(cfg, tokens, embeds), 1)
+        return _head(params, cfg, ctx, x[:, 0]), caches, length + 1

@@ -1331,3 +1331,116 @@ def test_every_kernel_wrapper_with_a_launch_counter_is_declared(cuda):
         "encode_share_kernel", "share_kernel", "reconstruct_kernel",
         "fused_irls_kernel", "fused_irls_cv_kernel", "gram_hessian_kernel",
         "flash_attention_kernel", "flash_dq_kernel", "flash_dkdv_kernel"])
+
+
+# -- the sharded serving path (rules=) ----------------------------------------
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (4, 2048, 10, 2, 128),  # Qwen2.5-32B's 40/8 at tp 4
+    (4, 2048, 16, 1, 128),  # Qwen3-MoE's 64/4 at tp 4
+    (4, 2048, 4, 1, 256),   # RecurrentGemma's 16/1 at tp 4 (KV whole)
+])
+def test_k7_at_tp4_local_heads(cuda, B, S, H, KVH, D):
+    """K7 at the heads one rank of a (1, 4) mesh runs, bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(H * D)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=cuda).to(
+        torch.bfloat16) for n in (H, KVH, KVH))
+    o, m, l = flash_attention_kernel(q, k, v)
+    op, mp, lp = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o.float(), op.float(), rtol=1e-2, atol=5e-3)
+    torch.testing.assert_close(m, mp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(l, lp, rtol=1e-5, atol=0.0)
+
+
+def test_single_nccl_rank_mesh_changes_nothing(cuda, tmp_path):
+    """One NCCL rank with a (1, 1) mesh: prefill and decode through
+    ``rules=`` run the model's program under the mesh (its specs and
+    coordinates read from the NCCL mesh, every collective skipped at size
+    1) and give the unsharded logits bit for bit, at a small width."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+        cfg = dataclasses.replace(smoke_config("qwen2_5_32b"), d_model=256,
+                                  num_heads=8, num_kv_heads=2, head_dim=32)
+        params = T.init_params(cfg, seed=0, device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+        outs = []
+        for r in (None, rules):
+            with torch.inference_mode():
+                logits, caches, n = T.prefill(params, cfg, toks,
+                                              cache_len=44, rules=r)
+                got = [logits]
+                for _ in range(3):
+                    logits, caches, n = T.decode_step(
+                        params, caches, n, cfg, got[0].argmax(-1), rules=r)
+                    got.append(logits)
+            outs.append(torch.stack(got))
+        assert torch.equal(*outs)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(rank, world, rdzv, out_path, args):
+    """A rank of a (1, 4) mesh on cuda:0 over gloo: the sharded prefill
+    and three decode steps of each case, gathered, and the unsharded run
+    on rank 0."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules, shard_params
+
+    dist.init_process_group("gloo", init_method=rdzv, rank=rank,
+                            world_size=world)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    errs = {}
+    try:
+        rules = MeshRules(compat.make_mesh((1, 4), ("data", "model")))
+        for arch, flags, S in args:
+            cfg = dataclasses.replace(smoke_config(arch), dtype_str="float32",
+                                      **flags)
+            if cfg.moe_num_experts:  # drop-free
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=float(cfg.moe_num_experts))
+            params = T.init_params(cfg, seed=0, device=dev)
+            g = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (4, S + 3),
+                                 generator=g).to(dev)
+            local = shard_params(params, rules, cfg)
+            got, want = [], []
+            with torch.inference_mode():
+                for p, r, out in ((local, rules, got), (params, None, want)):
+                    logits, caches, n = T.prefill(p, cfg, toks[:, :S],
+                                                  cache_len=S + 4, rules=r)
+                    out.append(T.gather_logits(logits, cfg, r))
+                    for i in range(3):
+                        logits, caches, n = T.decode_step(
+                            p, caches, n, cfg, toks[:, S + i], rules=r)
+                        out.append(T.gather_logits(logits, cfg, r))
+            errs[arch] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(got, want))
+        if rank == 0:
+            torch.save(errs, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_serving_on_the_card_matches_unsharded(cuda):
+    """Four gloo ranks on one card, a (1, 4) mesh, float32 smoke configs:
+    the context-parallel windowed prefill (ppermute through the host),
+    expert parallelism, the mixed q/KV heads and RG-LRU's channel split,
+    each within 1e-5 of max|logits| of the unsharded run."""
+    from repro_torch.distributed.multihost import spawn_ranks
+
+    cases = (("h2o_danube3_4b", {"seq_parallel_prefill": True}, 64),
+             ("qwen3_moe_235b", {}, 32), ("recurrentgemma_9b", {}, 32),
+             ("deepseek_v2_lite", {"mla_absorb": True}, 32))
+    errs = spawn_ranks(4, _sharded_rank, cases, deadline_s=300)
+    assert all(e <= 1e-5 for e in errs.values()), errs

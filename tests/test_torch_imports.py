@@ -23,7 +23,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "repro_torch.data.datasets, repro_torch.kernels.flash_attention_bwd, "
         "repro_torch.distributed, repro_torch.distributed.compat, "
         "repro_torch.distributed.multihost, "
-        "repro_torch.distributed.sharding, repro_torch.analysis, "
+        "repro_torch.distributed.sharding, repro_torch.distributed._tp, "
+        "repro_torch.models.transformer, repro_torch.analysis, "
         "repro_torch.analysis.drivers, repro_torch.analysis.fixtures, "
         "repro_torch.analysis.lints, repro_torch.analysis.__main__, "
         "repro_torch.obs.audit, repro_torch.obs.__main__\n"

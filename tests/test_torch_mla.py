@@ -24,6 +24,7 @@ from repro.models import attention as jatt
 from repro.models import transformer as JT
 from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.distributed._tp import TP
 from repro_torch.models import attention
 from repro_torch.models import transformer as T
 
@@ -111,8 +112,10 @@ def test_mla_mixer_matches_jax(mode, absorb):
     want, jnew = JT._mla_mixer(jp, jnp.asarray(h), jcfg, RULES, mode,
                                jcache if mode != "train" else None,
                                jnp.int32(length) if n else None)
-    got = T._mla_mixer(p, torch.from_numpy(h), cfg, mode,
-                       cache if mode != "train" else None, n)
+    ctx = TP(None, cfg)  # one rank holding everything: the plain mixer
+    got = T._mla_mixer(p, torch.from_numpy(h), cfg, ctx,
+                       ctx.specs(("mla", "dense")), "dp", mode,
+                       cache if mode != "train" else None, n, None)
     _close(got, want, what="y")
     if mode != "train":
         for name in ("ckv", "krope"):

@@ -153,3 +153,82 @@ def test_stack_studies_refuses_mixed_widths():
                        parts_from_numpy(_study(2, (10,), d=3), "cpu")])
     with pytest.raises(ValueError, match="at least one study"):
         stack_studies([])
+
+
+# the JAX package's name for each of the port's summaries rungs
+JAX_BACKEND = {"kernel": "pallas", "reference": "reference",
+               "mixed": "mixed"}
+
+
+@pytest.mark.parametrize("backend", ["kernel", "reference", "mixed"])
+def test_multistudy_iteration_dropped_center_with_count_matches_jax(
+        studies, backend, monkeypatch):
+    """A round revealed from centers 1 and 3 (center 2 dropped) with the
+    count leaf on the wire, for each summaries rung: the port's betas,
+    objectives and norms against the JAX package's, and the live centers'
+    share bytes exactly ``round_bytes(..., include_count=True,
+    num_live_centers=2)``."""
+    points = (1, 3)
+    agg = SecureCollective(backend="kernel")
+    packed = _port_stack(studies)
+    jpacked = j_stack([[(jnp.asarray(X), jnp.asarray(y)) for X, y in s]
+                       for s in studies])
+    betas0 = np.tile(np.linspace(-0.2, 0.3, DIM), (len(studies), 1))
+    shared = []
+    layouts = []
+    real = SecureCollective.protect_batched
+
+    def spy(self, *args, **kwargs):
+        prot = real(self, *args, **kwargs)
+        shared.append(prot.buf)
+        layouts.append(prot.layout)
+        return prot
+
+    monkeypatch.setattr(SecureCollective, "protect_batched", spy)
+    got = fused_multistudy_iteration(
+        torch.as_tensor(betas0), torch.Generator().manual_seed(7), packed.X,
+        packed.X32, packed.y, packed.counts,
+        torch.as_tensor(LAMS, dtype=torch.float64), agg, "both", 0.0,
+        points=points, include_count=True, summaries_backend=backend)
+    jagg = JCollective(backend="pallas")
+    want = j_iteration(
+        jnp.asarray(betas0), jax.random.PRNGKey(7), jpacked.X, jpacked.X32,
+        jpacked.y, jpacked.counts, jnp.asarray(LAMS), jagg, "both", 0.0,
+        True, points=points, include_count=True,
+        summaries_backend=JAX_BACKEND[backend])
+    b, obj, gn, sn = (t.numpy() for t in got)
+    assert np.abs(b - np.asarray(want[0])).max() <= QUANT
+    assert np.abs(obj - np.asarray(want[1])).max() <= QUANT * NUM_INST
+    assert np.abs(gn - np.asarray(want[2])).max() <= QUANT * DIM
+    assert np.abs(sn - np.asarray(want[3])).max() <= QUANT * DIM
+    # one (w, R, M * S, rows, 128) int32 buffer; the live centers' slices
+    (buf,) = shared
+    live = len(points) * buf[0].numel() * buf.element_size()
+    model = agg.round_bytes(DIM, NUM_INST, "both", include_count=True,
+                            num_live_centers=len(points),
+                            num_configs=len(studies))
+    assert live == model == jagg.round_bytes(
+        DIM, NUM_INST, "both", include_count=True,
+        num_live_centers=len(points), num_configs=len(studies))
+    # the count leaf rode the wire: each slice packs the Hessian, the
+    # gradient, the deviance and the count, one scalar more than without
+    # it (the padding to whole rows hides the difference in bytes here)
+    (layout,) = layouts
+    assert "count" in layout.treedef[1]
+    assert layout.num_elements == DIM * DIM + DIM + 2
+
+
+@pytest.mark.parametrize("backend", ["reference", "mixed"])
+def test_multistudy_rounds_summaries_backend_matches_jax(studies, backend):
+    """Two rounds of ``run_multistudy_rounds`` on another summaries rung
+    against the JAX package's."""
+    from repro.core.multistudy import run_multistudy_rounds as j_rounds
+
+    betas, trace = run_multistudy_rounds(
+        studies, LAMS, 2, device="cpu", summaries_backend=backend)
+    jbetas, jtrace = j_rounds(
+        [[(jnp.asarray(X), jnp.asarray(y)) for X, y in s] for s in studies],
+        LAMS, 2, summaries_backend=JAX_BACKEND[backend])
+    assert np.abs(betas.numpy() - np.asarray(jbetas)).max() <= 2 * QUANT
+    assert np.abs(trace.numpy() - np.asarray(jtrace)).max() \
+        <= 2 * QUANT * NUM_INST

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH]
-                          [--only 18|19]
+                          [--only 18|19|20]
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
@@ -281,6 +281,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    one per attention layer a prefill runs through K7) and host
    seconds (gloo's host ring: no fabric is measured); a ``{"d2a": ...}``
    line.  ``--only 19`` runs phases 1, 2 and 19 alone;
+20. gradients under a mesh (``loss_fn(rules=)``, ``mesh_train_step``),
+   after phase 19: K8a/K8b against their plain versions at the local
+   heads a rank's backward runs under a (1, 4) mesh (bf16, B 1, S 2048:
+   Qwen2.5-32B's 10/2 and Qwen3-MoE's 16/1 of 128, RecurrentGemma's 4/1
+   of 256); (a) one NCCL rank with a (1, 1) mesh runs 3
+   ``mesh_train_step`` calls of phase 13's model and traffic (Qwen2.5-32B
+   at 2 of 64 layers, a batch of 2 x 2048 tokens, remat): loss, grad norm
+   and parameters bit for bit those of the same calls without rules, K7
+   4, K8a 2 and K8b 2 launches a step; (b) 4 spawned ranks on one gloo
+   group, all on cuda:0, a (1, 4) mesh, one model at a time, bf16 from a
+   seed, remat: Qwen2.5-32B at 2 of 64 layers (batch 2), Qwen3-MoE-235B
+   at 1 of 94 (batch 1, drop-free), H2O-Danube3-4B at 2 of 24 with
+   ``seq_parallel_prefill`` (S 8192, batch 1) and RecurrentGemma-9B at 3
+   of 38 (batch 2), S 2048 otherwise: rank 0 first computes the
+   unsharded bf16 and float32 gradients (the whole models loaded one
+   rank at a time), then every rank's ``loss_fn(rules=)`` gradient block
+   of every leaf is held to rank 0's bf16 one by phase 16's rule (the
+   larger of 2e-2 max|g| and twice the bf16 gradient's distance from the
+   float32 one), the loss and the grad norm alike; then one
+   ``mesh_train_step`` (the sharded AdamW) a model: every weight block
+   moved, K7 twice and K8a, K8b once per K7 layer a rank (H2O's seq-layout
+   windowed attention none); per rank the parameter, gradient and moment
+   bytes beside the whole (about a quarter), ``wire_stats`` by kind and
+   staged through the host, host seconds (gloo's host ring: no fabric is
+   measured); a ``{"d2b": ...}`` line.  ``--only 20`` runs phases 1, 2
+   and 20 alone;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call
    (also at phase 18's three training shapes, MLA's bound and SDPA call
@@ -294,7 +320,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    elements, K4 at (t, w) = (3, 5) and at 2^24 elements a residue, and
    (phase 14c) K1 and K4 at (2, 17) and (17, 20), K2 at k = 17 and 20, each
    held bit-identical to its plain version there (``at_shapes``), and
-   K7 at phase 19's local-head shapes; before
+   K7 at phase 19's local-head shapes, K8a/K8b at phase 20's; before
    it, the event floor: an empty launch
    (``torch.cuda._sleep(0)``) timed as the kernels are.
 
@@ -536,6 +562,34 @@ D2A_K7_CASES = (
     ("tp4_qwen2_5", 4, 2048, 10, 2, 128, "bfloat16", None),
     ("tp4_qwen3_moe", 4, 2048, 16, 1, 128, "bfloat16", None),
     ("tp4_recurrentgemma", 4, 2048, 4, 1, 256, "bfloat16", None),
+)
+
+
+# phase 20: gradients under a mesh.  (a) D2B_STEPS ``mesh_train_step``
+# calls of phase 13's configuration and traffic (Qwen2.5-32B at 2 of 64
+# layers, one batch of TRAIN_BATCH x TRAIN_SEQ tokens a step) on one NCCL
+# rank with a (1, 1) mesh and without rules, bit for bit; (b) D2B_RANKS
+# spawned gloo ranks on cuda:0 with a D2B_MESH (data, model) mesh, one
+# model at a time: (arch, layers kept, flags, sequence length, batch),
+# bf16 from SEED, remat, one ``mesh_train_step`` each; every rank's
+# gradient blocks held per leaf to rank 0's unsharded bf16 gradient by
+# phase 16's rule (the larger of CONT_TOL max|g| and twice that
+# gradient's distance from the float32 one), the loss and the grad norm
+# alike.  The MoE runs drop-free (capacity factor E / k) at batch 1: its
+# unsharded float32 reference at batch 2 would take the card's memory.
+D2B_RANKS, D2B_MESH, D2B_STEPS = 4, (1, 4), 3
+D2B_MODELS = (("qwen2_5_32b", 2, {}, 2048, 2),
+              ("qwen3_moe_235b", 1, {}, 2048, 1),
+              ("h2o_danube3_4b", 2, {"seq_parallel_prefill": True}, 8192, 1),
+              ("recurrentgemma_9b", 3, {}, 2048, 2))
+D2B_DEADLINE_S = 900.0  # the spawned ranks, imports and CUDA init included
+# K8a/K8b at the local heads a rank's backward runs under the (1, 4) mesh
+# (bf16, B 1, S 2048: Qwen2.5-32B's 10/2 and Qwen3-MoE's 16/1 of 128,
+# RecurrentGemma's 4/1 of 256); checked at K7_TOL, timed in phase 12
+D2B_K8_CASES = (
+    ("train_tp4_qwen2_5", 1, 2048, 10, 2, 128, "bfloat16", None),
+    ("train_tp4_qwen3_moe", 1, 2048, 16, 1, 128, "bfloat16", None),
+    ("train_tp4_recurrentgemma", 1, 2048, 4, 1, 256, "bfloat16", None),
 )
 
 
@@ -3143,10 +3197,11 @@ def _d2a_config(arch, layers, flags, smoke):
 
 
 def _k7_prefill_launches(cfg, rules, batch, prompt):
-    """K7 launches a rank's prefill implies: one per attention layer that
-    attends through ``attend``'s K7 branch (no window, or one the prompt
-    does not pass), none for a windowed layer in the ``seq`` layout
-    (``swa_attend_cp``'s scan); a decode step launches none."""
+    """K7 launches a rank's prefill implies (and the K7 layers of its
+    training forward, whose layouts are the prefill's): one per attention
+    layer that attends through ``attend``'s K7 branch (no window, or one
+    the prompt does not pass), none for a windowed layer in the ``seq``
+    layout (``swa_attend_cp``'s scan); a decode step launches none."""
     from repro_torch.distributed._tp import block_layout
     from repro_torch.models.config import segments
 
@@ -3497,6 +3552,369 @@ def d2a_phase(dev, smi, counts, phase10_tokens=None, models=D2A_MODELS,
         "phase_seconds": time.perf_counter() - t_phase, "card": smi}
 
 
+# ------------------------------------------------------------------ phase 20
+def _block_of(whole, path, rules, cfg, rank):
+    """Global ``rank``'s block of a whole leaf by its spec on
+    ``rules.mesh`` (``shard_params`` for another rank)."""
+    from repro_torch.distributed.sharding import leaf_spec
+
+    names = rules.axis_names
+    at = (rules.mesh.mesh == rank).nonzero()[0].tolist()
+    coords = dict(zip(names, at))
+    for dim, axes in enumerate(leaf_spec(path, whole.shape, rules, cfg)):
+        if axes is None:
+            continue
+        idx, n = 0, 1
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx, n = idx * rules.axis_size(a) + coords[a], \
+                n * rules.axis_size(a)
+        step = whole.shape[dim] // n
+        whole = whole.narrow(dim, idx * step, step)
+    return whole
+
+
+def _d2b_reference(params, batch, cfg):
+    """Rank 0's unsharded reference: (bf16 loss, float32 loss, bf16 grad
+    norm, float32 grad norm, the bf16 gradient leaves on the host, each
+    leaf's bound: the larger of CONT_TOL max|g| and twice its distance
+    from the float32 gradient).  ``params`` go to float32 in place and
+    are freed."""
+    import torch
+    from repro_torch.launch.train import _value_and_grad
+
+    def norm(gs):
+        return float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                    for g in gs)))
+
+    loss16, _, g16 = _value_and_grad(params, batch, cfg)
+    gn16 = norm(g16)
+    g16 = [g.cpu() for g in g16]
+    params, cfg32 = to_float32_in_place(params, cfg)
+    loss32, _, g32 = _value_and_grad(params, batch, cfg32)
+    del params
+    gn32 = norm(g32)
+    bounds = []
+    for i, g in enumerate(g32):
+        h = g16[i].to(g.device).float()
+        bounds.append(max(CONT_TOL * float(h.abs().max()),
+                          2 * float((h - g).abs().max())))
+        g32[i] = None
+        del h, g
+    return float(loss16), float(loss32), gn16, gn32, g16, bounds
+
+
+def _d2b_model(rank, dev, rules, arch, layers, flags, seq, batch, smoke):
+    """One model of phase 20 (b) on this rank; returns its record (rank
+    0's with the per-leaf comparison against its unsharded run)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flatbuf import tree_paths
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import shard_params, tree_bytes
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
+        flash_dq_kernel
+    from repro_torch.launch.train import _value_and_grad, corpus_batch, \
+        mesh_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _d2a_config(arch, layers, flags, smoke)
+    if cfg.moe_num_experts:  # drop-free: a capacity of T
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    for r in range(world):  # one whole model on the card at a time
+        if r == rank:
+            params = T.init_params(cfg, seed=SEED, device=dev)
+            local = _owned(shard_params(params, rules, cfg))
+            if rank != 0:  # rank 0 keeps it for the references
+                del params
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    out = {"arch": cfg.name, "num_layers": layers, "flags": flags,
+           "seq_len": seq, "batch": batch, "remat": cfg.remat,
+           "capacity_factor": cfg.capacity_factor,
+           "init_params_seconds": time.perf_counter() - t0}
+    data = corpus_batch(SEED, 0, batch, seq, cfg.vocab_size, dev)
+    ref = None
+    if rank == 0:  # the unsharded references, while the others wait
+        t0 = time.perf_counter()
+        ref = _d2b_reference(params, data, cfg)
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["reference_seconds"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            out["reference_peak_bytes_allocated"] = \
+                torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        print(f"phase 20 (b) {arch}: the unsharded references in "
+              f"{out['reference_seconds']:.1f} s", flush=True)
+    dist.barrier()
+    # the sharded gradient, held leaf by leaf on rank 0
+    _sync()
+    t0 = time.perf_counter()
+    loss, _, grads = _value_and_grad(local, data, cfg, rules)
+    _sync()
+    out["gradient_seconds"] = time.perf_counter() - t0
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    t0 = time.perf_counter()
+    worst, ratios = (0.0, None), []
+    for i, path in enumerate(tree_paths(local)):
+        blk = grads[i].cpu().contiguous()
+        grads[i] = None
+        got = [torch.empty_like(blk) for _ in range(world)] \
+            if rank == 0 else None
+        dist.gather(blk, got, dst=0)
+        if rank == 0:
+            _, _, _, _, g16, bounds = ref
+            for r, g in enumerate(got):  # compared on the card
+                want = _block_of(g16[i], path, rules, cfg, r).to(dev)
+                err = float((g.to(dev).float() - want.float()).abs().max())
+                ratios.append(err / bounds[i] if bounds[i] else 0.0)
+                check(err <= bounds[i], f"{arch} rank {r} {path}: gradient "
+                      f"err {err} > {bounds[i]}")
+                if ratios[-1] >= worst[0]:
+                    worst = (ratios[-1], f"rank {r} {path}")
+    del grads
+    out["gradient_check_seconds"] = time.perf_counter() - t0
+    # one mesh_train_step: launches, wire, seconds, every block moved
+    matrices = [local["lm_head"]] + [leaf for seg in local["segments"]
+                                     for leaf in seg.values()
+                                     if leaf.dim() >= 3]
+    watch = [leaf.reshape(-1)[:64].clone() for leaf in matrices]
+    state = adamw_init(local)
+    kernels = (flash_attention_kernel, flash_dq_kernel, flash_dkdv_kernel)
+    for k in kernels:
+        k.launches = 0
+    compat.reset_wire_stats()
+    _sync()
+    t0 = time.perf_counter()
+    local, state, m = mesh_train_step(local, state, data, cfg,
+                                      AdamWConfig(lr=TRAIN_LR,
+                                                  warmup_steps=1),
+                                      rules=rules)
+    _sync()
+    out["step_seconds"] = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    n_k7 = _k7_prefill_launches(cfg, rules, batch, seq) \
+        if dev.type == "cuda" else 0
+    want = {"flash_attention_kernel": 2 * n_k7, "flash_dq_kernel": n_k7,
+            "flash_dkdv_kernel": n_k7}
+    check(launches == want, f"{arch} rank {rank}: launches {launches}, the "
+          f"config implies {want} (K7 twice and K8a, K8b once a K7 layer)")
+    moved = [float((leaf.reshape(-1)[:64].float() - w.float()).abs().max())
+             for leaf, w in zip(matrices, watch)]
+    check(min(moved) > 0.0, f"{arch} rank {rank}: a weight block did not "
+          f"move ({moved})")
+    check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm")),
+          f"{arch} rank {rank}: {m}")
+    whole = T.count_params(cfg)
+    out.update({
+        "loss": m["loss"], "grad_norm": m["grad_norm"], "ce": m["ce"],
+        "aux": m["aux"], "launches": launches, "k7_layers": n_k7,
+        "wire_stats": compat.wire_stats(),
+        "param_bytes": tree_bytes(local),
+        "moment_bytes": tree_bytes(state.mu) + tree_bytes(state.nu),
+        "param_bytes_whole": whole * 2, "moment_bytes_whole": whole * 8,
+        "weight_blocks_moved": len(moved), "min_block_move": min(moved)})
+    if rank == 0:
+        print(f"phase 20 (b) {arch}: init {out['init_params_seconds']:.1f}"
+              f" s, gradient {out['gradient_seconds']:.1f} s (its check "
+              f"{out['gradient_check_seconds']:.1f} s), step "
+              f"{out['step_seconds']:.1f} s, worst leaf {worst[1]} at "
+              f"{max(ratios):.3f} of its bound", flush=True)
+        loss16, loss32, gn16, gn32, _, _ = ref
+        for name, got, w16, w32 in (("loss", float(loss), loss16, loss32),
+                                    ("step loss", m["loss"], loss16, loss32),
+                                    ("grad norm", m["grad_norm"], gn16,
+                                     gn32)):
+            b = max(CONT_TOL * abs(w16), 2 * abs(w16 - w32))
+            check(abs(got - w16) <= b, f"{arch} {name} {got} vs the "
+                  f"unsharded {w16} (float32 {w32}; bound {b})")
+        out.update({"loss_unsharded_bf16": loss16,
+                    "loss_unsharded_f32": loss32,
+                    "grad_norm_unsharded_bf16": gn16,
+                    "grad_norm_unsharded_f32": gn32,
+                    "leaves": len(ref[4]),
+                    "max_err_over_bound": max(ratios),
+                    "worst_leaf": worst[1]})
+    del state, local
+    return out
+
+
+def _d2b_rank(rank, world, rdzv, out_path, args):
+    """One of phase 20 (b)'s spawned ranks on ``device`` (cuda:0 on the
+    card) over one gloo group, a (data, model) mesh of ``D2B_MESH``:
+    every model of ``models`` in turn; rank 0 saves every rank's
+    records.  A failed check exits the rank non-zero."""
+    import datetime
+    import os
+
+    # read at this process's first CUDA allocation: rank 0's float32
+    # reference at Qwen3-MoE's width left 7.3 GB of its cache reserved
+    # and unused when it ran out of memory with fixed segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+
+    dist.init_process_group(
+        "gloo", init_method=rdzv, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    device, models, mesh_shape, smoke = args
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        rules = MeshRules(compat.make_mesh(mesh_shape, ("data", "model")))
+        recs = {}
+        for arch, layers, flags, seq, batch in models:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            recs[arch] = _d2b_model(rank, dev, rules, arch, layers, flags,
+                                    seq, batch, smoke)
+            if dev.type == "cuda":
+                recs[arch]["peak_bytes_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        gathered = [None] * world
+        dist.all_gather_object(gathered, recs)
+        if rank == 0:
+            torch.save(gathered, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def d2b_phase(dev, smi, counts, models=D2B_MODELS, smoke=False):
+    """Phase 20: gradients under a mesh.  (a) one rank (NCCL on the card,
+    gloo in a CPU rehearsal) with a (1, 1) mesh runs ``D2B_STEPS``
+    ``mesh_train_step`` calls of phase 13's model and traffic, bit for
+    bit those without rules; (b) ``D2B_RANKS`` spawned ranks on one gloo
+    group, all on ``dev``, with a ``D2B_MESH`` mesh: ``models`` one at a
+    time (``_d2b_model``).  ``smoke`` runs the smoke configs at short
+    sequences (a CPU rehearsal).  Returns the ``{"d2b": ...}`` record."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.train import corpus_batch, mesh_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    reset, read = counts
+    t_phase = time.perf_counter()
+    cfg = _d2a_config(TRAIN_ARCH, TRAIN_LAYERS, {}, smoke)
+    seq = 64 if smoke else TRAIN_SEQ
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=D2B_STEPS)
+    single = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rdzv", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+            single["backend"] = dist.get_backend()
+            runs = []
+            for r in (None, rules):
+                params = T.init_params(cfg, seed=SEED, device=dev)
+                state = adamw_init(params)
+                ms = []
+                _sync()
+                reset()
+                t0 = time.perf_counter()
+                for step in range(D2B_STEPS):
+                    params, state, m = mesh_train_step(
+                        params, state, corpus_batch(
+                            SEED, step, TRAIN_BATCH, seq, cfg.vocab_size,
+                            dev), cfg, opt, rules=r)
+                    ms.append(m)
+                _sync()
+                runs.append((ms, params, read(),
+                             (time.perf_counter() - t0) / D2B_STEPS))
+                del state, params
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    (ms0, p0, _, _), (ms1, p1, launches, secs) = runs
+    same = ms0 == ms1 and all(torch.equal(a, b) for a, b in zip(
+        tree_flatten(p0)[0], tree_flatten(p1)[0]))
+    del runs, p0, p1
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(same, f"phase 20 (a): the (1, 1) mesh's steps differ from the "
+          f"unsharded ones: {ms1} vs {ms0}")
+    if dev.type == "cuda":
+        n_k7 = k7_layers(cfg, seq)
+        want = {"flash_attention_kernel": 2 * n_k7 * D2B_STEPS,
+                "flash_dq_kernel": n_k7 * D2B_STEPS,
+                "flash_dkdv_kernel": n_k7 * D2B_STEPS}
+        want.update({k: 0 for k in launches if k not in want})
+        check(launches == want, f"phase 20 (a) launches {launches}")
+    single.update({
+        "arch": cfg.name, "num_layers": cfg.num_layers, "mesh": [1, 1],
+        "batch": TRAIN_BATCH, "seq_len": seq, "steps": D2B_STEPS,
+        "bitwise_equal_to_unsharded": True,
+        "losses": [m["loss"] for m in ms1],
+        "grad_norms": [m["grad_norm"] for m in ms1],
+        "seconds_per_step": secs, "launches": launches})
+    # (b) D2B_RANKS ranks, spawned, one gloo group, every rank on dev
+    if smoke:
+        models = tuple((a, n, f, 64 if f else 32, b)
+                       for a, n, f, _, b in models)
+    t0 = time.perf_counter()
+    from repro_torch.distributed import multihost
+
+    ranks = multihost.spawn_ranks(
+        D2B_RANKS, _d2b_rank,
+        ("cuda:0" if dev.type == "cuda" else str(dev), models, D2B_MESH,
+         smoke), deadline_s=D2B_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    per_rank = ("param_bytes", "grad_bytes", "moment_bytes", "launches",
+                "wire_stats", "gradient_seconds", "step_seconds",
+                "peak_bytes_allocated", "loss", "grad_norm")
+    per_model = {}
+    for arch, *_ in models:
+        recs = [r[arch] for r in ranks]
+        for r in recs:  # about a quarter of the state on each rank
+            check(r["param_bytes"] <= 0.3 * r["param_bytes_whole"]
+                  and r["grad_bytes"] <= 0.3 * r["param_bytes_whole"]
+                  and r["moment_bytes"] <= 0.3 * r["moment_bytes_whole"],
+                  f"{arch}: {r['param_bytes']} parameter, "
+                  f"{r['grad_bytes']} gradient and {r['moment_bytes']} "
+                  f"moment bytes on a rank")
+        per_model[arch] = {**{k: v for k, v in recs[0].items()
+                              if k not in per_rank},
+                           "ranks": [{k: r[k] for k in per_rank if k in r}
+                                     for r in recs]}
+    return {"single_rank": single, "gloo_ranks": {
+        "ranks": D2B_RANKS, "mesh": list(D2B_MESH),
+        "transport": "gloo over the host (the ranks share one card): "
+                     "times are host-ring times, no fabric is measured",
+        "spawn_seconds": spawn_s, "models": per_model},
+        "phase_seconds": time.perf_counter() - t_phase, "card": smi}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3505,7 +3923,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
-    ap.add_argument("--only", type=int, choices=(18, 19), default=None,
+    ap.add_argument("--only", type=int, choices=(18, 19, 20), default=None,
                     help="after the card and the build, run only this "
                          "phase (no kernels line, no last line)")
     args = ap.parse_args()
@@ -3615,6 +4033,12 @@ def main() -> int:
         print(f"K7 vs plain: {[c[0] for c in D2A_K7_CASES]} within "
               f"tolerance, max|do| {d2a_k7_err:.3e}")
         print(json.dumps({"d2a": d2a_phase(dev, smi, counts)}))
+        return 0
+    if args.only == 20:
+        d2b_k8_err, _ = check_k8(dev, D2B_K8_CASES, ())
+        print(f"K8a/K8b vs plain: {[c[0] for c in D2B_K8_CASES]} within "
+              f"tolerance, max|d(dq, dk, dv)| {d2b_k8_err:.3e}")
+        print(json.dumps({"d2b": d2b_phase(dev, smi, counts)}))
         return 0
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
@@ -4076,6 +4500,16 @@ def main() -> int:
     d2a_out = d2a_phase(dev, smi, counts, phase10_tokens=serve_tokens)
     print(json.dumps({"d2a": d2a_out}))
 
+    # -- 20. gradients under a mesh -----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    d2b_k8_err, d2b_k8_args = check_k8(
+        dev, D2B_K8_CASES, tuple(c[0] for c in D2B_K8_CASES))
+    print(f"K8a/K8b vs plain: {[c[0] for c in D2B_K8_CASES]} within "
+          f"tolerance, max|d(dq, dk, dv)| {d2b_k8_err:.3e}")
+    d2b_out = d2b_phase(dev, smi, counts)
+    print(json.dumps({"d2b": d2b_out}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -4188,6 +4622,8 @@ def main() -> int:
     k8_shapes.update({name: k8_timing(f4_k8_args[name],
                                       MLA_DV if how == "v128" else None)
                       for name, *_, how in F4_K8_CASES})
+    k8_shapes.update({name: k8_timing(d2b_k8_args[name])
+                      for name, *_ in D2B_K8_CASES})
     entries = [
         dict(name="K1 encode_share", fn=encode_share_kernel,
              path="secure_fit",
@@ -4265,13 +4701,15 @@ def main() -> int:
         dict(name="K8a flash_dq", fn=flash_dq_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:145",
-             library_covers="K8a + K8b", err=max(k8_err, f4_k8_err),
+             library_covers="K8a + K8b",
+             err=max(k8_err, f4_k8_err, d2b_k8_err),
              **k8_main["K8a"],
              shapes={n: sh["K8a"] for n, sh in k8_shapes.items()}),
         dict(name="K8b flash_dkdv", fn=flash_dkdv_kernel, path="train",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention_bwd.py:188",
-             library_covers="K8a + K8b", err=max(k8_err, f4_k8_err),
+             library_covers="K8a + K8b",
+             err=max(k8_err, f4_k8_err, d2b_k8_err),
              **k8_main["K8b"],
              shapes={n: sh["K8b"] for n, sh in k8_shapes.items()}),
     ]
@@ -4284,6 +4722,7 @@ def main() -> int:
                "secure_train": secure_out["launches"],
                "wires": wire_launches,
                "serve_d2a_single_rank": d2a_out["single_rank"]["launches"],
+               "train_d2b_single_rank": d2b_out["single_rank"]["launches"],
                **{f"serve_{arch}": out["launches"]
                   for arch, out in (*f3a_out.items(), *f3b_out.items())},
                **{f"train_{arch}": out["launches"]
@@ -4365,6 +4804,10 @@ def main() -> int:
         "d2a_k7_launches_per_rank": {
             arch: [r["k7_launches"] for r in m["ranks"]]
             for arch, m in d2a_out["gloo_ranks"]["models"].items()},
+        "d2b_phase_seconds": d2b_out["phase_seconds"],
+        "d2b_launches_per_rank": {
+            arch: [r["launches"] for r in m["ranks"]]
+            for arch, m in d2b_out["gloo_ranks"]["models"].items()},
         "script_seconds_to_here": time.perf_counter() - t_script,
         "f4_train": {arch: {k: out[k] for k in (
             "median_seconds_per_step_after_the_first", "tokens_per_second",

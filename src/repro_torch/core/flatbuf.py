@@ -30,9 +30,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["LANES", "ROW_ALIGN", "FlatLayout", "tree_flatten",
-           "tree_unflatten", "pack_pytree", "pack_pytree_batched",
-           "unpack_pytree", "unpack_pytree_batched", "tile_slices",
-           "unpack_pytree_tile"]
+           "tree_paths", "tree_unflatten", "pack_pytree",
+           "pack_pytree_batched", "unpack_pytree", "unpack_pytree_batched",
+           "tile_slices", "unpack_pytree_tile"]
 
 LANES = 128
 ROW_ALIGN = 8
@@ -56,6 +56,18 @@ def tree_flatten(tree):
             defs.append(d)
         return leaves, (type(tree).__name__, len(tree), tuple(defs))
     return [tree], None
+
+
+def tree_paths(tree, prefix: str = ""):
+    """The '/'-joined path of each leaf, in :func:`tree_flatten`'s order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1]
 
 
 def _count(treedef) -> int:

@@ -30,22 +30,35 @@ Activations of a block lie in one of three layouts (``layout``):
 A collective over an axis of size 1 is skipped.  Without a mesh
 (``rules`` None, or its ``mesh`` None) every spec is replicated and every
 step computes plainly: the unsharded model is this program on one rank.
+
+Gradients (``compat``'s collectives are differentiable).  Each rank
+computes the gradient of the global loss with respect to its own
+blocks.  Over the model axis the program keeps Megatron's convention: a
+tensor that is the same on every rank of that axis (an activation in
+the ``dp`` layout) carries its whole gradient on every rank.  So a cut's
+backward gathers (:func:`cut`), an activation gather's keeps this rank's
+block (:func:`gather`), a partial sum's psum passes the cotangent on
+(:meth:`TP.psum_tp`), and a replicated input of a column-parallel
+product, whose gradient on each rank covers only that rank's columns,
+goes through ``compat.pvary`` (:meth:`TP.vary`).  A weight is the same
+on every rank it is not split over, but where those ranks see other data
+(the dp axes always; the model axis in the ``full`` and ``seq``
+layouts) each one's gradient is partial: its FSDP gather's backward
+reduce-scatters (:meth:`TP.weight`), and a leaf replicated there goes
+through ``pvary`` once per use (:meth:`TP.enter`), so its gradient is
+summed over those ranks.
 """
 from __future__ import annotations
+
+import torch
 
 from . import compat
 
 __all__ = ["TP", "block_layout", "cut", "gather"]
 
 
-def cut(x, dim: int, axes):
-    """This rank's block along ``dim`` of a tensor whole over ``axes``
-    (an axis name or a tuple of them; row-major over a tuple)."""
-    if not axes:
-        return x
+def _block(x, dim: int, axes):
     n = compat.axis_size(axes)
-    if n == 1:
-        return x
     if x.shape[dim] % n:
         raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not "
                          f"split over {axes} ({n} ranks)")
@@ -53,12 +66,57 @@ def cut(x, dim: int, axes):
     return x.narrow(dim, compat.axis_index(axes) * step, step)
 
 
-def gather(x, dim: int, axes):
-    """The whole tensor along ``dim`` from every rank's block (the
-    inverse of :func:`cut`; a collective)."""
+class _Cut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes):
+        ctx.mesh, ctx.args = compat.current_mesh(), (axes, dim)
+        return _block(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        with compat.use_mesh(ctx.mesh):
+            return compat.all_gather(g, *ctx.args), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes):
+        ctx.mesh, ctx.args = compat.current_mesh(), (dim, axes)
+        return compat.all_gather(x, axes, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with compat.use_mesh(ctx.mesh):
+            return _block(g, *ctx.args), None, None
+
+
+def cut(x, dim: int, axes):
+    """This rank's block along ``dim`` of a tensor whole over ``axes``
+    (an axis name or a tuple of them; row-major over a tuple).  Its
+    backward gathers every rank's block of the cotangent: the tensor is
+    one value on every rank, which holds its whole gradient."""
     if not axes or compat.axis_size(axes) == 1:
         return x
+    if compat._records(x):
+        return _Cut.apply(x, dim, axes)
+    return _block(x, dim, axes)
+
+
+def gather(x, dim: int, axes):
+    """The whole tensor along ``dim`` from every rank's block (the
+    inverse of :func:`cut`; a collective) for the ranks to use alike:
+    its backward keeps this rank's block of the cotangent."""
+    if not axes or compat.axis_size(axes) == 1:
+        return x
+    if compat._records(x):
+        return _Gather.apply(x, dim, axes)
     return compat.all_gather(x, axes, axis=dim)
+
+
+def _split(spec) -> set:
+    """The mesh axes some dimension of ``spec`` is split over."""
+    return {a for axes in spec if axes is not None
+            for a in ((axes,) if isinstance(axes, str) else axes)}
 
 
 def block_layout(cfg, rules, batch: int, seq: int, mixer: str,
@@ -92,6 +150,7 @@ class TP:
     def __init__(self, rules, cfg):
         self.rules, self.cfg = rules, cfg
         self._specs: dict = {}
+        self._varied = None  # (the last input vary() took, its pvary)
         self.meshed = rules is not None and rules.mesh is not None
         self.tp = rules.tp_axis if rules is not None else "model"
         if self.meshed:
@@ -143,14 +202,52 @@ class TP:
             return x
         return compat.psum(x, self.tp, donate=True)
 
+    def vary(self, x):
+        """``compat.pvary`` over ``model``: ``x``, the same on every rank,
+        enters products that differ by rank.  One per tensor: the column
+        products of one input (q, k and v of ``h``) share it, so autograd
+        sums their partial gradients before the one psum."""
+        if self.ntp == 1:
+            return x
+        if self._varied is None or self._varied[0] is not x:
+            self._varied = (x, compat.pvary(x, self.tp))
+        return self._varied[1]
+
     # -- weights --------------------------------------------------------------
+    def enter(self, p: dict, specs: dict, whole: bool = False) -> dict:
+        """A block's leaves (``p``, by ``specs``) ready for this rank's
+        data: each goes through ``compat.pvary`` over the axes it is not
+        split over whose ranks see other data — the dp axes, and with
+        ``whole`` (the ``full`` and ``seq`` layouts) the model axis — so
+        its gradient sums their partial ones.  The axes it is split over
+        are gathered at use (:meth:`weight`), whose backward sums them."""
+        if not self.meshed:
+            return p
+        see = [a for a in (self.dp + ((self.tp,) if whole else ()))
+               if compat.axis_size(a) > 1]
+        out = {}
+        for name, t in p.items():
+            axes = tuple(a for a in see if a not in _split(specs[name]))
+            out[name] = compat.pvary(t, axes) if axes else t
+        return out
+
     def weight(self, w, spec, whole: bool = False):
         """``w`` with every sharded dimension gathered but those split over
-        ``model`` alone (all of them with ``whole``)."""
+        ``model`` alone (all of them with ``whole``).  The gather's
+        backward reduce-scatters: each rank applies the whole weight to
+        its own data."""
         for dim, axes in enumerate(spec):
             if axes is None or (axes == self.tp and not whole):
                 continue
-            w = gather(w, dim, axes)
+            names = (axes,) if isinstance(axes, str) else tuple(axes)
+            if not whole and self.tp in names:
+                # split over (dp..., model), model last: the model axis
+                # sees the same data here, so its ranks each hold the
+                # whole gradient; gather it first, as an activation
+                w = gather(w, dim, self.tp)
+                names = names[:-1]
+            if names and compat.axis_size(names) > 1:
+                w = compat.all_gather(w, names, axis=dim)
         return w
 
     def linear(self, x, w, spec, *, split_in: bool = False,
@@ -168,7 +265,7 @@ class TP:
             if not split_in:
                 x = cut(x, -1, self.tp)
             return self.psum_tp(x @ w)
-        y = x @ w
-        if spec[1] == self.tp and gather_out:
-            y = gather(y, -1, self.tp)
-        return y
+        if spec[1] != self.tp or self.ntp == 1:
+            return x @ w
+        y = self.vary(x) @ w
+        return gather(y, -1, self.tp) if gather_out else y

@@ -32,6 +32,21 @@ operand bytes handed to each kind of collective and the bytes staged.
 Each named-axis collective is declared to the privacy gate
 (``obs/gate.py``) with its axis: a sum over a mesh axis of two or more
 ranks is Algorithm 2 on the wire.
+
+Gradients.  With autograd recording and an operand that requires a
+gradient, :func:`psum`, :func:`all_gather`, :func:`psum_scatter` and
+:func:`ppermute` run as ``torch.autograd.Function`` objects whose
+backward is JAX's transpose of the same collective under
+``shard_map``: a psum's cotangent goes to each rank as it is (the result
+is the same on every rank, and each rank holds its whole gradient), an
+all-gather's is reduce-scattered, a reduce-scatter's all-gathered, a
+permutation's sent back along the reverse pairs.  :func:`pvary` is the
+identity whose backward is a psum (``jax.lax.pvary``; Megatron's *f*):
+it marks a tensor that is the same on every rank of an axis where each
+rank goes on to compute a different part, so each rank's gradient of it
+is partial.  The backward runs the same declared functions, under the
+mesh the forward ran under, so ``wire_stats`` and the gate count it.
+``pmax`` carries no gradient.
 """
 from __future__ import annotations
 
@@ -45,8 +60,8 @@ from ..obs import gate as _gate
 
 __all__ = ["Pending", "all_gather", "axis_group", "axis_index", "axis_size",
            "current_mesh", "make_mesh", "pmax", "ppermute", "psum",
-           "psum_scatter", "reset_wire_stats", "stage_through_host",
-           "use_mesh", "wire_stats"]
+           "psum_scatter", "pvary", "reset_wire_stats",
+           "stage_through_host", "use_mesh", "wire_stats"]
 
 _MESHES: list = []  # innermost last: the meshes use_mesh entered
 _STATS: collections.Counter = collections.Counter()
@@ -237,7 +252,10 @@ def psum(t: torch.Tensor, axis_name: str, async_op: bool = False,
     """Sum over ``axis_name`` (``jax.lax.psum``): every rank gets the
     total, and ``t`` is left as it was unless ``donate`` gives it to the
     collective (a temporary the caller drops).  ``async_op=True`` returns
-    a :class:`Pending`."""
+    a :class:`Pending`.  Differentiable (the cotangent to each rank as it
+    is)."""
+    if _records(t) and not async_op:
+        return _Psum.apply(t, axis_name)
     return _all_reduce(t, axis_name, dist.ReduceOp.SUM, async_op, donate)
 
 
@@ -252,10 +270,15 @@ def psum_scatter(t: torch.Tensor, axis_name: str, scatter_dimension: int = 0,
                  async_op: bool = False):
     """Sum over ``axis_name`` and keep this rank's 1/D block of
     ``scatter_dimension`` (``jax.lax.psum_scatter(..., tiled=True)``).
+    Differentiable (the cotangents all-gathered)."""
+    if _records(t) and not async_op:
+        return _PsumScatter.apply(t, axis_name, scatter_dimension)
+    return _psum_scatter(t, axis_name, scatter_dimension, async_op)
 
-    ``reduce_scatter`` splits dim 0, so the scattered axis moves to the
-    front for the collective and back after it.
-    """
+
+def _psum_scatter(t, axis_name, scatter_dimension, async_op):
+    """``reduce_scatter`` splits dim 0, so the scattered axis moves to the
+    front for the collective and back after it."""
     group = axis_group(axis_name)
     d = dist.get_world_size(group)
     front = t.movedim(scatter_dimension, 0).contiguous()
@@ -275,7 +298,15 @@ def psum_scatter(t: torch.Tensor, axis_name: str, scatter_dimension: int = 0,
 @_gate.collective("all_gather")
 def all_gather(t: torch.Tensor, axis_name, axis: int = 0):
     """Concatenate every rank's ``t`` along ``axis`` in axis order
-    (``jax.lax.all_gather(..., tiled=True)``)."""
+    (``jax.lax.all_gather(..., tiled=True)``).  Differentiable (the
+    cotangents reduce-scattered: each rank's gradient of the whole is
+    partial, as for a weight every rank applies to its own data)."""
+    if _records(t):
+        return _AllGather.apply(t, axis_name, axis)
+    return _all_gather_raw(t, axis_name, axis)
+
+
+def _all_gather_raw(t, axis_name, axis):
     group = axis_group(axis_name)
     d = dist.get_world_size(group)
     front = t.movedim(axis, 0).contiguous()
@@ -292,7 +323,14 @@ def ppermute(t: torch.Tensor, axis_name, perm):
     """Send ``t`` along ``perm``, pairs (source, destination) of
     coordinates on ``axis_name`` (``jax.lax.ppermute``): this rank gets
     the tensor its source sent, or zeros if no pair names it as a
-    destination."""
+    destination.  Differentiable (the cotangents sent back along the
+    reverse pairs)."""
+    if _records(t):
+        return _Ppermute.apply(t, axis_name, tuple(map(tuple, perm)))
+    return _ppermute_raw(t, axis_name, perm)
+
+
+def _ppermute_raw(t, axis_name, perm):
     group = axis_group(axis_name)
     ranks = dist.get_process_group_ranks(group)
     me = axis_index(axis_name)
@@ -315,3 +353,82 @@ def ppermute(t: torch.Tensor, axis_name, perm):
     if sources:
         out.copy_(recv if home is None else stage_through_host(recv, home))
     return out
+
+
+def pvary(t: torch.Tensor, axis_name):
+    """``t`` as it is, whose backward sums the cotangent over
+    ``axis_name`` (``jax.lax.pvary``): for a tensor the same on every rank
+    of that axis that each rank then uses differently (a column-parallel
+    product's input, a replicated weight applied to each rank's own rows),
+    so each rank's gradient of it is a partial sum.  Without autograd
+    recording, or over an axis of one rank, ``t`` itself."""
+    if not _records(t) or axis_size(axis_name) == 1:
+        return t
+    return _Pvary.apply(t, axis_name)
+
+
+# -- autograd ----------------------------------------------------------------
+
+def _records(t: torch.Tensor) -> bool:
+    """Autograd records an op on ``t`` (grad mode on and ``t`` requires a
+    gradient): the collective runs as its ``autograd.Function``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis_name):
+        return _all_reduce(t, axis_name, dist.ReduceOp.SUM, False, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis_name):
+        ctx.mesh, ctx.axis_name = current_mesh(), axis_name
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):  # autograd runs it outside the caller's
+            return psum(g, ctx.axis_name), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis_name, axis):
+        ctx.mesh, ctx.args = current_mesh(), (axis_name, axis)
+        return _all_gather_raw(t, axis_name, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return psum_scatter(g, *ctx.args), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis_name, dim):
+        ctx.mesh, ctx.args = current_mesh(), (axis_name, dim)
+        return _psum_scatter(t, axis_name, dim, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return all_gather(g, *ctx.args), None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis_name, perm):
+        ctx.mesh, ctx.axis_name = current_mesh(), axis_name
+        ctx.back = [(d, s) for s, d in perm]
+        return _ppermute_raw(t, axis_name, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return ppermute(g, ctx.axis_name, ctx.back), None, None

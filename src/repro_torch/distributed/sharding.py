@@ -30,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = ["MeshRules", "POD_AXIS", "SHARE_AXIS", "param_pspec",
-           "param_shardings", "shard_params", "tree_bytes"]
+           "param_shardings", "param_specs", "shard_params", "split_axes",
+           "train_state_specs", "tree_bytes"]
 
 # The institution axis: one paper party per pod.  secure_psum's share
 # reductions (and the sharded reveal's reduce-scatter) run over this axis.
@@ -285,6 +286,49 @@ def param_shardings(params, rules, cfg):
     leaf's ``DTensor`` placements (:meth:`MeshRules.sharding`)."""
     return _map(params, lambda path, leaf: rules.sharding(
         *leaf_spec(path, leaf.shape, rules, cfg)))
+
+
+def param_specs(cfg, rules) -> list:
+    """The spec of every leaf of ``cfg``'s parameter tree on ``rules``, in
+    ``core.flatbuf.tree_flatten``'s order (dict keys sorted)."""
+    from ..core.flatbuf import tree_flatten, tree_paths
+    from ..models.transformer import abstract_params
+
+    tree = abstract_params(cfg)
+    return [leaf_spec(path, leaf.shape, rules, cfg) for path, leaf in
+            zip(tree_paths(tree), tree_flatten(tree)[0], strict=True)]
+
+
+def split_axes(cfg, rules) -> list:
+    """For each leaf of ``cfg``'s parameter tree, in ``param_specs``'
+    order, the axes of more than one rank its block is split across, in
+    ``rules.axis_names`` order: ``adamw_update``'s ``split_axes``."""
+    out = []
+    for spec in param_specs(cfg, rules):
+        split = {a for axes in spec if axes is not None
+                 for a in ((axes,) if isinstance(axes, str) else axes)}
+        out.append(tuple(a for a in rules.axis_names
+                         if a in split and rules.axis_size(a) > 1))
+    return out
+
+
+def train_state_specs(cfg, rules):
+    """(abstract params, their placements, abstract AdamW state, its
+    placements) on the ``meta`` device: the JAX package's
+    ``launch/specs.train_state_specs``.  The moments are laid out like
+    the parameters (``adamw_init`` of a rank's blocks makes its blocks of
+    them) and the step is replicated; every placement is None without a
+    mesh."""
+    from ..models.transformer import abstract_params
+    from ..optim.adamw import AdamWState, adamw_init
+
+    params_abs = abstract_params(cfg)
+    p_sh = param_shardings(params_abs, rules, cfg)
+    opt_abs = adamw_init(params_abs)
+    opt_sh = AdamWState(step=rules.sharding(),
+                        mu=param_shardings(opt_abs.mu, rules, cfg),
+                        nu=param_shardings(opt_abs.nu, rules, cfg))
+    return params_abs, p_sh, opt_abs, opt_sh
 
 
 def shard_params(params, rules, cfg):

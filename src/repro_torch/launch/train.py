@@ -19,6 +19,11 @@ Two pipelines behind one CLI, selected by ``--arch``:
   grad clipping, checkpoint/restart (atomic, retain-k), failure
   injection.  One step is :func:`train_step`.
 
+Under a mesh, one step of the sharded program is :func:`mesh_train_step`
+(the JAX package's ``launch/dryrun.py`` ``train_step``): every rank holds
+its blocks of the parameters and moments and computes the gradient of
+the global loss with respect to them.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg_paper \\
       --study parkinsons.total --scale 0.05
@@ -45,8 +50,8 @@ from ..core.flatbuf import (
     tree_unflatten,
 )
 
-__all__ = ["main", "mean_gradients", "parse_args", "run_lm", "run_logreg",
-           "train_step", "wire_bytes"]
+__all__ = ["main", "mean_gradients", "mesh_train_step", "parse_args",
+           "run_lm", "run_logreg", "train_step", "wire_bytes"]
 
 # the synthetic LM stream cycles over a fixed corpus of this many batches
 CORPUS_BATCHES = 4
@@ -246,19 +251,29 @@ def run_logreg(args) -> dict:
 
 
 # ------------------------------------------------------------------- LM path
-def _loss_and_grads(params, batch, cfg):
-    """(loss as a float, gradient leaves in ``tree_flatten`` order) of one
-    institution's batch.  The parameters are differentiated through
-    detached views, so no copy of them is made.  A leaf the loss does not
-    read (the token table under the ``embeddings`` frontend) gets a zero
-    gradient, as ``jax.grad`` gives it."""
+def _value_and_grad(params, batch, cfg, rules=None):
+    """(loss, its metrics {"ce", "aux"}, gradient leaves in
+    ``tree_flatten`` order) of ``loss_fn`` on ``batch``, detached.  The
+    parameters are differentiated through detached views, so no copy of
+    them is made.  A leaf the loss does not read (the token table under
+    the ``embeddings`` frontend) gets a zero gradient, as ``jax.grad``
+    gives it.  Under ``rules``, this rank's blocks and their gradients."""
     from ..models import transformer as T
 
     leaves, treedef = tree_flatten(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
-    loss, _ = T.loss_fn(tree_unflatten(treedef, req), batch, cfg)
+    loss, metrics = T.loss_fn(tree_unflatten(treedef, req), batch, cfg,
+                              rules=rules)
     grads = torch.autograd.grad(loss, req, materialize_grads=True)
-    return float(loss.detach()), list(grads)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            list(grads))
+
+
+def _loss_and_grads(params, batch, cfg):
+    """(loss as a float, gradient leaves in ``tree_flatten`` order) of one
+    institution's batch (:func:`_value_and_grad`)."""
+    loss, _, grads = _value_and_grad(params, batch, cfg)
+    return float(loss), grads
 
 
 def wire_bytes(agg, num_elements: int, num_parts: int) -> int:
@@ -336,6 +351,61 @@ def train_step(params, opt_state, inst_batches, cfg, opt_cfg, agg=None,
     return params, opt_state, {"loss": loss,
                                "grad_norm": float(om["grad_norm"]),
                                "lr": float(om["lr"]), "bytes": nbytes}
+
+
+def mesh_train_step(params, opt_state, batch, cfg, opt_cfg, *, rules,
+                    n_micro=None):
+    """One step of the sharded program (the JAX package's
+    ``launch/dryrun.py`` ``train_step`` under ``MeshRules(mesh)``):
+    ``params`` and ``opt_state`` are this rank's blocks
+    (``sharding.shard_params``, ``adamw_init`` of them), ``batch`` the
+    whole global batch on every rank.  With ``n_micro`` = max(the
+    argument, ``cfg.train_microbatch``) above 1 the batch splits into
+    that many microbatches along its rows, whose gradients are summed in
+    float32 and divided by ``n_micro``; the loss is their mean and the
+    other metrics the last one's.  Then the sharded ``adamw_update``,
+    which updates ``params`` and the moments in place.  Returns (params,
+    opt_state, metrics: loss, ce, aux, grad_norm, lr as floats).  With
+    ``rules`` None, or a mesh of one rank, it is the unsharded step."""
+    from ..distributed import compat
+    from ..distributed.sharding import split_axes
+    from ..optim.adamw import adamw_update
+
+    n = max(n_micro or 1, cfg.train_microbatch)
+    leaves, treedef = tree_flatten(params)
+    if n <= 1:
+        loss, metrics, grads = _value_and_grad(params, batch, cfg, rules)
+    else:
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"{n} microbatches")
+        per = rows // n
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(n):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            lm, metrics, gm = _value_and_grad(params, mb, cfg, rules)
+            for a, g in zip(grads, gm):
+                a.add_(g.to(torch.float32))
+            loss = loss + lm
+            del gm
+        for a in grads:
+            a.div_(n)
+        loss = loss / n
+    grads = tree_unflatten(treedef, grads)
+    if rules is None or rules.mesh is None:
+        params, opt_state, om = adamw_update(grads, opt_state, params,
+                                             opt_cfg)
+    else:
+        with compat.use_mesh(rules.mesh):
+            params, opt_state, om = adamw_update(
+                grads, opt_state, params, opt_cfg,
+                split_axes=split_axes(cfg, rules))
+    return params, opt_state, {**{k: float(v) for k, v in metrics.items()},
+                               "grad_norm": float(om["grad_norm"]),
+                               "lr": float(om["lr"]), "loss": float(loss)}
 
 
 def corpus_batch(seed: int, step: int, batch: int, seq_len: int,

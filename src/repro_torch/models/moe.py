@@ -32,6 +32,14 @@ divide tp they are replicated, and the port adds them once, after the
 sum: JAX adds them inside its ``psum`` and so counts them tp times (no
 shipped configuration reaches this; ROADMAP queue 3).
 
+Gradients under a mesh (``_tp``'s convention): the expert-parallel
+leaves enter here over the dp axes (each rank routes its own tokens); the
+tokens and the router go through ``compat.pvary`` over the model axis
+before they reach the routing, this rank's experts and its shared
+columns (each rank's gates reach only its experts); and the sum's
+cotangent passes to every rank.  The aux loss's gradient is then, as in JAX, the mean over the
+model axis of the ranks' equal terms; the drop fraction carries none.
+
 The combine gathers a (T, k, d) tensor of expert rows before the weighted
 sum, which XLA fuses away and eager PyTorch does not (537 MB at
 Qwen3-MoE's prefill of 8,192 tokens in bf16; ``PERF.md``).
@@ -41,7 +49,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn", "router_aux_loss"]
+__all__ = ["LEAVES", "moe_ffn", "router_aux_loss"]
+
+LEAVES = ("router", "experts_", "shared_")  # a MoE FFN's leaf names
 
 
 def _route(x, router_w, top_k: int):
@@ -160,22 +170,28 @@ def moe_ffn(x, params, cfg, *, rules=None):
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    gates, experts, probs = _route(
-        xt, ctx.weight(params["router"], ctx.spec("router", (d, E))), k)
+    specs = ctx.specs(("full", "moe"))
+    params = ctx.enter({n: t for n, t in params.items()
+                        if n.startswith(LEAVES)}, specs)
+    # the tokens and the router, the same on every rank of the model axis,
+    # into this rank's gates (which reach only its experts), experts and
+    # shared columns
+    xe = ctx.vary(xt)
+    router = ctx.weight(params["router"], specs["router"])
+    gates, experts, probs = _route(xe, ctx.vary(router), k)
     aux = router_aux_loss(probs, experts, E)
     capacity = max(1, int(T * k * cfg.capacity_factor / E))
     w1 = params["experts_w1"]  # (E / tp, d, h): split over the model axis
     y, dropped = _local_expert_pass(
-        xt, gates, experts, w1, params["experts_w3"], params["experts_w2"],
+        xe, gates, experts, w1, params["experts_w3"], params["experts_w2"],
         capacity, ctx.tp_rank * w1.shape[0], E)
     shared_after = None
     if "shared_w1" in params:
         hs = cfg.moe_num_shared * cfg.moe_d_ff
-        ws = [ctx.weight(params[n], ctx.spec(n, shape)) for n, shape in (
-            ("shared_w1", (d, hs)), ("shared_w3", (d, hs)),
-            ("shared_w2", (hs, d)))]
+        ws = [ctx.weight(params[n], specs[n])
+              for n in ("shared_w1", "shared_w3", "shared_w2")]
         if hs % ctx.ntp == 0:  # column/row-parallel: a partial sum
-            y = y + _shared(xt, *ws)
+            y = y + _shared(xe, *ws)
         else:  # replicated: added once, after the sum
             shared_after = _shared(xt, *ws)
     # one all-reduce merges the experts' outputs and the shared partials

@@ -34,10 +34,10 @@ Entry points:
 Each takes ``tokens`` (its first argument after the config, or the
 cache) or, for the ``embeddings`` frontend, ``embeds=``.
 
-``forward``, ``prefill``, ``decode_step`` and ``init_cache`` take the JAX
-package's mesh rules as the keyword ``rules=`` (a documented deviation:
-JAX's ``rules`` is positional, after the config, and the port's
-positional signatures already differ from JAX's).
+``forward``, ``loss_fn``, ``prefill``, ``decode_step`` and ``init_cache``
+take the JAX package's mesh rules as the keyword ``rules=`` (a documented
+deviation: JAX's ``rules`` is positional, after the config, and the
+port's positional signatures already differ from JAX's).
 
 One program serves both.  What the JAX package leaves to XLA's
 partitioner (``rules.constrain`` and the specs of ``param_pspec``), each
@@ -79,10 +79,21 @@ batch:
   batch over every axis with their weights gathered whole
   (``_tp.block_layout``).
 
-The aux loss a rank returns is its data shard's (JAX's per-device value).
-No gradients flow through the collectives yet: ``forward`` under a mesh
-of more than one rank with gradients enabled raises (slice D2b), and
-``loss_fn`` takes no ``rules``.
+The aux loss ``forward`` returns on a rank is its data shard's (JAX's
+per-device value).
+
+Gradients flow through the collectives (``compat``'s autograd and
+``_tp``'s convention): autograd of ``loss_fn(..., rules=)`` on a rank
+gives the gradient of the global loss with respect to that rank's
+blocks, the same block of JAX's ``jax.grad`` under ``MeshRules(mesh)``.
+The vocab-parallel log-softmax takes its max and log-sum-exp over the
+model axis and each label's logit from the rank that owns its column;
+the masked mean sums its numerator and count over the dp axes.  The MoE
+aux term follows JAX's ``shard_map`` (``moe_ffn``'s aux ``out_specs``
+``P()``): its gradient is the mean over the dp shards of each shard's
+aux gradient, and its value, as JAX reports it, dp shard 0's.  Under
+remat a block's backward re-issues its collectives; every rank remats
+the same blocks in the same order (early stop is off under a mesh).
 """
 from __future__ import annotations
 
@@ -102,7 +113,7 @@ from .config import ModelConfig, segments
 from .kvcache import (LocalCaches, fill_cache, init_segment_cache,
                       ring_positions, write_token)
 from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
-from .moe import moe_ffn
+from .moe import LEAVES as MOE_LEAVES, moe_ffn
 from .ssm import rglru_block, rwkv6_channelmix, rwkv6_mix
 
 __all__ = ["init_params", "abstract_params", "count_params", "forward",
@@ -345,11 +356,10 @@ def _gqa_mixer(p, h, cfg, ctx, specs, layout, window, mode, cache, length,
     hq = H // ctx.ntp if q_sh else H
     hk = KVH // ctx.ntp if kv_sh else KVH
     q0 = ctx.tp_rank * hq if q_sh else 0
-    k0 = ctx.tp_rank * hk if kv_sh else 0
     if "bq" in p:  # replicated biases: this rank's columns of them
-        q = q + p["bq"][q0 * Dh:(q0 + hq) * Dh]
-        k = k + p["bk"][k0 * Dh:(k0 + hk) * Dh]
-        v = v + p["bv"][k0 * Dh:(k0 + hk) * Dh]
+        q = q + (cut(p["bq"], 0, ctx.tp) if q_sh else p["bq"])
+        k = k + (cut(p["bk"], 0, ctx.tp) if kv_sh else p["bk"])
+        v = v + (cut(p["bv"], 0, ctx.tp) if kv_sh else p["bv"])
     q = q.reshape(B, S, hq, Dh)
     k = k.reshape(B, S, hk, Dh)
     v = v.reshape(B, S, hk, Dh)
@@ -380,7 +390,8 @@ def _gqa_mixer(p, h, cfg, ctx, specs, layout, window, mode, cache, length,
     if layout == "seq":
         out = swa_attend_cp(q, k, v, window=window, rules=ctx.rules)
     elif q_sh and not kv_sh:  # wq column-, wk/wv row-parallel
-        ka, va = _kv_for_heads(k, v, q0, hq, H // KVH)
+        # K/V are whole on every rank and each takes its heads' part
+        ka, va = _kv_for_heads(ctx.vary(k), ctx.vary(v), q0, hq, H // KVH)
         out = attend(q, ka, va, window=window)
     else:
         out = attend(q, k, v, window=window)
@@ -475,9 +486,12 @@ def _mla_mixer(p, h, cfg, ctx, specs, layout, mode, cache, length,
         return ctx.linear(out.reshape(B, S, H * vdim), p["wo"], specs["wo"],
                           gather_out=True)
     hl = H // ctx.ntp if up_sh else H
-    h0 = ctx.tp_rank * hl if up_sh else 0
-    k_all, v_all = expand(c, k_rope, hl)
-    out = attend(q[:, :, h0:h0 + hl], k_all, v_all)
+    if up_sh:  # this rank's heads of the whole q, c and rope key
+        q = cut(q, 2, ctx.tp)
+        k_all, v_all = expand(ctx.vary(c), ctx.vary(k_rope), hl)
+    else:
+        k_all, v_all = expand(c, k_rope, hl)
+    out = attend(q, k_all, v_all)
     if mode == "prefill":  # the rest of the fresh cache stays zero
         T = _num_slots(cache["ckv"], cfg, "mla", cache_len)
         fill_cache(cache["ckv"], ctx.relayout(c, layout, "dp"), 0, T,
@@ -496,6 +510,9 @@ def _apply_block(kind, p, x, cfg, ctx, specs, layout, mode, cache, length,
     mixer, ffn = kind
     whole = layout != "dp"
     decode = mode == "decode"
+    # the MoE leaves enter in moe_ffn, which runs in the dp layout
+    p = {**p, **ctx.enter({n: t for n, t in p.items()
+                           if not n.startswith(MOE_LEAVES)}, specs, whole)}
 
     def mm(t, name):
         return ctx.linear(t, p[name], specs[name], whole=whole)
@@ -512,13 +529,11 @@ def _apply_block(kind, p, x, cfg, ctx, specs, layout, mode, cache, length,
             cache["state"].copy_(st)
             cache["prev_mix"].copy_(last)
     elif mixer == "rglru":
-        W = cfg.lru_width
         pr, mm_r = p, mm
         if not whole and ctx.ntp > 1 and specs["lru_in"][1] == ctx.tp:
             # this rank's channels: its slice of the replicated conv and
             # per-channel leaves; lru_out row-parallel on them
-            wl = W // ctx.ntp
-            pr = {n: (t.narrow(-1, ctx.tp_rank * wl, wl)
+            pr = {n: (cut(t, -1, ctx.tp)
                       if n.startswith("lru_") and n not in (
                           "lru_in", "lru_gate", "lru_out") else t)
                   for n, t in p.items()}
@@ -551,13 +566,23 @@ def _apply_block(kind, p, x, cfg, ctx, specs, layout, mode, cache, length,
     else:
         w = {n: ctx.weight(p[n], specs[n], whole)
              for n in ("w1", "w3", "w2") if n in p}
+        split = not whole and specs["w2"][0] == ctx.tp  # column, then row
+        if split:
+            h2 = ctx.vary(h2)
         if cfg.mlp_type == "swiglu":
             f = swiglu(h2, w["w1"], w["w3"], w["w2"])
         else:
             f = gelu_mlp(h2, w["w1"], w["w2"])
-        if not whole and specs["w2"][0] == ctx.tp:  # a partial sum
+        if split:  # a partial sum
             f = ctx.psum_tp(f)
     return x + f, aux
+
+
+def _remat_block(rules, *args):
+    """``_apply_block`` under ``rules``' mesh: the backward recomputes it
+    outside the caller's ``use_mesh``."""
+    with _on_mesh(rules):
+        return _apply_block(*args)
 
 
 def _run_segments(params, x, cfg, ctx, mode, caches, length, batch: int,
@@ -568,8 +593,9 @@ def _run_segments(params, x, cfg, ctx, mode, caches, length, batch: int,
     them).  A segment's blocks run in the layout ``_tp.block_layout``
     gives them.  In ``train`` mode with ``cfg.remat`` every block runs
     under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
-    per scanned block): its activations are recomputed in the
-    backward."""
+    per scanned block): its activations are recomputed in the backward,
+    and under a mesh its collectives re-issued, the whole block on every
+    rank (no early stop)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     cache_len = getattr(caches, "cache_len", None)
     layout = "dp"
@@ -587,8 +613,10 @@ def _run_segments(params, x, cfg, ctx, mode, caches, length, batch: int,
             args = (kind, p_l, x, cfg, ctx, specs, lay, mode, c_l, length,
                     cache_len)
             if remat:
-                x, aux = torch.utils.checkpoint.checkpoint(
-                    _apply_block, *args, use_reentrant=False)
+                with torch.utils.checkpoint.set_checkpoint_early_stop(
+                        not _sharded(ctx.rules)):
+                    x, aux = torch.utils.checkpoint.checkpoint(
+                        _remat_block, ctx.rules, *args, use_reentrant=False)
             else:
                 x, aux = _apply_block(*args)
             aux_total = aux_total + aux
@@ -604,13 +632,11 @@ def _sharded(rules) -> bool:
 @contextlib.contextmanager
 def _on_mesh(rules):
     """Run the block under ``rules``' mesh, if it has one (``compat``'s
-    named axes resolve against it); under more than one rank without
-    autograd (the collectives carry none)."""
+    named axes resolve against it)."""
     if rules is None or rules.mesh is None:
         yield
         return
-    with compat.use_mesh(rules.mesh), (
-            torch.no_grad() if _sharded(rules) else contextlib.nullcontext()):
+    with compat.use_mesh(rules.mesh):
         yield
 
 
@@ -628,7 +654,8 @@ def _embed_in(params, cfg, ctx, tokens=None, embeds=None):
         raise ValueError(f"{cfg.name} takes tokens")
     t = cut(tokens, 0, ctx.dp)
     spec = ctx.spec("embed", (cfg.vocab_size, cfg.d_model))
-    table = ctx.weight(params["embed"], spec)
+    table = ctx.weight(ctx.enter({"embed": params["embed"]},
+                                 {"embed": spec})["embed"], spec)
     if spec[0] != ctx.tp or ctx.ntp == 1:
         return table[t]
     rows = table.shape[0]  # vocab-parallel: this rank's rows
@@ -642,9 +669,13 @@ def _embed_in(params, cfg, ctx, tokens=None, embeds=None):
 def _head(params, cfg, ctx, x):
     """Logits of this rank: its rows, and its vocabulary columns when V
     divides tp (``lm_head`` column-parallel)."""
-    spec = ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))
-    return rms_norm(x, params["final_norm"]) @ ctx.weight(params["lm_head"],
-                                                          spec)
+    specs = {"final_norm": (None,),
+             "lm_head": ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))}
+    p = ctx.enter({n: params[n] for n in specs}, specs)
+    h = rms_norm(x, p["final_norm"])
+    if specs["lm_head"][1] == ctx.tp:
+        h = ctx.vary(h)
+    return h @ ctx.weight(p["lm_head"], specs["lm_head"])
 
 
 def _batch_of(cfg, tokens, embeds) -> int:
@@ -699,11 +730,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     ``tokens`` (B, S) or ``embeds`` (B, S, d), the aux loss: the MoE
     balance terms summed over blocks, a float32 zero without MoE).  Under
     a mesh of more than one rank, this rank's (B/dp, S, V/tp) block and
-    its data shard's aux loss, with gradients disabled."""
-    if _sharded(rules) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "forward under a mesh computes no gradients (slice D2b): "
-            "run it under torch.no_grad()")
+    its data shard's aux loss."""
     with _on_mesh(rules):
         ctx = TP(rules, cfg)
         x = _embed_in(params, cfg, ctx, tokens, embeds)
@@ -712,20 +739,56 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         return _head(params, cfg, ctx, x), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01):
+def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01, *,
+            rules=None):
     """(ce + aux_coef * aux, {"ce", "aux"}): next-token cross-entropy in
     float32 over the positions whose label is >= 0, as the JAX package's
     ``loss_fn``.  ``batch``: {"tokens" (B, S) or "embeds" (B, S, d),
-    "labels" (B, S)}."""
+    "labels" (B, S)}, the whole batch on every rank under a mesh, where
+    ``params`` are this rank's blocks and the loss is the global one (see
+    the module's docstring for the aux term)."""
     logits, aux = forward(params, cfg, batch.get("tokens"),
-                          embeds=batch.get("embeds"))
-    labels = batch["labels"]
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    # a masked label (< 0) gathers column 0; the mask drops it
-    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+                          embeds=batch.get("embeds"), rules=rules)
+    with _on_mesh(rules):
+        ctx = TP(rules, cfg)
+        labels = cut(batch["labels"], 0, ctx.dp)
+        lf = logits.to(torch.float32)
+        if ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))[1] == ctx.tp \
+                and ctx.ntp > 1:
+            ll = _vocab_parallel_ll(lf, labels, ctx)
+        else:
+            logp = torch.log_softmax(lf, dim=-1)
+            # a masked label (< 0) gathers column 0; the mask drops it
+            ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None]
+                              .long())[..., 0]
+        mask = (labels >= 0).to(torch.float32)
+        num, cnt = (ll * mask).sum(), mask.sum()
+        if ctx.ndp > 1:  # the global batch's masked mean
+            num = compat.psum(num, ctx.dp)
+            cnt = compat.psum(cnt, ctx.dp)
+        if ctx.ndp > 1 and cfg.moe_num_experts:
+            # the gradient of the dp shards' mean aux, the value shard 0's
+            mean = compat.psum(aux, ctx.dp) / ctx.ndp
+            first = compat.psum(aux.detach() if compat.axis_index(ctx.dp)
+                                == 0 else torch.zeros_like(aux), ctx.dp)
+            aux = mean + (first - mean).detach()
+        ce = -num / torch.clamp(cnt, min=1.0)
+        return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def _vocab_parallel_ll(lf, labels, ctx):
+    """log p(label) from this rank's (B, S, V/tp) float32 logit columns:
+    the max and the log-sum-exp over the model axis, the label's logit
+    from the rank that owns its column (a masked label, < 0, is owned by
+    none)."""
+    v_loc = lf.shape[-1]
+    m = compat.pmax(lf.detach().amax(dim=-1, keepdim=True), ctx.tp)
+    own = labels.long() - ctx.tp_rank * v_loc
+    mine = (own >= 0) & (own < v_loc)
+    picked = torch.gather(lf, -1, own.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tot = compat.psum(torch.stack([torch.exp(lf - m).sum(dim=-1),
+                                   picked * mine]), ctx.tp)
+    return tot[1] - torch.log(tot[0]) - m[..., 0]
 
 
 def _init_cache(cfg, ctx, batch: int, cache_len: int, device):

@@ -17,6 +17,15 @@ is updated a slice of its flat view at a time, so the float32
 temporaries of one pass stay near 1 GB (a whole Qwen3-MoE expert leaf,
 805,306,368 elements, would take ~10 GB of them); the update is
 elementwise, so the numbers do not change.
+
+Under a mesh the trees hold this rank's blocks
+(``sharding.shard_params``), and the moments are laid out alike
+(:func:`adamw_init` on the blocks; ``sharding.train_state_specs``).  The
+update stays elementwise on the blocks; only the global grad norm reaches
+across ranks: ``split_axes`` (``sharding.split_axes``) names for each
+leaf the mesh axes its block is split across, its squares are summed
+over those axes, and a leaf whole over an axis counts once.  Leaves split
+over the same axes share one psum.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.flatbuf import tree_flatten, tree_unflatten
+from ..distributed import compat
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update"]
 
@@ -83,16 +93,34 @@ def _pieces(p, g, m, v):
         yield tuple(t[i:i + UPDATE_CHUNK] for t in flat)
 
 
+def _global_norm(flat_g, split_axes):
+    """The grad norm of the whole tree from this rank's blocks: per set
+    of axes, the sum of squares of the leaves split across exactly those
+    axes, psum'd over them on the current mesh (``compat.use_mesh``)."""
+    sums: dict = {}
+    for g, axes in zip(flat_g, split_axes, strict=True):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        sums[axes] = sums[axes] + sq if axes in sums else sq
+    total = 0.0
+    for axes in sorted(sums):  # the same collectives on every rank
+        total = total + (compat.psum(sums[axes], axes) if axes
+                         else sums[axes])
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig, *,
+                 split_axes=None):
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}):
-    ``params`` and the moments are updated in place."""
+    ``params`` and the moments are updated in place.  ``split_axes``, a
+    tuple of mesh axis names for each leaf in ``tree_flatten`` order, is
+    given when the trees hold a rank's blocks (every leaf whole without
+    it); the grad norm then runs under that mesh's ``compat.use_mesh``."""
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_flatten(grads)[0]
     flat_m = tree_flatten(state.mu)[0]
     flat_v = tree_flatten(state.nu)[0]
-    gnorm = torch.sqrt(sum(
-        torch.sum(torch.square(g.to(torch.float32))) for g in flat_g))
+    gnorm = _global_norm(flat_g, split_axes or [()] * len(flat_g))
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.grad_clip else 1.0)

@@ -1444,3 +1444,145 @@ def test_sharded_serving_on_the_card_matches_unsharded(cuda):
              ("deepseek_v2_lite", {"mla_absorb": True}, 32))
     errs = spawn_ranks(4, _sharded_rank, cases, deadline_s=300)
     assert all(e <= 1e-5 for e in errs.values()), errs
+
+
+# -- gradients under a mesh (loss_fn(rules=), mesh_train_step) ----------------
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 2048, 10, 2, 128),  # Qwen2.5-32B's 40/8 at tp 4
+    (1, 2048, 16, 1, 128),  # Qwen3-MoE's 64/4 at tp 4
+    (1, 2048, 4, 1, 256),   # RecurrentGemma's 16/1 at tp 4 (KV whole)
+])
+def test_k8_tp4_local_heads(cuda, B, S, H, KVH, D):
+    """K8a/K8b at the heads one rank's backward runs under a (1, 4) mesh,
+    bf16, against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(H * D + 1)
+    q, k, v, do = (torch.randn((B, S, n, D), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for n in (H, KVH, KVH, H))
+    with torch.no_grad():
+        o, m, l = flash_attention_kernel(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, m, 1.0 / torch.clamp(l, min=1e-30), delta)
+    got = (flash_dq_kernel(*args), *flash_dkdv_kernel(*args))
+    want = (flash_dq_plain(*args), *flash_dkdv_plain(*args))
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= 5e-3 + 1e-2 * w.float().abs()).all()), \
+            float(err.max())
+
+
+def test_nccl_train_mesh_of_one_is_unsharded(cuda, tmp_path):
+    """One NCCL rank with a (1, 1) mesh: three ``mesh_train_step`` calls
+    through ``rules=`` (every collective skipped at size 1) give the
+    metrics and parameters of the same calls without rules bit for bit,
+    at a small width in bf16 with remat."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.train import corpus_batch, mesh_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+        cfg = dataclasses.replace(smoke_config("qwen2_5_32b"), d_model=256,
+                                  num_heads=8, num_kv_heads=2, head_dim=32,
+                                  dtype_str="bfloat16", remat=True)
+        outs = []
+        for r in (None, rules):
+            params = T.init_params(cfg, seed=0, device=cuda)
+            state = adamw_init(params)
+            ms = []
+            for step in range(3):
+                params, state, m = mesh_train_step(
+                    params, state, corpus_batch(0, step, 4, 64,
+                                                cfg.vocab_size, cuda),
+                    cfg, AdamWConfig(lr=1e-3), rules=r)
+                ms.append(m)
+            outs.append((ms, tree_flatten(params)[0]))
+        (ma, pa), (mb, pb) = outs
+        assert ma == mb
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    finally:
+        dist.destroy_process_group()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _train_rank(rank, world, rdzv, out_path, args):
+    """A rank of a (1, ntp) mesh on ``device`` over gloo: ``loss_fn``'s
+    gradient of each case on its blocks there, against the unsharded
+    gradient on the CPU cut to its blocks (the largest error of a leaf
+    over its max|g|)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core.flatbuf import tree_flatten, tree_unflatten
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules, shard_params
+    from repro_torch.launch.train import _value_and_grad
+
+    dist.init_process_group("gloo", init_method=rdzv, rank=rank,
+                            world_size=world)
+    device, ntp, cases = args
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    errs = {}
+    try:
+        rules = MeshRules(compat.make_mesh((1, ntp), ("data", "model")))
+        for arch, flags, S in cases:
+            cfg = dataclasses.replace(smoke_config(arch), dtype_str="float32",
+                                      remat=True, **flags)
+            if cfg.moe_num_experts:  # drop-free
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=float(cfg.moe_num_experts))
+            params = T.init_params(cfg, seed=0, device="cpu")
+            g = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (4, S + 1), generator=g)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            _, _, got = _value_and_grad(
+                _to(shard_params(params, rules, cfg), dev),
+                _to(batch, dev), cfg, rules)
+            _, _, whole = _value_and_grad(params, batch, cfg)
+            want = tree_flatten(shard_params(tree_unflatten(
+                tree_flatten(params)[1], whole), rules, cfg))[0]
+            errs[arch] = max(float((a.cpu() - b).abs().max())
+                             / max(float(w.abs().max()), 1e-30)
+                             for a, b, w in zip(got, want, whole))
+        gathered = [None] * world
+        dist.all_gather_object(gathered, errs)
+        if rank == 0:
+            torch.save(gathered, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("ntp", [2, 4])
+def test_train_tp4_gradients_on_the_card_match_the_cpu(cuda, ntp):
+    """Gloo ranks on one card, a (1, 2) and a (1, 4) mesh, float32 smoke
+    configs with remat: each rank's ``loss_fn`` gradient blocks on the
+    card (its collectives and their backward through the host, K7/K8's
+    plain-version twins replaced by the kernels) within 1e-4 of max|g|
+    of the unsharded gradient on the CPU; the context-parallel windowed
+    attention, expert parallelism, the mixed q/KV heads and RG-LRU's
+    channel split among them."""
+    from repro_torch.distributed.multihost import spawn_ranks
+
+    cases = (("qwen2_5_32b", {}, 32),
+             ("h2o_danube3_4b", {"seq_parallel_prefill": True}, 64),
+             ("qwen3_moe_235b", {}, 32), ("recurrentgemma_9b", {}, 32),
+             ("deepseek_v2_lite", {}, 32))
+    ranks = spawn_ranks(ntp, _train_rank, ("cuda:0", ntp, cases),
+                        deadline_s=300)
+    for errs in ranks:
+        assert all(e <= 1e-4 for e in errs.values()), errs

@@ -215,3 +215,38 @@ def test_shard_params_blocks_rebuild_each_leaf(arch, mesh):
                 rebuilt[tuple(idx)] = blk[path].float().numpy()
             np.testing.assert_array_equal(rebuilt, leaf.float().numpy(),
                                           err_msg=path)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_train_state_specs_lay_the_moments_out_like_the_params(arch):
+    """``train_state_specs`` (the JAX package's ``launch/specs.py``): the
+    abstract parameters and float32 moments on the ``meta`` device, the
+    moments' placements the parameters', the step replicated, every
+    placement None without a mesh; and ``param_specs`` gives each leaf's
+    spec in ``tree_flatten``'s order (sorted keys)."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.core.flatbuf import tree_flatten
+    from repro_torch.distributed.sharding import (MeshRules, param_specs,
+                                                  train_state_specs)
+
+    cfg = get_config(arch)
+    for rules in RULES.values():
+        params_abs, p_sh, opt_abs, opt_sh = train_state_specs(cfg, rules)
+        leaves = tree_flatten(params_abs)[0]
+        assert all(p.device.type == "meta" for p in leaves)
+        for moments in (opt_abs.mu, opt_abs.nu):
+            assert [(m.shape, m.dtype) for m in tree_flatten(moments)[0]] \
+                == [(p.shape, torch.float32) for p in leaves]
+        assert opt_sh.mu == p_sh and opt_sh.nu == p_sh
+        assert opt_sh.step == (Replicate(),) * len(rules.axis_names)
+        paths = ["embed", "final_norm", "lm_head"] + [
+            f"segments/{i}/{name}" for i, seg in
+            enumerate(params_abs["segments"]) for name in sorted(seg)]
+        assert param_specs(cfg, rules) == [
+            leaf_spec(path, leaf.shape, rules, cfg)
+            for path, leaf in zip(paths, leaves, strict=True)]
+    _, p_sh, _, opt_sh = train_state_specs(cfg, MeshRules())
+    assert opt_sh.step is None
+    assert all(v is None for v in tree_flatten(p_sh)[0])

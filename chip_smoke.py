@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH]
-                          [--only 18|19|20]
+                          [--only 18|19|20|21]
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
@@ -307,6 +307,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
    staged through the host, host seconds (gloo's host ring: no fabric is
    measured); a ``{"d2b": ...}`` line.  ``--only 20`` runs phases 1, 2
    and 20 alone;
+21. the shape dry run (``repro_torch.launch.dryrun``): (a) the kernels'
+   launch knobs (``kernels/tuning.py``) through ``lint_kernel_knobs`` with
+   the built library's registers, every one of the 42 instantiations'
+   model held to ``cudaFuncGetAttributes``, the occupancy API and the
+   flash kernels' shared-memory exports, a line a family (registers,
+   shared memory, blocks an SM); (b) phase 20 (a)'s step (Qwen2.5-32B at
+   2 of 64 layers, batch 2 x 2048, remat) dry-run on a (1, 1) fake mesh on
+   ``meta``, then run on one NCCL rank under the cost counter: argument
+   bytes, counted FLOPs and kernel launches equal, and the card's
+   ``max_memory_allocated`` within ``PEAK_BAND`` of the predicted peak;
+   (c) phase 20 (b)'s four models dry-run on a (1, 4) fake mesh: a
+   rank's parameter and gradient bytes, kernel launches and
+   ``wire_stats`` equal to phase 20's (this run's, or with ``--only 21``
+   ``D2B_RANK_WIRE``, phase 20's earlier run on the H100); (d) ``python
+   -m repro_torch.launch.dryrun --all`` on the (16, 16) fake mesh at full
+   size, baseline and ``--optimized``:
+   a line a cell (argument and predicted peak GB against the card's
+   memory, TFLOPs and collective GB a rank a step) and which fit one
+   rank; a ``{"dry_run": ...}`` line.  The dry run is host arithmetic on
+   the ``meta`` device: its figures are predictions, not measurements of
+   the card.  ``--only 21`` runs phases 1, 2 and 21 alone;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call
    (also at phase 18's three training shapes, MLA's bound and SDPA call
@@ -344,9 +365,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, CUDA-core
-# float64 FLOP/s, tensor-core TF32 and bfloat16 FLOP/s
+# float64 and float32 FLOP/s, tensor-core TF32 and bfloat16 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F64 = 34e12
+PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 
@@ -593,6 +615,37 @@ D2B_K8_CASES = (
 )
 
 
+# phase 21: the shape dry run.  (b) phase 20 (a)'s step, predicted on a
+# (1, 1) fake mesh and measured on one rank: the card's
+# max_memory_allocated over the step may exceed the predicted peak by the
+# allocator's rounding (each block to 512 bytes) and the cuBLAS
+# workspaces it hands out, neither of which the counter counts: at most
+# PEAK_BAND bytes more, and never less.  Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W: +68,160,488 B with --only 21 (cuBLAS's workspace made
+# inside the step) and +1,051,624 B in the whole script (made before it)
+PEAK_BAND = 128 << 20
+# (c) phase 20 (b)'s counts a rank from its earlier run on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6): held when phase 20 does not
+# run (--only 21)
+D2B_RANK_BYTES = {"qwen2_5_32b": 1_266_235_392,
+                  "qwen3_moe_235b": 1_867_014_144,
+                  "h2o_danube3_4b": 277_747_200,
+                  "recurrentgemma_9b": 1_343_447_040}
+D2B_RANK_WIRE = {
+    "qwen2_5_32b": {"all_reduce": 587_251_716, "all_reduce_calls": 17,
+                    "all_gather": 7_168, "all_gather_calls": 6},
+    "qwen3_moe_235b": {"all_reduce": 135_290_900, "all_reduce_calls": 16},
+    "h2o_danube3_4b": {"all_reduce": 125_958_148, "all_reduce_calls": 9,
+                       "all_gather": 341_114_880, "all_gather_calls": 30,
+                       "ppermute": 94_371_840, "ppermute_calls": 24,
+                       "reduce_scatter": 619_315_200,
+                       "reduce_scatter_calls": 14},
+    "recurrentgemma_9b": {"all_reduce": 683_720_708, "all_reduce_calls": 29,
+                          "all_gather": 16_818_176, "all_gather_calls": 16}}
+# (d) the sweep's subprocesses at once, and how long it may take
+SWEEP_JOBS, SWEEP_DEADLINE_S = 8, 420
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -637,16 +690,17 @@ def cuda_times(fn, reps: int) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(call)
 
 
-def bound(nbytes: float, tf32_ops: float = 0.0, f64_ops: float = 0.0,
-          bf16_ops: float = 0.0):
-    """(least ms, what bounds it): the larger of the bytes' time and the
-    operations' time; each type's operations run at its own peak on its
-    own pipe, so the operations take the longest of the three.  A float32
-    Gram counts as three TF32 products (hi x hi, hi x lo, lo x hi), the
-    least work that keeps float32's precision on the tensor cores."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(tf32_ops / PEAK_TF32, f64_ops / PEAK_F64,
-                bf16_ops / PEAK_BF16)
+def bound(work):
+    """(least ms, what bounds it) of a kernel's work
+    (``repro_torch.kernels.work``: the one definition the cost counter
+    charges too): the larger of the bytes' time and the operations' time;
+    each type's operations run at its own peak on its own pipe, so the
+    operations take the longest of them.  A float32 Gram counts as three
+    TF32 products (hi x hi, hi x lo, lo x hi), the least work that keeps
+    float32's precision on the tensor cores."""
+    t_bytes = work.bytes / PEAK_BYTES
+    t_ops = max(work.tf32 / PEAK_TF32, work.f64 / PEAK_F64,
+                work.bf16 / PEAK_BF16, work.f32 / PEAK_F32)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2025,23 +2079,21 @@ def k7_timing(args, dv=None):
     function's own work: V read and o written at dv columns, 2 D + 2 dv
     a pair."""
     import torch
+    from repro_torch.kernels import work
     from repro_torch.kernels.flash_attention import flash_attention_kernel, \
         flash_attention_plain
 
     q, k, v = args
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    dv = dv or d
     qt, kt, vt = (t.transpose(1, 2).contiguous()
-                  for t in (q, k, v[..., :dv]))
+                  for t in (q, k, v[..., :dv or d]))
     return dict(
         run=lambda: flash_attention_kernel(q, k, v),
         plain=lambda: flash_attention_plain(q, k, v),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
-        bound=bound((b * s * h * (d + dv) + b * s * kvh * (d + dv))
-                    * q.element_size() + 2 * b * h * s * 4,
-                    bf16_ops=b * h * s * (s + 1) // 2 * 2 * (d + dv)))
+        bound=bound(work.k7_flash(b, s, h, kvh, d, q.element_size(), dv)))
 
 
 def k6_timing(X, w):
@@ -2049,16 +2101,15 @@ def k6_timing(X, w):
     version, ``torch.matmul`` of (X w)^T and X, and the bound: X and w read
     once, H written; the symmetric Gram as three TF32 products."""
     import torch
+    from repro_torch.kernels import work
     from repro_torch.kernels.fused_irls import gram_hessian_kernel, \
         gram_hessian_plain
 
-    n, d = X.shape
     return dict(
         run=lambda: gram_hessian_kernel(X, w),
         plain=lambda: gram_hessian_plain(X, w),
         library=lambda: torch.matmul((X * w[:, None]).T, X),
-        bound=bound(n * (d + 1) * 4 + d * d * 4,
-                    tf32_ops=3 * n * d * (d + 1)))
+        bound=bound(work.k6_gram_hessian(*X.shape)))
 
 
 def k8_timing(args, dv=None):
@@ -2072,19 +2123,16 @@ def k8_timing(args, dv=None):
     the bounds and SDPA count the function's own work: v, do and dv at dv
     columns, K8a 4 D + 2 dv and K8b 4 D + 4 dv a pair."""
     import torch
+    from repro_torch.kernels import work
     from repro_torch.kernels.flash_attention_bwd import flash_dkdv_kernel, \
         flash_dkdv_plain, flash_dq_kernel, flash_dq_plain
 
     q, k, v, do = args[:4]
     b, s, h, d = q.shape
-    kvh = k.shape[2]
-    dv = dv or d
-    pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
-    n_in = ((b * s * h * (d + dv) + b * s * kvh * (d + dv))
-            * q.element_size() + 3 * b * h * s * 4)
+    dims = (b, s, h, k.shape[2], d, q.element_size(), dv)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v[..., :dv]))
-    dot = do[..., :dv].transpose(1, 2).contiguous()
+                  for t in (q, k, v[..., :dv or d]))
+    dot = do[..., :dv or d].transpose(1, 2).contiguous()
     ot = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
 
@@ -2094,14 +2142,11 @@ def k8_timing(args, dv=None):
         "K8a": dict(run=lambda: flash_dq_kernel(*args),
                     plain=lambda: flash_dq_plain(*args),
                     library=sdpa_backward,
-                    bound=bound(n_in + b * s * h * d * q.element_size(),
-                                bf16_ops=pairs * (4 * d + 2 * dv))),
+                    bound=bound(work.k8a_flash_dq(*dims))),
         "K8b": dict(run=lambda: flash_dkdv_kernel(*args),
                     plain=lambda: flash_dkdv_plain(*args),
                     library=sdpa_backward,
-                    bound=bound(n_in + b * s * kvh * (d + dv)
-                                * q.element_size(),
-                                bf16_ops=pairs * 4 * (d + dv))),
+                    bound=bound(work.k8b_flash_dkdv(*dims))),
     }
 
 
@@ -3914,6 +3959,333 @@ def d2b_phase(dev, smi, counts, models=D2B_MODELS, smoke=False):
         "phase_seconds": time.perf_counter() - t_phase, "card": smi}
 
 
+# ------------------------------------------------------------------ phase 21
+def knob_phase(dev) -> dict:
+    """Phase 21 (a): ``lint_kernel_knobs`` with the built library's
+    registers, and every instantiation's model (``kernels/tuning.py``)
+    held to the compiled kernel and the flash kernels' shared-memory
+    exports.  Returns {family: its registers, shared memory and blocks an
+    SM}.  On the CPU (a rehearsal) the lint alone, from the model."""
+    from repro_torch.analysis.lints import lint_kernel_knobs
+    from repro_torch.kernels import tuning
+
+    if dev.type != "cuda":
+        rep = lint_kernel_knobs()
+        check(rep.ok, rep.format(verbose=True))
+        return {"lint": [f.message for f in rep.findings]}
+    from repro_torch.kernels import _build
+
+    attrs = tuning.compiled_attributes()
+    families = tuning.check_compiled(attributes=attrs)
+    rep = lint_kernel_knobs(registers={n: a["registers"]
+                                       for n, a in attrs.items()})
+    check(rep.ok, rep.format(verbose=True))
+    lib = _build.library()
+    for fam in ("K7", "K8a", "K8b"):
+        for inst in tuning.instantiations(tuning.DEFAULT_KNOBS[fam]):
+            _, kind, dim = inst.name.split()  # e.g. "K8a bf16 D128"
+            d, bf16 = int(dim[1:]), int(kind == "bf16")
+            got = (lib.repro_k7_smem_bytes(d, bf16) if fam == "K7" else
+                   lib.repro_k8_smem_bytes(int(fam == "K8b"), d, bf16))
+            check(got == inst.dynamic_smem, f"{inst.name}: the model's "
+                  f"{inst.dynamic_smem} bytes of dynamic shared memory, the "
+                  f"export's {got}")
+    for fam, rec in families.items():
+        print(f"phase 21 (a) {fam}: {rec['instantiations']} "
+              f"instantiation(s), up to {rec['registers']} registers a "
+              f"thread, up to {rec['smem_bytes']} B of shared memory, "
+              f"{rec['blocks_per_sm']} block(s) an SM at least")
+    return {"families": families, "instantiations": attrs,
+            "lint": [f.message for f in rep.findings]}
+
+
+def _cell8(smoke):
+    """Phase 20 (a)'s configuration and step shape."""
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = _d2a_config(TRAIN_ARCH, TRAIN_LAYERS, {}, smoke)
+    return cfg, ShapeConfig("cell8", 64 if smoke else TRAIN_SEQ,
+                            TRAIN_BATCH, "train")
+
+
+def one_rank_phase(dev, counts, smoke=False) -> dict:
+    """Phase 21 (b): phase 20 (a)'s step dry-run on a (1, 1) fake mesh on
+    ``meta``, then run on one rank of the card (NCCL; gloo on the CPU)
+    under the cost counter, its batch int32 as the dry run's."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import MeshRules, tree_bytes
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.train import corpus_batch, mesh_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    reset, read = counts
+    cfg, shape = _cell8(smoke)
+    t0 = time.perf_counter()
+    with fake_world(1):
+        rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+        pred = dry_run(cfg, shape, rules, probe_loops=0)
+    meta_s = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if cuda else "gloo", init_method=f"file://{tmp}/rdzv",
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            rules = MeshRules(compat.make_mesh((1, 1), ("data", "model")))
+            base = torch.cuda.memory_allocated(dev) if cuda else 0
+            params = T.init_params(cfg, seed=SEED, device=dev)
+            state = adamw_init(params)
+            batch = {k: v.to(torch.int32) for k, v in corpus_batch(
+                SEED, 0, shape.global_batch, shape.seq_len, cfg.vocab_size,
+                dev).items()}
+            args = tree_bytes(params) + tree_bytes(state.mu) + \
+                tree_bytes(state.nu) + state.step.element_size() + \
+                tree_bytes(batch)
+            counter = CostCounter()
+            _sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset()
+            t0 = time.perf_counter()
+            with counter:
+                counter.track(params, state, batch)
+                params, state, m = mesh_train_step(
+                    params, state, batch, cfg,
+                    AdamWConfig(lr=TRAIN_LR, warmup_steps=D2B_STEPS),
+                    rules=rules)
+            _sync()
+            step_s = time.perf_counter() - t0
+            launches = {k: v for k, v in read().items() if v}
+            measured = (torch.cuda.max_memory_allocated(dev) - base
+                        if cuda else None)
+            del params, state, batch
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cp = pred["cost_analysis"]
+    n_k7 = k7_layers(cfg, shape.seq_len)  # K7 again in remat's backward
+    want = {"K7": (1 + cfg.remat) * n_k7, "K8a": n_k7, "K8b": n_k7}
+    check(pred["memory"]["argument_bytes_per_device"] == args,
+          f"phase 21 (b): predicted argument bytes "
+          f"{pred['memory']['argument_bytes_per_device']}, the rank's {args}")
+    check(cp["flops_per_device"] == counter.flops,
+          f"phase 21 (b): predicted FLOPs {cp['flops_per_device']}, counted "
+          f"on {dev.type} {counter.flops}")
+    check(cp["kernel_calls"] == dict(counter.kernel_calls) == want,
+          f"phase 21 (b): kernel calls predicted {cp['kernel_calls']}, "
+          f"counted {dict(counter.kernel_calls)}, the config's {want}")
+    if cuda:
+        check(launches == {"flash_attention_kernel": want["K7"],
+                           "flash_dq_kernel": want["K8a"],
+                           "flash_dkdv_kernel": want["K8b"]},
+              f"phase 21 (b): launches on the card {launches}")
+    peak = cp["predicted_peak_bytes_per_device"]
+    out = {"arch": cfg.name, "num_layers": cfg.num_layers,
+           "seq_len": shape.seq_len, "batch": shape.global_batch,
+           "remat": cfg.remat, "argument_bytes": args,
+           "flops": counter.flops, "flops_predicted": cp["flops_per_device"],
+           "bytes_counted": counter.bytes,
+           "bytes_predicted": cp["bytes_per_device"],
+           "kernel_calls": dict(counter.kernel_calls),
+           "launches": launches, "predicted_peak_bytes": peak,
+           "counted_peak_bytes": counter.peak_bytes,
+           "max_memory_allocated": measured, "meta_seconds": meta_s,
+           "step_seconds": step_s}
+    if cuda:
+        out["peak_gap_bytes"] = measured - peak
+        check(peak <= measured <= peak + PEAK_BAND,
+              f"phase 21 (b): max_memory_allocated {measured} against the "
+              f"predicted peak {peak} (band {PEAK_BAND})")
+    print(f"phase 21 (b) {cfg.name} x {cfg.num_layers} layers: arguments "
+          f"{args} B, {counter.flops:.6e} FLOPs and "
+          f"{dict(counter.kernel_calls)}"
+          f" on {dev.type} as predicted; peak predicted {peak} B, counted "
+          f"{counter.peak_bytes} B, max_memory_allocated {measured}",
+          flush=True)
+    return out
+
+
+def tp4_phase(d2b_out=None, smoke=False) -> dict:
+    """Phase 21 (c): phase 20 (b)'s four models dry-run as rank 0 of a
+    (1, 4) fake mesh: a rank's parameter and gradient bytes, kernel calls
+    and ``wire_stats`` against phase 20's (``d2b_out``, this run's, else
+    ``D2B_RANK_BYTES`` and ``D2B_RANK_WIRE``)."""
+    import dataclasses
+
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import (MeshRules, shard_params,
+                                                  tree_bytes)
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import _owned, dry_run
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+
+    models = D2B_MODELS
+    if smoke:
+        models = tuple((a, n, f, 64 if f else 32, b)
+                       for a, n, f, _, b in models)
+    out = {}
+    for arch, layers, flags, seq, batch in models:
+        cfg = _d2a_config(arch, layers, flags, smoke)
+        if cfg.moe_num_experts:  # phase 20's drop-free capacity
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+        shape = ShapeConfig("d2b", seq, batch, "train")
+        t0 = time.perf_counter()
+        with fake_world(D2B_RANKS):
+            rules = MeshRules(compat.make_mesh(D2B_MESH, ("data", "model")))
+            local = _owned(shard_params(T.abstract_params(cfg), rules, cfg))
+            with CostCounter(probe_loops=8):
+                _, _, grads = _value_and_grad(local, input_specs(cfg, shape),
+                                              cfg, rules)
+            grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+            rec = dry_run(cfg, shape, rules, probe_loops=0)
+        wire = {k: v for k, v in rec["wire_stats"].items()}
+        n_k7 = k7_layers(cfg, seq)
+        got = {"param_bytes": tree_bytes(local), "grad_bytes": grad_bytes,
+               "kernel_calls": rec["cost_analysis"]["kernel_calls"],
+               "wire_stats": wire,
+               "collective_bytes":
+                   rec["cost_analysis"]["collective_bytes_per_device"],
+               "predicted_peak_bytes":
+                   rec["cost_analysis"]["predicted_peak_bytes_per_device"],
+               "seconds": time.perf_counter() - t0}
+        want_calls = {k: v for k, v in (("K7", (1 + cfg.remat) * n_k7),
+                                         ("K8a", n_k7), ("K8b", n_k7)) if v}
+        check(got["kernel_calls"] == want_calls,
+              f"phase 21 (c) {arch}: kernel calls {got['kernel_calls']}, "
+              f"phase 20's {want_calls}")
+        if d2b_out is not None:
+            r0 = d2b_out["gloo_ranks"]["models"][arch]["ranks"][0]
+            want_bytes, want_wire = r0["param_bytes"], {
+                k: v for k, v in r0["wire_stats"].items()
+                if not k.startswith("host_staged")}
+            check(r0["grad_bytes"] == want_bytes, f"{arch}: {r0}")
+            got["measured_peak_bytes_allocated"] = \
+                r0.get("peak_bytes_allocated")
+        elif not smoke:
+            want_bytes, want_wire = D2B_RANK_BYTES[arch], D2B_RANK_WIRE[arch]
+        else:
+            want_bytes, want_wire = got["param_bytes"], wire
+        check(got["param_bytes"] == got["grad_bytes"] == want_bytes,
+              f"phase 21 (c) {arch}: parameter {got['param_bytes']} and "
+              f"gradient {got['grad_bytes']} bytes a rank, phase 20's "
+              f"{want_bytes}")
+        check(wire == want_wire, f"phase 21 (c) {arch}: wire_stats {wire}, "
+              f"phase 20's {want_wire}")
+        print(f"phase 21 (c) {arch}: {got['param_bytes']} parameter and "
+              f"gradient bytes a rank, wire_stats and kernel calls as phase "
+              f"20 counted ({got['seconds']:.1f} s)", flush=True)
+        out[arch] = got
+        del local, grads
+        gc.collect()
+    return out
+
+
+def sweep_phase(dev, smoke=False) -> dict:
+    """Phase 21 (d): ``python -m repro_torch.launch.dryrun --all`` on the
+    (16, 16) fake mesh at full size (a 2 x 2 one at smoke size), baseline
+    and ``--optimized``; a line a cell and which fit one card."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.launch.dryrun import LM_ARCHS
+    from repro_torch.models.config import SHAPES
+
+    limit = (torch.cuda.get_device_properties(dev).total_memory
+             if dev.type == "cuda" else 80e9)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {"mesh": "2x2" if smoke else "16x16", "card_bytes": limit,
+           "note": "host arithmetic on the meta device: predictions, not "
+                   "measurements of the card"}
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("baseline", "optimized"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                   "--jobs", str(SWEEP_JOBS), "--out", tmp, "--variant",
+                   variant]
+            if variant == "optimized":
+                cmd.append("--optimized")
+            if smoke:
+                cmd += ["--smoke", "--mesh-shape", "2,2"]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=SWEEP_DEADLINE_S)
+            secs = time.perf_counter() - t0
+            check(res.returncode == 0, f"phase 21 (d) {variant}: "
+                  f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+            cells, fits = {}, []
+            tag = "singlepod" + ("" if variant == "baseline"
+                                 else f"__{variant}")
+            for arch in LM_ARCHS:
+                for shape in SHAPES:
+                    rec = json.load(open(os.path.join(
+                        tmp, f"{arch}__{shape}__{tag}.json")))
+                    if "skipped" in rec:
+                        check(shape == "long_500k", f"{arch} {shape} "
+                              f"skipped: {rec['skipped']}")
+                        cells[f"{arch} {shape}"] = "skipped"
+                        continue
+                    mem, ca = rec["memory"], rec["cost_analysis"]
+                    peak = ca["predicted_peak_bytes_per_device"]
+                    check(ca["flops_per_device"] > 0 and peak > 0,
+                          f"{arch} {shape}: {rec}")
+                    cell = {"argument_gb": mem["argument_bytes_per_device"]
+                            / 1e9, "peak_gb": peak / 1e9,
+                            "tflops": ca["flops_per_device"] / 1e12,
+                            "collective_gb": sum(
+                                ca["collective_bytes_per_device"].values())
+                            / 1e9, "fits": peak <= limit,
+                            "n_micro": rec["n_micro"],
+                            "scaled_loops": sorted(ca["scaled_loops"]),
+                            "seconds": rec["seconds"]}
+                    cells[f"{arch} {shape}"] = cell
+                    if cell["fits"]:
+                        fits.append(f"{arch} {shape}")
+                    print(f"phase 21 (d) {variant} {arch} {shape}: "
+                          f"arguments {cell['argument_gb']:.3f} GB, peak "
+                          f"{cell['peak_gb']:.3f} GB of {limit / 1e9:.1f} "
+                          f"({'fits' if cell['fits'] else 'does not fit'}),"
+                          f" {cell['tflops']:.3f} TFLOP, collectives "
+                          f"{cell['collective_gb']:.3f} GB a rank a step",
+                          flush=True)
+            run = [k for k, v in cells.items() if v != "skipped"]
+            check(len(cells) == len(LM_ARCHS) * len(SHAPES),
+                  f"phase 21 (d) {variant}: {len(cells)} records")
+            print(f"phase 21 (d) {variant}: {len(fits)} of {len(run)} cells "
+                  f"fit one rank ({secs:.1f} s): {fits}", flush=True)
+            out[variant] = {"seconds": secs, "cells": cells, "fit": fits}
+    return out
+
+
+def dryrun_phase(dev, smi, counts, d2b_out=None, smoke=False) -> dict:
+    """Phase 21: the shape dry run, (a)-(d).  ``smoke`` runs the smoke
+    configs (a CPU rehearsal); the record for the ``{"dry_run": ...}``
+    line."""
+    t_phase = time.perf_counter()
+    out = {"knobs": knob_phase(dev)}
+    out["one_rank"] = one_rank_phase(dev, counts, smoke)
+    out["tp4"] = tp4_phase(d2b_out, smoke)
+    out["sweep"] = sweep_phase(dev, smoke)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    return out
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3923,7 +4295,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
-    ap.add_argument("--only", type=int, choices=(18, 19, 20), default=None,
+    ap.add_argument("--only", type=int, choices=(18, 19, 20, 21),
+                    default=None,
                     help="after the card and the build, run only this "
                          "phase (no kernels line, no last line)")
     args = ap.parse_args()
@@ -3943,7 +4316,7 @@ def main() -> int:
     from repro_torch.core.newton import centralized_fit, secure_fit
     from repro_torch.core.protocol import Institution
     from repro_torch.data import generate_synthetic, ragged_sizes, split_rows
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, work
     from repro_torch.kernels.fused_irls import fused_irls_cv_kernel, \
         fused_irls_cv_plain, fused_irls_kernel, fused_irls_plain
     from repro_torch.selection import SelectionCoordinator, secure_cv_path
@@ -4039,6 +4412,9 @@ def main() -> int:
         print(f"K8a/K8b vs plain: {[c[0] for c in D2B_K8_CASES]} within "
               f"tolerance, max|d(dq, dk, dv)| {d2b_k8_err:.3e}")
         print(json.dumps({"d2b": d2b_phase(dev, smi, counts)}))
+        return 0
+    if args.only == 21:
+        print(json.dumps({"dry_run": dryrun_phase(dev, smi, counts)}))
         return 0
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
@@ -4510,6 +4886,12 @@ def main() -> int:
     d2b_out = d2b_phase(dev, smi, counts)
     print(json.dumps({"d2b": d2b_out}))
 
+    # -- 21. the shape dry run ------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"dry_run": dryrun_phase(dev, smi, counts,
+                                              d2b_out=d2b_out)}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -4558,11 +4940,11 @@ def main() -> int:
         check(torch.equal(run(), plain()),
               f"K1 at {xs.numel()} elements, {len(points)} points vs its "
               "plain version")
-        n, tm1 = xs.numel(), cs.shape[1]
         # payload and coefficients read once, each point's shares written
         return dict(run=run, plain=plain, library=None,
-                    bound=bound(n * (xs.element_size() + 2 * 4 * tm1
-                                     + len(points) * 2 * 4), f64_ops=n))
+                    bound=bound(work.k1_encode_share(
+                        xs.numel(), xs.element_size(), cs.shape[0],
+                        cs.shape[1], len(points))))
 
     def k2_shape(shs, points=(1, 2)):
         def run():
@@ -4576,10 +4958,11 @@ def main() -> int:
         check(torch.equal(run(), plain()),
               f"K2 at {shs[0, 0].numel()} elements, k = {len(points)} vs "
               "its plain version")
-        n = shs[0, 0].numel()
         # k R int32 shares read once, the float64 aggregate written
         return dict(run=run, plain=plain, library=None,
-                    bound=bound(n * (len(points) * 2 * 4 + 8), f64_ops=n))
+                    bound=bound(work.k2_reconstruct(
+                        shs[0, 0].numel(), len(points), shs.shape[1],
+                        True)))
 
     def k4_shape(args):
         def run():
@@ -4595,7 +4978,7 @@ def main() -> int:
         # integer multiply-high steps have no peak in the float table, and
         # the bytes bound it
         return dict(run=run, plain=plain, library=None,
-                    bound=bound(R * n * 8 * (1 + tm1 + args[3])))
+                    bound=bound(work.k4_share(n, R, tm1, args[3])))
 
     k1_shapes = {"lambda_path": k1_shape(x_path, co_path),
                  "2^24": k1_shape(x_big, co_big),
@@ -4634,8 +5017,7 @@ def main() -> int:
              plain=lambda: encode_share_plain(x, coeffs, FIELD_WIDE.moduli,
                                               FRAC_BITS, (1, 2, 3)),
              library=None, err=k1_err, shapes=k1_shapes,
-             bound=bound(n1 * 8 + n1 * 2 * 4 + n1 * 3 * 2 * 4,
-                         f64_ops=n1)),
+             bound=bound(work.k1_encode_share(n1, 8, 2, 1, 3))),
         dict(name="K2 reconstruct", fn=reconstruct_kernel, path="secure_fit",
              source="src/repro_torch/csrc/shamir_reconstruct.cu",
              replaces="src/repro/kernels/shamir_reconstruct.py:120",
@@ -4644,8 +5026,8 @@ def main() -> int:
              plain=lambda: reconstruct_plain(k2_in, (1, 2),
                                              FIELD_WIDE.moduli, FRAC_BITS),
              library=None, err=k2_err, shapes=k2_shapes,
-             bound=bound(k2_in.numel() * 4 + rows * 128 * 8,
-                         f64_ops=rows * 128)),
+             bound=bound(work.k2_reconstruct(rows * 128, k2_in.shape[0],
+                                             k2_in.shape[1], True))),
         dict(name="K3 fused_irls", fn=fused_irls_kernel, path="secure_fit",
              source="src/repro_torch/csrc/fused_irls.cu",
              replaces="src/repro/kernels/fused_irls.py:100",
@@ -4654,12 +5036,7 @@ def main() -> int:
              library=lambda: torch.matmul(
                  (Xm * w32[..., None]).transpose(1, 2), Xm),
              err=k3_err,
-             bound=bound(rows_total * (D * 12 + 8) + D * 8
-                         + S * (D * D * 4 + D * 8 + 8),
-                         # the symmetric Gram, d (d + 1) / 2 entries, as
-                         # three TF32 products
-                         tf32_ops=3 * rows_total * D * (D + 1),
-                         f64_ops=rows_total * (4 * D + 30))),
+             bound=bound(work.k3_fused_irls(rows_total, D, S))),
         dict(name="K5 fused_irls_cv", fn=fused_irls_cv_kernel,
              path="lambda_path",
              source="src/repro_torch/csrc/fused_irls_cv.cu",
@@ -4669,14 +5046,8 @@ def main() -> int:
              library=lambda: torch.matmul(
                  (Xm[None] * w5[..., None]).transpose(-1, -2), Xm[None]),
              err=k5_err,
-             # one read of X, Xm, y and the fold ids; a symmetric Gram and
-             # g over each configuration's train rows, z and the deviance
-             # terms over every valid row
-             bound=bound(rows_total * (D * 12 + 8 + 4) + n_cfg * (D * 8 + 4)
-                         + n_cfg * S * (D * D * 4 + D * 8 + 4 * 8),
-                         tf32_ops=3 * k5_train * D * (D + 1),
-                         f64_ops=n_cfg * rows_total * (2 * D + 30)
-                         + k5_train * 2 * D)),
+             bound=bound(work.k5_fused_irls_cv(rows_total, k5_train, D,
+                                               n_cfg, S))),
         dict(name="K4 leaf-wise share", fn=share_kernel, path="leafwise",
              source="src/repro_torch/csrc/shamir_share.cu",
              replaces="src/repro/kernels/shamir_poly.py:116",

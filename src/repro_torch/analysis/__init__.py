@@ -22,8 +22,9 @@ Module map:
 * ``lints``    — the protocol lints: one host sync per round or block
   (AST), the host reads of a certified round against their marked sites,
   the fixed-point headroom proof, the mesh-axis allowlist, the
-  boundary-ownership pass and the obs purity pass.  JAX's Pallas knob
-  lint waits for ``kernels/tuning.py`` (ROADMAP item 18).
+  boundary-ownership pass, the obs purity pass, and the kernels'
+  launch-knob lint (``kernels/tuning.py``'s H100 budget in place of
+  JAX's Pallas VMEM model).
 * ``drivers``  — the certified surface: a ``DriverSpec`` for each of the
   JAX package's twelve (fused, scan, selection sweep, 1D/2D
   ``secure_psum``) with the taint labels of its inputs; the psum specs

@@ -6,8 +6,8 @@ Runs, in order:
    over every certified driver spec (``drivers.all_driver_specs``); the
    psum specs on spawned gloo worlds of their meshes, every rank;
 2. the source-level and config-level lints (host-sync AST pass,
-   fixed-point headroom proof, obs purity pass, collective
-   boundary-ownership pass);
+   fixed-point headroom proof, the kernels' launch-knob budget, obs
+   purity pass, collective boundary-ownership pass);
 3. the leak fixtures (``fixtures.leak_fixture_specs``) — deliberately
    broken drivers the gate MUST flag; a fixture passing clean means the
    gate itself regressed.
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     from .drivers import all_driver_specs, run_world
     from .fixtures import leak_fixture_specs
     from .lints import (SummaryBounds, lint_collective_sites, lint_headroom,
-                        lint_host_sync, lint_obs_purity)
+                        lint_host_sync, lint_kernel_knobs, lint_obs_purity)
 
     device = resolve_device(args.device)
     specs = [s for s in all_driver_specs() if args.drivers in s.name]
@@ -92,6 +92,7 @@ def main(argv=None) -> int:
             # rows, a full cohort — the envelope every shipped config sits
             # inside
             lint_headroom(SummaryBounds(d=128, n_max=100_000, num_parts=16)),
+            lint_kernel_knobs(),
             lint_obs_purity(),
             lint_collective_sites(),
         ]

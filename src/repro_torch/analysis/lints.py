@@ -40,9 +40,12 @@ at the port's own files.  Each pass produces
   sanctioned exception is the lazy ``import torch.profiler`` inside
   ``SpanTracer._annotation``.
 
-JAX's ``lint_kernel_knobs`` checks Pallas blocking knobs against a VMEM
-model (``kernels/tuning.py``); the port has no ``kernels/tuning.py`` yet
-(ROADMAP item 18), and the lint comes with it.
+* :func:`lint_kernel_knobs` — the CUDA launch knobs of every kernel
+  family (``kernels/tuning.py``) against the H100's shared-memory,
+  register and thread budget and the alignment each kernel's code needs,
+  before any build: one info finding a family, an error on the first
+  knob that could not launch (JAX's Pallas knob lint, whose VMEM model
+  this budget replaces).
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ __all__ = [
     "lint_host_reads",
     "lint_headroom",
     "lint_mesh_axes",
+    "lint_kernel_knobs",
     "lint_obs_purity",
     "lint_collective_sites",
     "BOUNDARY_CALL_EXEMPT",
@@ -672,4 +676,41 @@ def lint_collective_sites(report: AnalysisReport | None = None, *,
         f"{len(BOUNDARY_CALL_EXEMPT) - 1} sanctioned exceptions "
         "(obs/audit.py leak fixture, kernels/ops.py raw layer)",
     ))
+    return rep
+
+
+# -- kernel knob lint --------------------------------------------------------
+
+
+def lint_kernel_knobs(report: AnalysisReport | None = None, *, knobs=None,
+                      registers=None) -> AnalysisReport:
+    """Check the CUDA kernels' launch knobs without building them.
+
+    Reuses ``kernels.tuning``'s model of the H100: every instantiation's
+    threads and the shared memory of its largest launch against the
+    card's budget.  ``registers`` ({instantiation: registers a thread},
+    from the built library on the card) also holds each to its launch
+    bounds' cap.
+    """
+    from ..kernels.tuning import H100, validate_real_kernel_knobs
+
+    rep = report or AnalysisReport(target="kernel-knobs")
+    try:
+        results = validate_real_kernel_knobs(knobs, registers=registers)
+    except ValueError as e:
+        rep.add(Finding("kernel-knobs", "error", "kernels.tuning",
+                        f"launch knob rejected: {e}"))
+        return rep
+    for r in results:
+        pct = 100.0 * r["smem_bytes"] / H100.smem_block
+        blocks = (f", {r['blocks_per_sm']} block(s) an SM at least"
+                  if "blocks_per_sm" in r else "")
+        rep.add(Finding(
+            "kernel-knobs", "info", r["kernel"],
+            f"{r['instantiations']} instantiation(s), "
+            f"{'/'.join(map(str, r['threads']))} threads a block, register "
+            f"cap {r['register_cap']} a thread, shared memory up to "
+            f"{r['smem_bytes']} B = {pct:.1f}% of the {H100.smem_block} B a "
+            f"block can have{blocks}",
+        ))
     return rep

@@ -42,6 +42,7 @@
 // Query blocks launch longest-first in both, so the last wave holds the
 // short ones.
 #include "flash_common.cuh"
+#include "kernel_attributes.cuh"
 
 #define K7_THREADS FLASH_THREADS
 #define K7_BQ 64
@@ -470,4 +471,22 @@ extern "C" int repro_k7_smem_bytes(int D, int is_bf16) {
     default:
       return K7Tile<256>::smem_bytes;
   }
+}
+
+// K7's instantiations, each at the largest head dim it takes
+// (kernel_attributes.cuh)
+int repro_flash_fwd_attributes(ReproKernelAttr* out, int* err) {
+  REPRO_ATTR(0, "K7 bf16 D32", flash_fwd_bf16_kernel<32>, K7_TC_THREADS,
+             K7Tile<32>::smem_bytes);
+  REPRO_ATTR(1, "K7 bf16 D64", flash_fwd_bf16_kernel<64>, K7_TC_THREADS,
+             K7Tile<64>::smem_bytes);
+  REPRO_ATTR(2, "K7 bf16 D128", flash_fwd_bf16_kernel<128>, K7_TC_THREADS,
+             K7Tile<128>::smem_bytes);
+  REPRO_ATTR(3, "K7 bf16 D256", flash_fwd_bf16_kernel<256>, K7_TC_THREADS,
+             K7Tile<256>::smem_bytes);
+  REPRO_ATTR(4, "K7 f32 D128", flash_attention_fwd_kernel<FLASH_NC_SMALL>,
+             K7_THREADS, k7_f32_smem(16 * FLASH_NC_SMALL));
+  REPRO_ATTR(5, "K7 f32 D256", flash_attention_fwd_kernel<FLASH_NC_LARGE>,
+             K7_THREADS, k7_f32_smem(FLASH_MAX_D));
+  return 6;
 }

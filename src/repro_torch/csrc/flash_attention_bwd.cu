@@ -95,6 +95,7 @@
 // Both put the (batch, head) slice on the grid's x axis, so every slice's
 // longest block is dispatched before any shorter one.
 #include "flash_common.cuh"
+#include "kernel_attributes.cuh"
 
 struct K8Dims {
   int S, H, KVH, D, group;
@@ -993,4 +994,35 @@ extern "C" int repro_k8_smem_bytes(int which, int D, int is_bf16) {
     default:
       return which == 0 ? K8aTile<256>::smem_bytes : K8Tile<256>::smem_bytes;
   }
+}
+
+// K8a's and K8b's instantiations, each at the largest head dim it takes
+// (kernel_attributes.cuh)
+int repro_flash_bwd_attributes(ReproKernelAttr* out, int* err) {
+  constexpr int small = 16 * FLASH_NC_SMALL;
+  REPRO_ATTR(0, "K8a bf16 D32", flash_dq_bf16_kernel<32>, K8A_TC_THREADS,
+             K8aTile<32>::smem_bytes);
+  REPRO_ATTR(1, "K8a bf16 D64", flash_dq_bf16_kernel<64>, K8A_TC_THREADS,
+             K8aTile<64>::smem_bytes);
+  REPRO_ATTR(2, "K8a bf16 D128", flash_dq_bf16_kernel<128>, K8A_TC_THREADS,
+             K8aTile<128>::smem_bytes);
+  REPRO_ATTR(3, "K8a bf16 D256", flash_dq_bf16_kernel<256>, K8A_TC_THREADS,
+             K8aTile<256>::smem_bytes);
+  REPRO_ATTR(4, "K8a f32 D128", (flash_dq_kernel<64, FLASH_NC_SMALL>),
+             FLASH_THREADS, k8a_smem<64>(small));
+  REPRO_ATTR(5, "K8a f32 D256", (flash_dq_kernel<32, FLASH_NC_LARGE>),
+             FLASH_THREADS, k8a_smem<32>(FLASH_MAX_D));
+  REPRO_ATTR(6, "K8b bf16 D32", flash_dkdv_bf16_kernel<32>, K8_TC_THREADS,
+             K8Tile<32>::smem_bytes);
+  REPRO_ATTR(7, "K8b bf16 D64", flash_dkdv_bf16_kernel<64>, K8_TC_THREADS,
+             K8Tile<64>::smem_bytes);
+  REPRO_ATTR(8, "K8b bf16 D128", flash_dkdv_bf16_kernel<128>, K8_TC_THREADS,
+             K8Tile<128>::smem_bytes);
+  REPRO_ATTR(9, "K8b bf16 D256", flash_dkdv_bf16_kernel<256>, K8_TC_THREADS,
+             K8Tile<256>::smem_bytes);
+  REPRO_ATTR(10, "K8b f32 D128", (flash_dkdv_kernel<64, FLASH_NC_SMALL>),
+             FLASH_THREADS, k8b_f32_smem<64>(small));
+  REPRO_ATTR(11, "K8b f32 D256", (flash_dkdv_kernel<32, FLASH_NC_LARGE>),
+             FLASH_THREADS, k8b_f32_smem<32>(FLASH_MAX_D));
+  return 12;
 }

@@ -63,3 +63,7 @@ extern "C" int repro_k3_fused_irls(const double* beta, const double* X,
   return irls_launch(k3_kernels, D, beta, X, Xm, y, counts, nullptr, nullptr,
                      H, g, dev, 1, w, Hp, gp, sp, stream);
 }
+
+int repro_k3_attributes(ReproKernelAttr* out, int* err) {
+  return irls_attributes(k3_kernels, "K3", out, err);
+}

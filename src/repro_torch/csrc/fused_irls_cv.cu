@@ -55,3 +55,7 @@ extern "C" int repro_k5_fused_irls_cv(
   return irls_launch(k5_kernels, D, betas, X, Xm, y, counts, fold_ids,
                      fold_of, H, g, stats, IRLS_NSTAT, w, Hp, gp, sp, stream);
 }
+
+int repro_k5_attributes(ReproKernelAttr* out, int* err) {
+  return irls_attributes(k5_kernels, "K5", out, err);
+}

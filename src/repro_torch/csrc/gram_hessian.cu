@@ -47,3 +47,7 @@ extern "C" int repro_k6_gram_hessian(const float* X, const float* w, float* H,
                      nullptr, nullptr, H, nullptr, nullptr, 0,
                      const_cast<float*>(w), Hp, nullptr, nullptr, stream);
 }
+
+int repro_k6_attributes(ReproKernelAttr* out, int* err) {
+  return irls_attributes(k6_kernels, "K6", out, err);
+}

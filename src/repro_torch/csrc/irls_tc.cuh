@@ -82,6 +82,7 @@
 // slice shorter than a tile.
 #pragma once
 
+#include "kernel_attributes.cuh"
 #include "tc_common.cuh"
 
 #define IRLS_THREADS 256     // the rows and reduce kernels
@@ -789,4 +790,33 @@ static int irls_launch(const IrlsKernels& k, const IrlsDims& D,
   reduce<<<blocks, IRLS_THREADS, 0, st>>>(Hp, gp, sp, H, g, stats, QS, D.d,
                                           D.NSLG, D.NSLR, nstat);
   return (int)cudaGetLastError();
+}
+
+// A source's IRLS instantiations (kernel_attributes.cuh), each at the
+// largest d it serves: the rows kernel of m m-tiles a warp up to d = 64 m
+// with irls_rows_tile's tile, the 32-row Gram up to d = 128 and the
+// 16-row one past it, the reduce (no dynamic shared memory).  K6 has no
+// rows kernel.  ``fam`` is "K3", "K5" or "K6".
+static int irls_attributes(const IrlsKernels& k, const char* fam,
+                           ReproKernelAttr* out, int* err) {
+  char name[48];
+  int i = 0;
+  for (int r = 0; r < 4 && k.rows[r]; ++r, ++i) {
+    const int mtw = 2 << r;
+    const IrlsDims D = irls_dims(64 * mtw);
+    snprintf(name, sizeof(name), "%s rows MTW%d", fam, mtw);
+    REPRO_ATTR(i, name, k.rows[r], IRLS_THREADS,
+               (int)irls_rows_smem(D, irls_rows_tile(D)));
+  }
+  snprintf(name, sizeof(name), "%s gram TN32", fam);
+  REPRO_ATTR(i, name, k.gram[0], IRLS_GTHREADS,
+             (int)irls_gram_smem(irls_dims(2 * IRLS_QT)));
+  ++i;
+  snprintf(name, sizeof(name), "%s gram TN16", fam);
+  REPRO_ATTR(i, name, k.gram[1], IRLS_GTHREADS,
+             (int)irls_gram_smem(irls_dims(IRLS_MAX_DIM)));
+  ++i;
+  snprintf(name, sizeof(name), "%s reduce", fam);
+  REPRO_ATTR(i, name, k.reduce, IRLS_THREADS, 0);
+  return i + 1;
 }

@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+#include "kernel_attributes.cuh"
 
 #define K1_MAX_R 2
 #define K1_THREADS 128
@@ -218,4 +219,19 @@ extern "C" int repro_k1_encode_share(const void* x, int x_is_f64,
   cudaStream_t st = (cudaStream_t)stream;
   return x_is_f64 ? launch((const double*)x, coeffs, table, out, n, P, st)
                   : launch((const float*)x, coeffs, table, out, n, P, st);
+}
+
+// K1's instantiations (kernel_attributes.cuh): the table path at the most
+// points it stages
+int repro_k1_attributes(ReproKernelAttr* out, int* err) {
+  constexpr int staged = K1_STAGE_POINTS * (int)sizeof(unsigned);
+  REPRO_ATTR(0, "K1 f32 struct", (encode_share_kernel<float, false>),
+             K1_THREADS, 0);
+  REPRO_ATTR(1, "K1 f32 table", (encode_share_kernel<float, true>),
+             K1_THREADS, staged);
+  REPRO_ATTR(2, "K1 f64 struct", (encode_share_kernel<double, false>),
+             K1_THREADS, 0);
+  REPRO_ATTR(3, "K1 f64 table", (encode_share_kernel<double, true>),
+             K1_THREADS, staged);
+  return 4;
 }

@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+#include "kernel_attributes.cuh"
 
 #define K2_MAX_R 2
 #define K2_THREADS 128
@@ -182,4 +183,13 @@ extern "C" int repro_k2_reconstruct(const int* shares, void* out, long long n,
         shares, nullptr, out, n, P, decode);
   }
   return (int)cudaGetLastError();
+}
+
+// K2's instantiations (kernel_attributes.cuh): the table path at the most
+// weights it stages
+int repro_k2_attributes(ReproKernelAttr* out, int* err) {
+  REPRO_ATTR(0, "K2 struct", reconstruct_kernel<false>, K2_THREADS, 0);
+  REPRO_ATTR(1, "K2 table", reconstruct_kernel<true>, K2_THREADS,
+             K2_STAGE_WEIGHTS * (int)sizeof(unsigned long long));
+  return 2;
 }

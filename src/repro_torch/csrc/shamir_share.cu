@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+#include "kernel_attributes.cuh"
 
 #define K4_MAX_R 8
 #define K4_THREADS 128
@@ -125,4 +126,10 @@ extern "C" int repro_k4_share(const long long* secret, const long long* coeffs,
   leafwise_share_kernel<<<blocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
       secret, coeffs, out, n, P);
   return (int)cudaGetLastError();
+}
+
+// K4's one instantiation (kernel_attributes.cuh)
+int repro_k4_attributes(ReproKernelAttr* out, int* err) {
+  REPRO_ATTR(0, "K4", leafwise_share_kernel, K4_THREADS, 0);
+  return 1;
 }

@@ -161,6 +161,13 @@ class TP:
         else:
             self.dp, self.ntp, self.ndp, self.tp_rank = (), 1, 1, 0
 
+    def rows(self, batch: int):
+        """The dp axes a batch of ``batch`` rows splits over: all of them,
+        or none where they do not divide it, every rank then holding
+        every row (JAX's batch spec falls back so: long_500k's one
+        sequence on a 16 x 16 mesh)."""
+        return self.dp if batch % self.ndp == 0 else ()
+
     # -- specs ----------------------------------------------------------------
     def specs(self, kind) -> dict:
         """{leaf name: its per-layer spec} for a block of ``kind``."""

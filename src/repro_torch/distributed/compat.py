@@ -29,6 +29,16 @@ transport, not a fallback: the kernels still run on the card.  A CUDA
 tensor on any other backend raises.  ``wire_stats`` counts, per rank, the
 operand bytes handed to each kind of collective and the bytes staged.
 
+The ``fake`` backend (``torch.testing._internal.distributed.fake_pg``)
+is a dry run's world: one process plays one rank of a mesh of any size
+(``launch/mesh.py``, ``launch/dryrun.py``) on ``meta`` tensors, the
+port's counterpart of the placeholder devices XLA compiles the JAX
+package's dry run for.  Nothing crosses a wire and no result holds data,
+but every collective is called with the shapes the real one would be, so
+``wire_stats`` and the cost counter (``obs/cost.py``: each kind's bytes
+with ``obs/metrics.py``'s factors) count what each call would move.  A
+fake group carries ``meta`` tensors only.
+
 Each named-axis collective is declared to the privacy gate
 (``obs/gate.py``) with its axis: a sum over a mesh axis of two or more
 ranks is Algorithm 2 on the wire.
@@ -56,7 +66,10 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from ..obs import cost as _cost
 from ..obs import gate as _gate
+from ..obs.metrics import (ALL_GATHER_FACTOR, ALL_REDUCE_FACTOR,
+                           REDUCE_SCATTER_FACTOR)
 
 __all__ = ["Pending", "all_gather", "axis_group", "axis_index", "axis_size",
            "current_mesh", "make_mesh", "pmax", "ppermute", "psum",
@@ -87,7 +100,7 @@ def make_mesh(axis_shapes, axis_names):
 
     Its device type is ``"cuda"`` on an NCCL world and ``"cpu"`` on a gloo
     one, whose ranks may still hand the wires CUDA tensors (the transport
-    above).
+    above), or on a ``fake`` one, whose ranks hand them ``meta`` tensors.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -187,6 +200,10 @@ def reset_wire_stats() -> None:
     _STATS.clear()
 
 
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def stage_through_host(t: torch.Tensor, device) -> torch.Tensor:
     """The one place a collective's operand or result crosses between the
     card and the host: a copy of ``t`` to ``device`` (the host for an
@@ -201,11 +218,16 @@ def _operand(t: torch.Tensor, group, op: str):
     goes back to or None).  Host tensors go as they are; a CUDA tensor
     goes as it is where the backend carries it, through the host on gloo,
     and raises elsewhere."""
-    _STATS[op] += t.numel() * t.element_size()
+    _STATS[op] += _bytes(t)
     _STATS[op + "_calls"] += 1
+    backend = dist.get_backend(group)
+    if backend == "fake":
+        if t.device.type != "meta":
+            raise RuntimeError(f"a fake group carries meta tensors only, "
+                               f"not {t.device} ({op})")
+        return t, None
     if not t.is_cuda:
         return t, None
-    backend = dist.get_backend(group)
     if op in _CUDA_OPS.get(backend, ()):
         return t, None
     if backend == "gloo":
@@ -239,6 +261,7 @@ class Pending:
 def _all_reduce(t, axis_name, op, async_op, donate):
     group = axis_group(axis_name)
     buf, home = _operand(t.contiguous(), group, "all_reduce")
+    _cost.collective("all-reduce", ALL_REDUCE_FACTOR * _bytes(t))
     if buf is t and not donate:  # all_reduce works in place
         buf = t.clone()
     work = dist.all_reduce(buf, op=op, group=group, async_op=async_op)
@@ -286,6 +309,7 @@ def _psum_scatter(t, axis_name, scatter_dimension, async_op):
         raise ValueError(f"axis {scatter_dimension} of size "
                          f"{front.shape[0]} does not split into {d} tiles")
     buf, home = _operand(front, group, "reduce_scatter")
+    _cost.collective("reduce-scatter", REDUCE_SCATTER_FACTOR * _bytes(front))
     out = torch.empty((front.shape[0] // d,) + tuple(front.shape[1:]),
                       dtype=buf.dtype, device=buf.device)
     work = _reduce_scatter(out, buf, op=dist.ReduceOp.SUM, group=group,
@@ -311,6 +335,7 @@ def _all_gather_raw(t, axis_name, axis):
     d = dist.get_world_size(group)
     front = t.movedim(axis, 0).contiguous()
     buf, home = _operand(front, group, "all_gather")
+    _cost.collective("all-gather", ALL_GATHER_FACTOR * d * _bytes(front))
     out = torch.empty((front.shape[0] * d,) + tuple(front.shape[1:]),
                       dtype=buf.dtype, device=buf.device)
     _all_gather(out, buf, group=group)
@@ -338,6 +363,7 @@ def _ppermute_raw(t, axis_name, perm):
     dests = [d for s, d in perm if s == me]
     out = torch.zeros_like(t)
     buf, home = _operand(t.contiguous(), group, "ppermute")
+    _cost.collective("collective-permute", _bytes(t))
     recv = torch.empty_like(buf)
     works = []
     for d in dests:

@@ -291,12 +291,10 @@ def param_shardings(params, rules, cfg):
 def param_specs(cfg, rules) -> list:
     """The spec of every leaf of ``cfg``'s parameter tree on ``rules``, in
     ``core.flatbuf.tree_flatten``'s order (dict keys sorted)."""
-    from ..core.flatbuf import tree_flatten, tree_paths
-    from ..models.transformer import abstract_params
+    from ..models.transformer import param_shapes
 
-    tree = abstract_params(cfg)
-    return [leaf_spec(path, leaf.shape, rules, cfg) for path, leaf in
-            zip(tree_paths(tree), tree_flatten(tree)[0], strict=True)]
+    return [leaf_spec(path, shape, rules, cfg)
+            for path, shape in param_shapes(cfg)]
 
 
 def split_axes(cfg, rules) -> list:

@@ -18,16 +18,17 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["SOURCES", "library", "build", "build_log", "check"]
+__all__ = ["SOURCES", "library", "build", "build_log", "check", "plain"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("shamir_poly.cu", "shamir_share.cu", "shamir_reconstruct.cu",
            "fused_irls.cu", "fused_irls_cv.cu", "gram_hessian.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "kernel_attributes.cu")
 # headers the sources include: part of the digest, not compiled alone
 HEADERS = ("flash_common.cuh", "tc_common.cuh", "irls_tc.cuh",
-           "field_arith.cuh")
+           "field_arith.cuh", "kernel_attributes.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,6 +85,9 @@ _SIGNATURES = {
     # (0 = K8a or 1 = K8b, D, is_bf16); these return bytes, not an error
     "repro_k7_smem_bytes": (_i, _i),
     "repro_k8_smem_bytes": (_i, _i, _i),
+    # out (ReproKernelAttr records), capacity: every instantiation's
+    # compiled attributes (kernels/tuning.py); returns the count
+    "repro_kernel_attributes": (_vp, _i),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -165,3 +169,14 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def plain(t, what: str) -> bool:
+    """Where a kernel wrapper sends ``t``: True for a CPU tensor (the plain
+    version), False for a CUDA tensor (the kernel) or a ``meta`` tensor
+    (the outputs' shapes, for the dry run); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no {what} for device {t.device}")
+    return False

@@ -23,12 +23,21 @@ cores would round float32 to TF32).  Both take any head_dim up to 256.
 saves (q, k, v, o, m, l), its backward runs K8a and K8b
 (``flash_attention_bwd``).  ``flash_attention_kernel`` itself records no
 gradient, so it refuses inputs that require one.
+
+Every wrapper of the port's kernels takes three devices: a CUDA tensor
+goes only to the kernel, a CPU tensor only to the plain version, and a
+``meta`` tensor (the shape dry run, ``launch/dryrun.py``) gets outputs of
+the kernel's shapes and dtypes on ``meta`` and nothing else; any other
+device raises.  On each, the call charges the kernel's work
+(``kernels/work.py``) to the cost counter when one is installed
+(``obs/cost.py``); only a launch counts in ``.launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, work as _work
+from ..obs import cost as _cost
 from ..obs import gate as _gate
 from .ref import causal_scores
 
@@ -71,10 +80,17 @@ def flash_attention_plain(q, k, v):
             l.reshape(B, H, S))
 
 
+def _work_of(q, k, v):
+    B, S, H, D = q.shape
+    return _work.k7_flash(B, S, H, k.shape[2], D, q.element_size())
+
+
+@_cost.kernel("K7", _work_of)
 @_gate.kernel
 def flash_attention_kernel(q, k, v):
     """K7 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  q (B, S, H, D), k/v (B, S, KVH, D),
+    plain version for CPU tensors, its outputs' shapes for ``meta``
+    tensors.  q (B, S, H, D), k/v (B, S, KVH, D),
     contiguous, float32 or bfloat16, D <= 256.  Returns (o, m, l).
 
     The outputs carry no gradient: with grad mode on, inputs that require
@@ -85,10 +101,8 @@ def flash_attention_kernel(q, k, v):
             "flash_attention_kernel records no gradient; call "
             "ops.flash_attention (FlashAttention.apply) to differentiate "
             "through K7")
-    if q.device.type == "cpu":
+    if _build.plain(q, "K7"):
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no K7 for device {q.device}")
     _check_args(q, k, v)
     B, S, H, D = q.shape
     if D > _MAX_HEAD_DIM:
@@ -101,6 +115,8 @@ def flash_attention_kernel(q, k, v):
     o = torch.empty_like(q)
     m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    if q.device.type == "meta":
+        return o, m, l
     err = _build.library().repro_k7_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         m.data_ptr(), l.data_ptr(), B, S, H, k.shape[2], D,

@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, work as _work
+from ..obs import cost as _cost
 from ..obs import gate as _gate
 from .flash_attention import _MAX_HEAD_DIM, _check_args
 from .ref import causal_p_ds
@@ -70,8 +71,8 @@ def flash_dkdv_plain(q, k, v, do, m, linv, delta):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_args(q, k, v, do, m, linv, delta):
-    """Checks shared by the two kernels; the C arguments they share."""
+def _check_launch(q, k, v, do, m, linv, delta):
+    """The checks the two kernels share (their ``meta`` branches too)."""
     _check_bwd_args(q, k, v, do, m, linv, delta)
     B, S, H, D = q.shape
     if D > _MAX_HEAD_DIM:
@@ -81,43 +82,55 @@ def _launch_args(q, k, v, do, m, linv, delta):
     if not all(t.is_contiguous() for t in (q, k, v, do, m, linv, delta)):
         raise ValueError("K8 reads its inputs by their strides: pass "
                          "contiguous tensors")
+
+
+def _launch_args(q, k, v, do, m, linv, delta):
+    """The C arguments the two kernels share."""
+    B, S, H, D = q.shape
     ptrs = [t.data_ptr() for t in (q, k, v, do, m, linv, delta)]
     dims = [B, S, H, k.shape[2], D, int(q.dtype == torch.bfloat16), D**-0.5,
             torch.cuda.current_stream(q.device).cuda_stream]
     return ptrs, dims
 
 
-def _route(q, what):
-    if q.device.type == "cpu":
-        return True
-    if q.device.type != "cuda":
-        raise ValueError(f"no {what} for device {q.device}")
-    return False
+def _dims(q, k):
+    B, S, H, D = q.shape
+    return B, S, H, k.shape[2], D, q.element_size()
 
 
+@_cost.kernel("K8a", lambda q, k, *_: _work.k8a_flash_dq(*_dims(q, k)))
 @_gate.kernel
 def flash_dq_kernel(q, k, v, do, m, linv, delta):
     """K8a on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns dq (B, S, H, D)."""
-    if _route(q, "K8a"):
+    plain version for CPU tensors, dq's shape for ``meta`` tensors.
+    Returns dq (B, S, H, D)."""
+    if _build.plain(q, "K8a"):
         return flash_dq_plain(q, k, v, do, m, linv, delta)
-    ptrs, dims = _launch_args(q, k, v, do, m, linv, delta)
+    _check_launch(q, k, v, do, m, linv, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        return dq
+    ptrs, dims = _launch_args(q, k, v, do, m, linv, delta)
     err = _build.library().repro_k8a_flash_dq(*ptrs, dq.data_ptr(), *dims)
     _build.check(err, "K8a flash_dq")
     flash_dq_kernel.launches += 1
     return dq
 
 
+@_cost.kernel("K8b", lambda q, k, *_: _work.k8b_flash_dkdv(*_dims(q, k)))
 @_gate.kernel
 def flash_dkdv_kernel(q, k, v, do, m, linv, delta):
     """K8b on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns (dk, dv) (B, S, KVH, D)."""
-    if _route(q, "K8b"):
+    plain version for CPU tensors, the shapes of dk and dv for ``meta``
+    tensors.  Returns (dk, dv) (B, S, KVH, D)."""
+    if _build.plain(q, "K8b"):
         return flash_dkdv_plain(q, k, v, do, m, linv, delta)
-    ptrs, dims = _launch_args(q, k, v, do, m, linv, delta)
+    _check_launch(q, k, v, do, m, linv, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if q.device.type == "meta":
+        return dk, dv
+    ptrs, dims = _launch_args(q, k, v, do, m, linv, delta)
     err = _build.library().repro_k8b_flash_dkdv(*ptrs, dk.data_ptr(),
                                                  dv.data_ptr(), *dims)
     _build.check(err, "K8b flash_dkdv")

@@ -34,7 +34,9 @@ weights.  Each wrapper has its plain PyTorch version beside it
 
 Rows >= counts[s] are masked out of every sum; the kernels never read
 them.  Per the sim, g/dev always accumulate in float64, which is also
-what the H100 runs natively.
+what the H100 runs natively.  On ``meta`` tensors each wrapper returns
+its outputs' shapes and dtypes and charges the cost counter for every
+row its launch would cover (``kernels/work.py``).
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, work as _work
+from ..obs import cost as _cost
 from ..obs import gate as _gate
 from .ref import gram_hessian, masked_cv_terms, masked_irls_terms
 
@@ -81,18 +84,28 @@ def fused_irls_plain(beta, X, Xm, y, counts):
     return H, g, dev
 
 
+def _k3_work(beta, X, *_):
+    s_dim, n, d = X.shape
+    return _work.k3_fused_irls(s_dim * n, d, s_dim)
+
+
+@_cost.kernel("K3", _k3_work)
 @_gate.kernel
 def fused_irls_kernel(beta, X, Xm, y, counts):
     """K3 on the tensors' device: the CUDA kernels for CUDA tensors, the
-    plain version for CPU tensors.  Returns (H f32, g f64, dev f64)."""
-    if X.device.type == "cpu":
+    plain version for CPU tensors, the outputs' shapes for ``meta``
+    tensors.  Returns (H f32, g f64, dev f64)."""
+    if _build.plain(X, "K3"):
         return fused_irls_plain(beta, X, Xm, y, counts)
-    if X.device.type != "cuda":
-        raise ValueError(f"no K3 for device {X.device}")
     _check_args(beta, X, Xm, y, counts)
     s_dim, n, d = X.shape
     if d > _MAX_DIM:
         raise ValueError(f"K3 supports d <= {_MAX_DIM}, got {d}")
+    if X.device.type == "meta":
+        return (torch.empty((s_dim, d, d), dtype=torch.float32,
+                            device=X.device),
+                torch.empty((s_dim, d), dtype=torch.float64, device=X.device),
+                torch.empty((s_dim,), dtype=torch.float64, device=X.device))
     beta, X, Xm, y, counts = (t.contiguous() for t in (beta, X, Xm, y,
                                                         counts))
     shape = cv_launch_shape(1, s_dim, n, d, X.device, kernel="k3")
@@ -206,20 +219,34 @@ def cv_launch_shape(c_dim: int, s_dim: int, n: int, d: int, device,
     return dict(nsl_rows=nsl_r, tn_rows=plan["tn_rows"], nsl_gram=nsl_g)
 
 
+def _k5_work(betas, X, *_):
+    c_dim = betas.shape[0]
+    s_dim, n, d = X.shape
+    return _work.k5_fused_irls_cv(s_dim * n, c_dim * s_dim * n, d, c_dim,
+                                  s_dim)
+
+
+@_cost.kernel("K5", _k5_work)
 @_gate.kernel
 def fused_irls_cv_kernel(betas, X, Xm, y, counts, fold_ids, fold_of):
     """K5 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns what the plain version does."""
-    if X.device.type == "cpu":
+    plain version for CPU tensors, the outputs' shapes for ``meta``
+    tensors.  Returns what the plain version does."""
+    if _build.plain(X, "K5"):
         return fused_irls_cv_plain(betas, X, Xm, y, counts, fold_ids,
                                    fold_of)
-    if X.device.type != "cuda":
-        raise ValueError(f"no K5 for device {X.device}")
     _check_cv_args(betas, X, Xm, y, counts, fold_ids, fold_of)
     c_dim = betas.shape[0]
     s_dim, n, d = X.shape
     if d > _MAX_DIM:
         raise ValueError(f"K5 supports d <= {_MAX_DIM}, got {d}")
+    if X.device.type == "meta":
+        f64 = torch.float64
+        return (torch.empty((c_dim, s_dim, d, d), dtype=torch.float32,
+                            device=X.device),
+                torch.empty((c_dim, s_dim, d), dtype=f64, device=X.device),
+                *torch.empty((4, c_dim, s_dim), dtype=f64,
+                             device=X.device).unbind(0))
     betas, X, Xm, y, counts, fold_ids, fold_of = (
         t.contiguous() for t in (betas, X, Xm, y, counts, fold_ids, fold_of))
     shape = cv_launch_shape(c_dim, s_dim, n, d, X.device)
@@ -272,19 +299,21 @@ def gram_hessian_plain(X, w):
     return gram_hessian(X, w)
 
 
+@_cost.kernel("K6", lambda X, w: _work.k6_gram_hessian(*X.shape))
 @_gate.kernel
 def gram_hessian_kernel(X, w):
     """K6 on the tensors' device: the CUDA kernels for CUDA tensors, the
-    plain version for CPU tensors.  X (N, d) and w (N,) of any float
-    dtype are cast to float32 once; returns H (d, d) float32."""
-    if X.device.type == "cpu":
+    plain version for CPU tensors, H's shape for ``meta`` tensors.  X (N,
+    d) and w (N,) of any float dtype are cast to float32 once; returns H
+    (d, d) float32."""
+    if _build.plain(X, "K6"):
         return gram_hessian_plain(X, w)
-    if X.device.type != "cuda":
-        raise ValueError(f"no K6 for device {X.device}")
     _check_gram_args(X, w)
     n, d = X.shape
     if d > _MAX_DIM:
         raise ValueError(f"K6 supports d <= {_MAX_DIM}, got {d}")
+    if X.device.type == "meta":
+        return torch.empty((d, d), dtype=torch.float32, device=X.device)
     Xm = X.to(torch.float32).contiguous()
     w32 = w.to(torch.float32).contiguous()
     plan = irls_plan("k6", d, X.device)

@@ -9,7 +9,8 @@
   in one launch.
 
 Each has its plain PyTorch version beside it (``*_plain``) — the CPU path
-and the kernel's oracle.
+and the kernel's oracle — and gives ``meta`` tensors its outputs' shapes
+(``flash_attention``'s docstring says how the wrappers route devices).
 
 The TPU kernel's ``mulmod31``, ``addmod`` and ``_fold`` split 31-bit
 products into 16-bit limbs because the TPU vector unit has no 64-bit
@@ -21,7 +22,8 @@ import ctypes
 
 import torch
 
-from . import _build, field_consts, ref
+from . import _build, field_consts, ref, work as _work
+from ..obs import cost as _cost
 from ..obs import gate as _gate
 
 __all__ = ["encode_share_kernel", "encode_share_plain", "share_kernel",
@@ -85,6 +87,12 @@ def encode_share_plain(x: torch.Tensor, coeffs: torch.Tensor,
     return torch.stack(out).to(torch.int32)
 
 
+def _k1_work(x, coeffs, moduli, frac_bits, points):
+    return _work.k1_encode_share(x.numel(), x.element_size(), len(moduli),
+                                 coeffs.shape[1], len(points))
+
+
+@_cost.kernel("K1", _k1_work)
 @_gate.kernel
 def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
                         moduli: tuple[int, ...], frac_bits: int,
@@ -93,10 +101,8 @@ def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
     plain version for CPU tensors.  Returns (len(points), R, rows, 128)
     int32 shares, holder axis leading.  The kernel takes moduli in (1,
     2**31) (``field_consts.barrett_constants``)."""
-    if x.device.type == "cpu":
+    if _build.plain(x, "K1"):
         return encode_share_plain(x, coeffs, moduli, frac_bits, points)
-    if x.device.type != "cuda":
-        raise ValueError(f"no K1 for device {x.device}")
     _check_args(x, coeffs, moduli, points)
     consts = field_consts.barrett_constants(tuple(moduli))
     barrett = (ctypes.c_ulonglong * len(consts))(*consts)
@@ -108,6 +114,8 @@ def encode_share_kernel(x: torch.Tensor, coeffs: torch.Tensor,
                       device=x.device)
     if max(points) >= field_consts.MAX_MODULUS:
         raise ValueError(f"K1 takes points below 2**31, got {max(points)}")
+    if x.device.type == "meta":
+        return out
     # up to K1_STRUCT_POINTS points ride in the launch's parameters; more
     # go as a device table, int32 (each < 2**31) read as uint32
     pts = (ctypes.c_int * len(points))(*points)
@@ -162,6 +170,12 @@ def share_plain(secret: torch.Tensor, coeffs: torch.Tensor,
                         for r, p in enumerate(moduli)], dim=1)
 
 
+def _k4_work(secret, coeffs, moduli, num_shares):
+    R, t_minus_1, n = coeffs.shape
+    return _work.k4_share(n, R, t_minus_1, num_shares)
+
+
+@_cost.kernel("K4", _k4_work)
 @_gate.kernel
 def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
                  moduli: tuple[int, ...], num_shares: int) -> torch.Tensor:
@@ -169,10 +183,8 @@ def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
     plain version for CPU tensors.  Returns (w, R, n) int64 shares,
     holder axis leading, every residue from one launch.  The kernel
     reduces by Barrett's method (``field_consts.barrett_constants``)."""
-    if secret.device.type == "cpu":
+    if _build.plain(secret, "K4"):
         return share_plain(secret, coeffs, moduli, num_shares)
-    if secret.device.type != "cuda":
-        raise ValueError(f"no K4 for device {secret.device}")
     _check_share_args(secret, coeffs, moduli, num_shares)
     secret = secret.contiguous()
     coeffs = coeffs.contiguous()
@@ -181,6 +193,8 @@ def share_kernel(secret: torch.Tensor, coeffs: torch.Tensor,
     R, t_minus_1, n = coeffs.shape
     out = torch.empty((num_shares, R, n), dtype=torch.int64,
                       device=secret.device)
+    if secret.device.type == "meta":
+        return out
     err = _build.library().repro_k4_share(
         secret.data_ptr(), coeffs.data_ptr(), out.data_ptr(), n, R,
         t_minus_1, barrett, num_shares,

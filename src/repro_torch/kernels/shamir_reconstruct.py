@@ -5,7 +5,9 @@ shamir_reconstruct_pallas`` (``garner=True``) together with the uint64
 epilogue of its ``ops.shamir_reveal_flat``: the CUDA kernel in
 ``csrc/shamir_reconstruct.cu`` emits the (rows, 128) float64 aggregate
 directly.  :func:`reconstruct_plain` is the same function in plain
-PyTorch — the CPU path and the kernel's oracle.
+PyTorch — the CPU path and the kernel's oracle; ``meta`` shares get the
+output's shape (``flash_attention``'s docstring says how the wrappers
+route devices).
 
 With ``frac_bits=None`` both return the reconstructed residues
 (R, rows, 128) int32 instead of decoding them.
@@ -17,7 +19,8 @@ import functools
 
 import torch
 
-from . import _build, field_consts
+from . import _build, field_consts, work as _work
+from ..obs import cost as _cost
 from ..obs import gate as _gate
 
 __all__ = ["lagrange_weights_host", "reconstruct_kernel",
@@ -101,6 +104,12 @@ def reconstruct_plain(shares: torch.Tensor, points: tuple[int, ...],
     return signed.to(torch.float64) / float(1 << frac_bits)
 
 
+def _k2_work(shares, points, moduli, frac_bits):
+    k, R, rows = shares.shape[:3]
+    return _work.k2_reconstruct(rows * 128, k, R, frac_bits is not None)
+
+
+@_cost.kernel("K2", _k2_work)
 @_gate.kernel
 def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
                        moduli: tuple[int, ...],
@@ -108,10 +117,8 @@ def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  The kernel takes moduli in (1, 2**31)
     (``field_consts.barrett_constants``) and shares in [0, 2**31)."""
-    if shares.device.type == "cpu":
+    if _build.plain(shares, "K2"):
         return reconstruct_plain(shares, points, moduli, frac_bits)
-    if shares.device.type != "cuda":
-        raise ValueError(f"no K2 for device {shares.device}")
     _check_args(shares, points, moduli, frac_bits)
     consts = field_consts.barrett_constants(tuple(moduli))
     barrett = (ctypes.c_ulonglong * len(consts))(*consts)
@@ -123,6 +130,8 @@ def reconstruct_kernel(shares: torch.Tensor, points: tuple[int, ...],
     else:
         out = torch.empty((rows, 128), dtype=torch.float64,
                           device=shares.device)
+    if shares.device.type == "meta":
+        return out
     flat = tuple(w for row in lagrange_weights_host(tuple(points),
                                                     tuple(moduli))
                  for w in row)

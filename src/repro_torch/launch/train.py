@@ -49,9 +49,10 @@ from ..core.flatbuf import (
     tree_flatten,
     tree_unflatten,
 )
+from ..obs import cost as _cost
 
-__all__ = ["main", "mean_gradients", "mesh_train_step", "parse_args",
-           "run_lm", "run_logreg", "train_step", "wire_bytes"]
+__all__ = ["main", "mean_gradients", "mesh_step", "mesh_train_step",
+           "parse_args", "run_lm", "run_logreg", "train_step", "wire_bytes"]
 
 # the synthetic LM stream cycles over a fixed corpus of this many batches
 CORPUS_BATCHES = 4
@@ -366,7 +367,21 @@ def mesh_train_step(params, opt_state, batch, cfg, opt_cfg, *, rules,
     other metrics the last one's.  Then the sharded ``adamw_update``,
     which updates ``params`` and the moments in place.  Returns (params,
     opt_state, metrics: loss, ce, aux, grad_norm, lr as floats).  With
-    ``rules`` None, or a mesh of one rank, it is the unsharded step."""
+    ``rules`` None, or a mesh of one rank, it is the unsharded step.
+
+    The step itself is :func:`mesh_step`, which returns the metrics as
+    tensors: the dry run (``launch/dryrun.py``) runs it on ``meta``
+    tensors, which hold no value to read."""
+    params, opt_state, metrics = mesh_step(params, opt_state, batch, cfg,
+                                           opt_cfg, rules=rules,
+                                           n_micro=n_micro)
+    return params, opt_state, {k: float(v) for k, v in metrics.items()}
+
+
+def mesh_step(params, opt_state, batch, cfg, opt_cfg, *, rules,
+              n_micro=None):
+    """:func:`mesh_train_step` with its metrics (loss, ce, aux, grad_norm,
+    lr) left as scalar tensors on the step's device: no host read."""
     from ..distributed import compat
     from ..distributed.sharding import split_axes
     from ..optim.adamw import adamw_update
@@ -384,7 +399,10 @@ def mesh_train_step(params, opt_state, batch, cfg, opt_cfg, *, rules,
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for i in range(n):
+        # a dry run on meta may run a few of the microbatches, which cost
+        # alike, and scale what they count (obs/cost.py)
+        steps = _cost.loop_steps(n, leaves[0])
+        for i in _cost.probed(range(steps), n, steps, "microbatches"):
             mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
             lm, metrics, gm = _value_and_grad(params, mb, cfg, rules)
             for a, g in zip(grads, gm):
@@ -403,9 +421,8 @@ def mesh_train_step(params, opt_state, batch, cfg, opt_cfg, *, rules,
             params, opt_state, om = adamw_update(
                 grads, opt_state, params, opt_cfg,
                 split_axes=split_axes(cfg, rules))
-    return params, opt_state, {**{k: float(v) for k, v in metrics.items()},
-                               "grad_norm": float(om["grad_norm"]),
-                               "lr": float(om["lr"]), "loss": float(loss)}
+    return params, opt_state, {**metrics, "grad_norm": om["grad_norm"],
+                               "lr": om["lr"], "loss": loss}
 
 
 def corpus_batch(seed: int, step: int, batch: int, seq_len: int,

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..obs import cost as _cost
+from .layers import pad_steps
 
 __all__ = ["attend", "decode_attend", "merged_softmax", "swa_attend_cp"]
 
@@ -126,14 +128,19 @@ def attend(q, k, v, *, window: int = 0):
     qr = q.reshape(B, Sq, KVH, G, Dk)
     kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)
     outs = []
-    for i in range(Sq // bq):
+    # every query block costs alike (one span of keys): a dry run on meta
+    # may run a few and scale what they count (obs/cost.py)
+    nq = Sq // bq
+    steps = _cost.loop_steps(nq, q)
+    for i in _cost.probed(range(steps), nq, steps, "banded query blocks"):
         q_pos = i * bq + torch.arange(bq, dtype=torch.int32, device=dev)
         start = min(max((i + 1) * bq - span, 0), Skv - span)
         outs.append(_online_block_scan(
             qr[:, i * bq:(i + 1) * bq], k[:, start:start + span],
             v[:, start:start + span], q_pos, kv_pos[start:start + span],
             window, Dk**-0.5))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv).to(q.dtype)
+    return pad_steps(torch.cat(outs, dim=1), Sq).reshape(
+        B, Sq, H, Dv).to(q.dtype)
 
 
 def swa_attend_cp(q, k, v, *, window: int, rules):

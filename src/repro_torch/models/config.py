@@ -2,6 +2,8 @@
 
 The JAX package's ``models/config.py`` field for field, so a config built
 for one package reads the same in the other; ``dtype`` is a torch dtype.
+``ShapeConfig`` and ``SHAPES`` are its four dry-run shapes
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["ModelConfig", "block_kinds", "segments"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "block_kinds", "segments"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +91,27 @@ class ModelConfig:
         from .transformer import count_params
 
         return count_params(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One deployment shape of the dry run's cells: a global batch of
+    ``global_batch`` sequences of ``seq_len`` tokens, trained
+    (``train``), prefilled (``prefill``) or decoded one token against a
+    cache of ``seq_len`` (``decode``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rotary", "apply_rope", "swiglu", "gelu_mlp"]
+__all__ = ["rms_norm", "rotary", "apply_rope", "swiglu", "gelu_mlp",
+           "pad_steps"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -59,3 +60,15 @@ def swiglu(x, w1, w3, w2):
 def gelu_mlp(x, w1, w2):
     """GELU MLP with JAX's default tanh approximation."""
     return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+def pad_steps(out, trip: int):
+    """The (B, steps, ...) outputs of a loop a dry run probed
+    (``obs/cost.loop_steps``) stretched along axis 1 to ``trip`` by its
+    last step, on ``meta`` (shapes only); ``out`` itself when every step
+    ran."""
+    steps = out.shape[1]
+    if steps == trip:
+        return out
+    return torch.cat([out, out[:, -1:].expand(-1, trip - steps,
+                                              *out.shape[2:])], dim=1)

@@ -26,6 +26,12 @@ and the recurrence runs in float32; RG-LRU's decay exponent is computed
 in the activation dtype and cast, its gated input stays in the activation
 dtype until the step widens it, its carry is float32 and each step is
 emitted in the activation dtype.
+
+Each loop over time asks the cost counter how many of its steps to run
+(``obs/cost.loop_steps``): all of them, except in a dry run on ``meta``
+tensors that probes loops, where the first steps run, the counter scales
+what they count by the trip count, and the last step's output stands in
+for the rest (``meta`` tensors hold no values).
 """
 from __future__ import annotations
 
@@ -33,7 +39,16 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..obs import cost as _cost
+from .layers import pad_steps
+
 __all__ = ["rwkv6_mix", "rwkv6_channelmix", "rglru_block"]
+
+
+def _first(t, steps: int):
+    """The first ``steps`` entries of ``t``'s leading (time) axis: ``t``
+    itself unless a dry run probes its loop."""
+    return t if steps == t.shape[0] else t[:steps]
 
 
 # --------------------------------------------------------------------- RWKV6
@@ -101,7 +116,8 @@ def _rwkv6_chunked(r, k, v, w, u, state0, chunk: int = 16):
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (r, k, v, w, u, state0))
     state, outs = state0, []
-    for n in range(N):
+    steps = _cost.loop_steps(N, r)
+    for n in _cost.probed(range(steps), N, steps, "rwkv6 chunks"):
         if remat:
             state, o = torch.utils.checkpoint.checkpoint(
                 chunk_step, state, rs[n], ks[n], vs[n], ws[n],
@@ -109,7 +125,7 @@ def _rwkv6_chunked(r, k, v, w, u, state0, chunk: int = 16):
         else:
             state, o = chunk_step(state, rs[n], ks[n], vs[n], ws[n])
         outs.append(o)
-    out = torch.stack(outs, dim=1).reshape(B, N * C, H, D)
+    out = pad_steps(torch.stack(outs, dim=1), N).reshape(B, N * C, H, D)
     return out[:, :S], state
 
 
@@ -123,13 +139,16 @@ def _rwkv6_recurrence(r, k, v, w, u, state0):
     r, k, v, w = (t.movedim(1, 0).contiguous() for t in (r, k, v, w))
     ub = u[None, :, :, None]
     state, outs = state0, []
-    for r_t, k_t, v_t, w_t in zip(*(t.unbind(0) for t in (r, k, v, w))):
+    S = r.shape[0]
+    steps = _cost.loop_steps(S, r)
+    rows = zip(*(_first(t, steps).unbind(0) for t in (r, k, v, w)))
+    for r_t, k_t, v_t, w_t in _cost.probed(rows, S, steps, "rwkv6 tokens"):
         kv = k_t[..., :, None] * v_t[..., None, :]  # (B, H, Dk, Dv)
         # einsum("bhk,bhkv->bhv") as one batched product
         outs.append(torch.matmul(r_t[..., None, :], state + ub * kv)[
             ..., 0, :])
         state = w_t[..., :, None] * state + kv
-    return torch.stack(outs, dim=1), state  # (B, S, H, Dv)
+    return pad_steps(torch.stack(outs, dim=1), S), state  # (B, S, H, Dv)
 
 
 def _matmul(p):
@@ -215,10 +234,13 @@ def _rglru_recurrence(a, gated_x, h0, out_dtype=torch.float32):
         torch.float32)
     a, bx = a.movedim(1, 0).contiguous(), bx.movedim(1, 0).contiguous()
     h, outs = h0, []
-    for a_t, bx_t in zip(a.unbind(0), bx.unbind(0)):
+    S = a.shape[0]
+    steps = _cost.loop_steps(S, a)
+    rows = zip(_first(a, steps).unbind(0), _first(bx, steps).unbind(0))
+    for a_t, bx_t in _cost.probed(rows, S, steps, "rglru tokens"):
         h = a_t * h + bx_t
         outs.append(h.to(out_dtype))
-    return torch.stack(outs, dim=1), h
+    return pad_steps(torch.stack(outs, dim=1), S), h
 
 
 def rglru_block(p, x, cfg, state=None, mm=None):

@@ -116,8 +116,8 @@ from .layers import apply_rope, gelu_mlp, rms_norm, rotary, swiglu
 from .moe import LEAVES as MOE_LEAVES, moe_ffn
 from .ssm import rglru_block, rwkv6_channelmix, rwkv6_mix
 
-__all__ = ["init_params", "abstract_params", "count_params", "forward",
-           "loss_fn", "prefill", "decode_step", "init_cache",
+__all__ = ["init_params", "abstract_params", "param_shapes", "count_params",
+           "forward", "loss_fn", "prefill", "decode_step", "init_cache",
            "gather_caches", "gather_logits"]
 
 # ============================================================ initialization
@@ -269,6 +269,19 @@ def abstract_params(cfg: ModelConfig):
          for name, shape in sorted(_block_param_shapes(cfg, kind).items())}
         for kind, n in segments(cfg)]
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> list:
+    """(path, shape) of every leaf of ``init_params``' tree in
+    ``core.flatbuf.tree_flatten``'s order (dict keys sorted), without
+    making a tensor: what a layout computed inside a counted run (the
+    dry run's) reads."""
+    d, V = cfg.d_model, cfg.vocab_size
+    out = [("embed", (V, d)), ("final_norm", (d,)), ("lm_head", (d, V))]
+    for i, (kind, n) in enumerate(segments(cfg)):
+        out += [(f"segments/{i}/{name}", (n, *shape)) for name, shape in
+                sorted(_block_param_shapes(cfg, kind).items())]
+    return out
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -649,10 +662,10 @@ def _embed_in(params, cfg, ctx, tokens=None, embeds=None):
     if cfg.frontend == "embeddings":
         if embeds is None:
             raise ValueError(f"{cfg.name} takes embeddings: pass embeds=")
-        return cut(embeds, 0, ctx.dp).to(cfg.dtype)
+        return cut(embeds, 0, ctx.rows(embeds.shape[0])).to(cfg.dtype)
     if tokens is None:
         raise ValueError(f"{cfg.name} takes tokens")
-    t = cut(tokens, 0, ctx.dp)
+    t = cut(tokens, 0, ctx.rows(tokens.shape[0]))
     spec = ctx.spec("embed", (cfg.vocab_size, cfg.d_model))
     table = ctx.weight(ctx.enter({"embed": params["embed"]},
                                  {"embed": spec})["embed"], spec)
@@ -682,17 +695,19 @@ def _batch_of(cfg, tokens, embeds) -> int:
     return (embeds if cfg.frontend == "embeddings" else tokens).shape[0]
 
 
-def gather_logits(logits, cfg: ModelConfig, rules=None):
+def gather_logits(logits, cfg: ModelConfig, rules=None, batch=None):
     """The whole (B, ..., V) logits from every rank's (B/dp, ..., V/tp)
     block (a collective; as they are without a mesh of more than one
-    rank)."""
+    rank).  ``batch`` (the whole batch's rows, default: a batch that
+    splits over the dp axes) says whether the rows are split."""
     if not _sharded(rules):
         return logits
     with _on_mesh(rules):
         ctx = TP(rules, cfg)
         if ctx.spec("lm_head", (cfg.d_model, cfg.vocab_size))[1] == ctx.tp:
             logits = gather(logits, -1, ctx.tp)
-        return gather(logits, 0, ctx.dp)
+        return gather(logits, 0, ctx.dp if batch is None
+                      else ctx.rows(batch))
 
 
 def gather_caches(caches, cfg: ModelConfig, rules=None):
@@ -704,6 +719,7 @@ def gather_caches(caches, cfg: ModelConfig, rules=None):
     out = []
     with _on_mesh(rules):
         ctx = TP(rules, cfg)
+        rows = ctx.rows(caches.batch)
         for (kind, _), seg in zip(segments(cfg), caches):
             mixer = kind[0]
             whole = {}
@@ -711,14 +727,14 @@ def gather_caches(caches, cfg: ModelConfig, rules=None):
                 if mixer in ATTENTION:
                     if leaf.shape[2] != _slots(cfg, mixer, caches.cache_len):
                         leaf = gather(leaf, 2, ctx.tp)
-                    leaf = gather(leaf, 1, ctx.dp)
+                    leaf = gather(leaf, 1, rows)
                 elif block_layout(cfg, rules, caches.batch, 1, mixer,
                                   "decode") == "full":
                     leaf = gather(leaf, 1, ctx.dp + (ctx.tp,))
                 else:
                     if mixer == "rglru" and leaf.shape[-1] != cfg.lru_width:
                         leaf = gather(leaf, -1, ctx.tp)
-                    leaf = gather(leaf, 1, ctx.dp)
+                    leaf = gather(leaf, 1, rows)
                 whole[name] = leaf
             out.append(whole)
     return out
@@ -747,6 +763,13 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01, *,
     "labels" (B, S)}, the whole batch on every rank under a mesh, where
     ``params`` are this rank's blocks and the loss is the global one (see
     the module's docstring for the aux term)."""
+    rows = batch["labels"].shape[0]
+    if _sharded(rules) and rules.dp_size > 1:
+        with _on_mesh(rules):
+            whole = TP(rules, cfg).rows(rows) == ()
+        if whole:
+            raise ValueError(f"a training batch of {rows} rows must split "
+                             f"over the dp axes ({rules.dp_size} ranks)")
     logits, aux = forward(params, cfg, batch.get("tokens"),
                           embeds=batch.get("embeds"), rules=rules)
     with _on_mesh(rules):
@@ -802,7 +825,8 @@ def _init_cache(cfg, ctx, batch: int, cache_len: int, device):
         else:  # this rank's rows (and RG-LRU's channels)
             t_loc = cache_len
             layout = block_layout(cfg, ctx.rules, batch, 1, mixer, "decode")
-        n_ranks = ctx.ndp * (ctx.ntp if layout == "full" else 1)
+        n_ranks = (ctx.ndp if ctx.rows(batch) else 1) * (
+            ctx.ntp if layout == "full" else 1)
         if batch % n_ranks:
             raise ValueError(f"a batch of {batch} does not split over "
                              f"{n_ranks} ranks")
@@ -818,7 +842,8 @@ def _init_cache(cfg, ctx, batch: int, cache_len: int, device):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                *, rules=None):
     """Zero caches, one dict per segment (see ``kvcache``); under a mesh,
-    this rank's part: its rows, its slots of each attention cache (all T
+    this rank's part: its rows (all of them where the batch does not
+    split over the dp axes), its slots of each attention cache (all T
     where T does not divide tp) and its RG-LRU channels."""
     with _on_mesh(rules):
         return _init_cache(cfg, TP(rules, cfg), batch, cache_len, device)

@@ -1586,3 +1586,68 @@ def test_train_tp4_gradients_on_the_card_match_the_cpu(cuda, ntp):
                         deadline_s=300)
     for errs in ranks:
         assert all(e <= 1e-4 for e in errs.values()), errs
+
+
+# -- the shape dry run: knobs and the counter on the card ---------------------
+
+
+def test_knob_model_equals_the_compiled_kernels(cuda):
+    """Every one of the 42 instantiations' model (``kernels/tuning.py``)
+    equals ``cudaFuncGetAttributes`` and the occupancy API (static and
+    dynamic shared memory, threads a block, blocks an SM from the compiled
+    registers, the registers within the launch bounds' cap), and the flash
+    kernels' dynamic shared memory equals ``repro_k7_smem_bytes`` and
+    ``repro_k8_smem_bytes`` at every head dim."""
+    from repro_torch.analysis.lints import lint_kernel_knobs
+    from repro_torch.kernels import _build, tuning
+
+    attrs = tuning.compiled_attributes()
+    assert len(attrs) == 42
+    families = tuning.check_compiled(attributes=attrs)
+    assert sum(f["instantiations"] for f in families.values()) == 42
+    assert lint_kernel_knobs(registers={
+        n: a["registers"] for n, a in attrs.items()}).ok
+    lib = _build.library()
+    for fam in ("K7", "K8a", "K8b"):
+        for inst in tuning.instantiations(tuning.DEFAULT_KNOBS[fam]):
+            _, kind, dim = inst.name.split()
+            d, bf16 = int(dim[1:]), int(kind == "bf16")
+            got = (lib.repro_k7_smem_bytes(d, bf16) if fam == "K7" else
+                   lib.repro_k8_smem_bytes(int(fam == "K8b"), d, bf16))
+            assert got == inst.dynamic_smem, inst
+
+
+def test_counter_on_meta_equals_the_card(cuda):
+    """One smoke train step (bf16, remat, small width) counted on ``meta``
+    and on the card: the same FLOPs and kernel calls, and the card's
+    launches K7 twice and K8a, K8b once a layer."""
+    import dataclasses
+
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.train import _value_and_grad, corpus_batch
+
+    cfg = dataclasses.replace(smoke_config("qwen2_5_32b"), d_model=256,
+                              num_heads=8, num_kv_heads=2, head_dim=32,
+                              dtype_str="bfloat16", remat=True)
+    counts = []
+    for dev in (torch.device("meta"), cuda):
+        params = (T.abstract_params(cfg) if dev.type == "meta"
+                  else T.init_params(cfg, seed=0, device=dev))
+        batch = {k: (torch.empty(v.shape, dtype=v.dtype, device=dev)
+                     if dev.type == "meta" else v)
+                 for k, v in corpus_batch(0, 0, 4, 64, cfg.vocab_size,
+                                          cuda).items()}
+        for k in (flash_attention_kernel, flash_dq_kernel,
+                  flash_dkdv_kernel):
+            k.launches = 0
+        with CostCounter() as counter:
+            _value_and_grad(params, batch, cfg)
+        counts.append((counter.flops, dict(counter.kernel_calls),
+                       [k.launches for k in (flash_attention_kernel,
+                                             flash_dq_kernel,
+                                             flash_dkdv_kernel)]))
+    (f_meta, calls_meta, launch_meta), (f_card, calls_card, launch_card) = \
+        counts
+    assert f_meta == f_card
+    assert calls_meta == calls_card == {"K7": 4, "K8a": 2, "K8b": 2}
+    assert launch_meta == [0, 0, 0] and launch_card == [4, 2, 2]

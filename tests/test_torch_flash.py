@@ -191,5 +191,16 @@ def test_wrapper_routes_and_rejects():
         flash_attention_kernel(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         flash_attention_kernel(q, k.bfloat16(), v)
+    # meta (the shape dry run) gets K7's output shapes and no launch; a
+    # device that is neither the card, the CPU nor meta raises
+    o, m, l = flash_attention_kernel(q.to("meta"), k.to("meta"),
+                                     v.to("meta"))
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert m.shape == l.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert flash_attention_kernel.launches == before
+
+    class Elsewhere:
+        device, requires_grad = torch.device("xla"), False
+
     with pytest.raises(ValueError, match="device"):
-        flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"))
+        flash_attention_kernel(Elsewhere(), Elsewhere(), Elsewhere())

@@ -189,8 +189,18 @@ def test_wrappers_route_and_refuse():
         flash_dq_kernel(q, k, v, do, m, stats[1], stats[2][..., :-1])
     with pytest.raises(ValueError, match="do must match"):
         flash_dkdv_kernel(q, k, v, do.double(), *stats)
+    # meta (the shape dry run) gets dq's and dk's, dv's shapes and no
+    # launch; a device that is neither the card, the CPU nor meta raises
+    meta = [t.to("meta") for t in (q, k, v, do, *stats)]
+    assert flash_dq_kernel(*meta).shape == q.shape
+    assert [t.shape for t in flash_dkdv_kernel(*meta)] == [k.shape, v.shape]
+    assert (flash_dq_kernel.launches, flash_dkdv_kernel.launches) == before
+
+    class Elsewhere:
+        device = torch.device("xla")
+
     with pytest.raises(ValueError, match="device"):
-        flash_dq_kernel(*(t.to("meta") for t in (q, k, v, do, *stats)))
+        flash_dq_kernel(*[Elsewhere()] * 7)
 
 
 def test_function_saves_nothing_under_inference_mode():

@@ -27,7 +27,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "repro_torch.models.transformer, repro_torch.analysis, "
         "repro_torch.analysis.drivers, repro_torch.analysis.fixtures, "
         "repro_torch.analysis.lints, repro_torch.analysis.__main__, "
-        "repro_torch.obs.audit, repro_torch.obs.__main__\n"
+        "repro_torch.obs.audit, repro_torch.obs.__main__, "
+        "repro_torch.obs.cost, repro_torch.kernels.work, "
+        "repro_torch.kernels.tuning, repro_torch.configs.perf_presets, "
+        "repro_torch.launch.cost_analysis, repro_torch.launch.dryrun, "
+        "repro_torch.launch.mesh, repro_torch.launch.specs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"

@@ -220,12 +220,13 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="descending"):
         reconstruct_kernel(torch.zeros(2, 2, 8, 128, dtype=torch.int32),
                            (1, 2), tuple(reversed(FIELD_WIDE.moduli)), 28)
+    # a device that is neither the card, the CPU nor ``meta`` (the dry
+    # run's, which gets the outputs' shapes) raises
+    class Elsewhere:
+        device = torch.device("xla")
+
     with pytest.raises(ValueError, match="no K3"):
-        meta = [torch.empty(s, device="meta", dtype=dt) for s, dt in (
-            ((4,), torch.float64), ((1, 3, 4), torch.float64),
-            ((1, 3, 4), torch.float32), ((1, 3), torch.float64),
-            ((1,), torch.int32))]
-        fused_irls_kernel(*meta)
+        fused_irls_kernel(*[Elsewhere()] * 5)
 
 
 # -- past 16 shares: (t, w) = (2, 17) and (17, 20) ---------------------------

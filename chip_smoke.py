@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile] [--repeats 5] [--trace PATH]
-                          [--only 18|19|20|21]
+                          [--only 18|19|20|21|22]
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
@@ -328,6 +328,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
    rank; a ``{"dry_run": ...}`` line.  The dry run is host arithmetic on
    the ``meta`` device: its figures are predictions, not measurements of
    the card.  ``--only 21`` runs phases 1, 2 and 21 alone;
+22. the normal entry points, after phase 21: the twins of the four
+   examples in process through their ``run(device)`` (``examples/
+   torch_*.py``: each one's own asserts and its ``OK``; the LM twin's
+   resumed steps 10-14 equal to an uninterrupted 15-step run's, losses
+   and final checkpoint bit for bit), ``python examples/
+   torch_quickstart.py`` once as a user types it (exit 0, last line
+   ``OK``), then ``launch.train.main`` on the paper's four studies at
+   paper size (``--fused --protect both``: converged, R^2 against the
+   pooled fit above 0.999999, at most 10 rounds, bytes exactly rounds x
+   ``round_bytes``), ``--rounds scan`` on Synthetic (the step run's
+   rounds and bytes; the fit's host reads counted by site: one block
+   read-back, one ``settled`` read a slot, one headroom maximum a round),
+   ``--select-lambda`` on Insurance, ``--l1`` on Parkinsons.Total, a
+   checkpointed run stopped after its round n - 2 and ``--resume``d (beta
+   bit for bit), the LM trainer with ``--fail-at 2 --compress`` and
+   ``launch.serve.main`` on three archs; every run's launches held to its
+   model (the coordinator's fused rounds K1 and K2 a round and no K3,
+   λ selection K5, K1 and K2 a round, the LM trainer K1 and K2 a step
+   and K7, K8a, K8b a layer an institution, serving K7 a layer a
+   prefill) and its ``device`` field; and an institution's CPU tensors
+   under a coordinator on the card: uploaded once, at construction, and
+   never in a round.  A ``{"entry_points": ...}`` line with each run's
+   wall seconds and launches.  ``--only 22`` runs phases 1, 2 and 22;
 12. (printed last) one JSON line with each kernel's time, bound and
    launches, K8a/K8b with the SDPA backward as their one library call
    (also at phase 18's three training shapes, MLA's bound and SDPA call
@@ -644,6 +667,28 @@ D2B_RANK_WIRE = {
                           "all_gather": 16_818_176, "all_gather_calls": 16}}
 # (d) the sweep's subprocesses at once, and how long it may take
 SWEEP_JOBS, SWEEP_DEADLINE_S = 8, 420
+# phase 22: the normal entry points.  The twins of the four examples
+# (examples/torch_*.py, their own sizes), then launch.train's command
+# line on the paper's four studies at paper size (``load_study`` scale
+# 1.0: Insurance 9,822 x 84 and the Parkinsons studies 5,875 x 20 over 5
+# institutions, Synthetic 999,996 x 6 over 6), fused rounds, protect
+# "both", 2-of-3 over the CRT pair; the LM trainer with a failure and
+# compression; launch.serve's smoke configs (the JAX package's serve
+# always serves its smoke config)
+EP_STUDIES = {"insurance": (84, 5, 9_822),
+              "parkinsons.motor": (20, 5, 5_875),
+              "parkinsons.total": (20, 5, 5_875),
+              "synthetic": (6, 6, 999_996)}
+EP_FUSED = ["--fused", "--protect", "both"]
+EP_SELECT = ["--study", "insurance", "--select-lambda", "10,3,1,0.3",
+             "--folds", "3"]
+EP_L1 = ["--study", "parkinsons.total", "--l1", "0.1"]
+EP_FAIL = ["--arch", "qwen2_5_32b", "--smoke", "--steps", "4", "--batch",
+           "4", "--seq-len", "32", "--institutions", "4", "--fail-at", "2",
+           "--compress"]
+EP_SERVE = ("qwen2_5_32b", "deepseek_v2_lite", "rwkv6_3b")
+# host-to-device copies of at least this many elements count as uploads
+EP_UPLOAD_MIN = 1024
 
 
 def check(cond: bool, what: str) -> None:
@@ -4286,6 +4331,411 @@ def dryrun_phase(dev, smi, counts, d2b_out=None, smoke=False) -> dict:
     return out
 
 
+def load_twin(name: str):
+    """The module ``examples/<name>.py`` (a twin of a JAX example)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def transfer_counter(dev):
+    """A dispatch mode that counts, by the innermost ``repro_torch`` frame
+    that made them (``path:function``), the run's blocking reads of
+    ``dev``'s tensors on the host (a scalar read, or a copy to the CPU)
+    in ``reads``, and its copies of at least ``EP_UPLOAD_MIN`` elements
+    from the CPU to ``dev`` in ``uploads``.  On the CPU (a rehearsal) the
+    scalar reads count and no copy does."""
+    import os
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    pkg = str(ROOT / "src" / "repro_torch") + os.sep
+    aten = torch.ops.aten
+
+    def site():
+        for fr in reversed(traceback.extract_stack()):
+            if fr.filename.startswith(pkg):
+                return f"{fr.filename[len(pkg):]}:{fr.name}"
+        return "outside repro_torch"
+
+    class Transfers(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.reads = collections.Counter()
+            self.uploads = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._local_scalar_dense.default:
+                if args[0].device.type == dev.type:
+                    self.reads[site()] += 1
+            elif func in (aten._to_copy.default, aten.copy_.default):
+                src, dst = ((args[0], out) if func is aten._to_copy.default
+                            else (args[1], args[0]))
+                if not (isinstance(src, torch.Tensor)
+                        and isinstance(dst, torch.Tensor)):
+                    return out
+                if src.device.type == dev.type != "cpu" \
+                        and dst.device.type == "cpu":
+                    self.reads[site()] += 1
+                elif src.device.type == "cpu" != dev.type \
+                        and dst.device.type == dev.type \
+                        and src.numel() >= EP_UPLOAD_MIN:
+                    self.uploads[site()] += 1
+            return out
+
+    # the first op under a dispatch mode imports torch's tracing modules
+    # (seconds): pay it here, outside any timed run
+    with Transfers():
+        torch.zeros(2).add_(1)
+    return Transfers()
+
+
+def entry_points_phase(dev, smi, counts, smoke=False) -> dict:
+    """Phase 22: the system's normal entry points on ``dev``.  The four
+    example twins in process through ``run(device)`` (each one's own
+    asserts and its ``OK``), the quickstart twin once as a user types it,
+    then ``launch.train.main`` on the paper's four studies at paper size
+    (``smoke``: scale 0.02, a CPU rehearsal), scan rounds, λ selection,
+    L1, a checkpointed logreg run stopped and resumed, the LM trainer
+    with a failure and compression, and ``launch.serve.main`` on three
+    archs; each run's wall seconds and launches, held to its launch
+    model on the card.  The record for the ``{"entry_points": ...}``
+    line; each run's ``launches`` lists the counters it moved."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.collective import SecureCollective
+    from repro_torch.core.protocol import Institution, StudyCoordinator
+    from repro_torch.core.shamir import ShamirScheme
+    from repro_torch.data import generate_synthetic
+    from repro_torch.launch import serve, train
+
+    reset, read = counts
+    on_card = dev.type == "cuda"
+    scale = "0.02" if smoke else "1.0"
+    K1, K2, K3, K5 = ("encode_share_kernel", "reconstruct_kernel",
+                      "fused_irls_kernel", "fused_irls_cv_kernel")
+    K7, K8A, K8B = "flash_attention_kernel", "flash_dq_kernel", \
+        "flash_dkdv_kernel"
+    runs: dict = {}
+    t_phase = time.perf_counter()
+
+    def timed(label, fn):
+        """Run ``fn`` with its output captured; record its wall seconds
+        (to a synchronize) and launches; returns (result, its lines,
+        launches)."""
+        buf = io.StringIO()
+        if on_card:
+            torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read()
+        launched = {k: v for k, v in launches.items() if v}
+        runs[label] = {"seconds": secs, "launches": launched}
+        print(f"phase 22 {label}: {secs:.3f} s, launches {launched}",
+              flush=True)
+        return res, buf.getvalue().splitlines(), launches
+
+    def want(launches, label, **n):
+        """On the card, ``launches`` is exactly ``n`` (others 0)."""
+        if on_card:
+            full = {k: 0 for k in launches}
+            full.update({{"K1": K1, "K2": K2, "K3": K3, "K5": K5,
+                          "K7": K7, "K8a": K8A, "K8b": K8B}[k]: v
+                         for k, v in n.items()})
+            check(launches == full, f"phase 22 {label}: launches "
+                  f"{launches} != {full}")
+
+    def on_dev(t: torch.Tensor, what: str):
+        check(t.device == (torch.device("cuda", 0) if on_card else dev),
+              f"phase 22 {what} on {t.device}")
+
+    def device_field(rep, label):
+        check(rep["device"] == str(dev), f"phase 22 {label}: device "
+              f"{rep['device']}")
+
+    # -- (a) the twins of the four examples ----------------------------------
+    qs = load_twin("torch_quickstart")
+    out, lines, launches = timed("quickstart", lambda: qs.run(dev))
+    sec = out["secure"]
+    check(lines[-1] == "OK" and out["device"] == str(dev),
+          f"phase 22 quickstart: {lines[-3:]}")
+    # the JAX example's aggregator: ShamirScheme's default reference
+    # backend, the loop path in both packages (no kernel)
+    qs_round = SecureCollective(scheme=ShamirScheme(2, 3)).round_bytes(
+        8, 5, "gradient", num_live_centers=3)
+    check(sec.converged and sec.iterations <= 10
+          and sec.bytes_transmitted == sec.iterations * qs_round,
+          f"phase 22 quickstart: {sec.iterations} iterations, "
+          f"{sec.bytes_transmitted} bytes")
+    want(launches, "quickstart")
+    runs["quickstart"].update(iterations=sec.iterations, r2=out["r2"],
+                              bytes=sec.bytes_transmitted)
+
+    cmd = [sys.executable, str(ROOT / "examples" / "torch_quickstart.py")]
+    if not on_card:
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0 and res.stdout.splitlines()[-1] == "OK",
+          f"phase 22 {' '.join(cmd[1:])}: rc {res.returncode} "
+          f"{res.stdout[-500:]}{res.stderr[-2000:]}")
+    runs["quickstart_subprocess"] = {
+        "seconds": time.perf_counter() - t0, "argv": cmd[1:],
+        "last_line": res.stdout.splitlines()[-1]}
+    print(f"phase 22 python examples/torch_quickstart.py: exit 0, last line "
+          f"OK, {runs['quickstart_subprocess']['seconds']:.3f} s", flush=True)
+
+    ftc = load_twin("torch_fault_tolerant_consortium")
+    out, lines, launches = timed("consortium", lambda: ftc.run(dev))
+    coord, sup = out["coord"], out["supervisor"]
+    check(lines[-1] == "OK" and coord.converged and out["r2"] > 0.999,
+          f"phase 22 consortium: {lines[-3:]}")
+    on_dev(coord.beta, "the consortium's beta")
+    # the coordinator's fused round keeps its float64 reference summaries
+    # by default in both packages (per-round parity with the loop oracle):
+    # K1 and K2 a round, no K3; every attempt ran (no retry here)
+    check(sup.total_retries == 0, "phase 22 consortium: retries")
+    want(launches, "consortium", K1=coord.iteration, K2=coord.iteration)
+    runs["consortium"].update(
+        iterations=coord.iteration,
+        centers=sorted(c.index for c in coord.centers if c.online),
+        degraded=sum(1 for r in sup.rounds if r.degraded), r2=out["r2"])
+
+    sg = load_twin("torch_smart_grid_selection")
+    out, lines, launches = timed("smart_grid", lambda: sg.run(dev))
+    rep = out["report"]
+    check(lines[-1].startswith("OK") and rep.lambda_1se >= rep.lambda_best,
+          f"phase 22 smart grid: {lines[-3:]}")
+    on_dev(out["coord"].study.beta, "the smart grid's refit beta")
+    if on_card:
+        check_path_launches(launches, rep.rounds_total, "phase 22 smart grid")
+    runs["smart_grid"].update(
+        rounds=rep.rounds_total, lambda_best=rep.lambda_best,
+        lambda_1se=rep.lambda_1se, selected=out["selected"],
+        bytes_per_round=rep.bytes_per_round)
+
+    lm = load_twin("torch_secure_lm_training")
+    cfg7 = smoke_config("deepseek_7b")
+    out, lines, launches = timed("secure_lm", lambda: lm.run(dev))
+    check(lines[-1] == "OK" and out["device"] == str(dev),
+          f"phase 22 secure LM: {lines[-3:]}")
+    p1, p2 = out["phase1"], out["phase2"]
+    check((p1["steps"], p2["steps"]) == (10, 5)
+          and all(np.isfinite(p1["losses"] + p2["losses"])),
+          f"phase 22 secure LM: steps {p1['steps']}, {p2['steps']}")
+    # K1 and K2 once a step; K7, K8a and K8b once a layer an institution
+    # (the smoke config runs without remat)
+    att = k7_layers(cfg7, 64) * 4 * 15
+    want(launches, "secure_lm", K1=15, K2=15, K7=att, K8a=att, K8b=att)
+    runs["secure_lm"].update(losses=p1["losses"] + p2["losses"],
+                             bytes_per_step=p1["bytes_per_step"][0])
+    same, _, launches = timed("secure_lm_resume_check",
+                              lambda: lm.resume_against_uninterrupted(dev))
+    check(same["losses_equal"] and same["state_equal"],
+          "phase 22 secure LM: the resumed steps 10-14 vs the "
+          f"uninterrupted run: losses {same['resumed']['losses']} vs "
+          f"{same['whole']['losses'][10:]}, final state equal "
+          f"{same['state_equal']}")
+    att = k7_layers(cfg7, 64) * 4 * 20
+    want(launches, "secure_lm_resume_check", K1=20, K2=20, K7=att, K8a=att,
+         K8b=att)
+    runs["secure_lm_resume_check"].update(
+        losses_equal=same["losses_equal"], state_equal=same["state_equal"],
+        resumed_losses=same["resumed"]["losses"])
+
+    # -- (b) launch.train's command line at paper size ------------------------
+
+    def logreg(label, argv, study):
+        d, s, n = EP_STUDIES[study]
+        rep, _, launches = timed(label, lambda: train.main(
+            ["--arch", "logreg_paper", "--scale", scale] + argv
+            + ["--device", str(dev)]))
+        agg = SecureCollective(scheme=ShamirScheme(2, 3, backend="kernel"))
+        rb = agg.round_bytes(d, s, "both", include_count=True,
+                             num_live_centers=3)
+        check(rep["converged"] and rep["r2_vs_gold"] > 0.999999
+              and rep["iterations"] <= 10
+              and rep["bytes_transmitted"] == rep["iterations"] * rb,
+              f"phase 22 {label}: {rep}")
+        check(rep["features"] == d and (smoke or rep["samples"] == n),
+              f"phase 22 {label}: {rep['samples']} x {rep['features']}")
+        device_field(rep, label)
+        # K1 and K2 a round; the coordinator's reference summaries (no K3)
+        want(launches, label, K1=rep["iterations"], K2=rep["iterations"])
+        runs[label].update(
+            samples=rep["samples"], features=d, iterations=rep["iterations"],
+            r2_vs_gold=rep["r2_vs_gold"],
+            max_abs_err_vs_gold=rep["max_abs_err_vs_gold"],
+            fit_seconds=rep["total_seconds"],
+            fit_seconds_per_iteration=rep["total_seconds"]
+            / rep["iterations"], bytes_per_round=rb,
+            bytes_transmitted=rep["bytes_transmitted"])
+        return rep
+
+    for study in EP_STUDIES:
+        logreg(f"train_fused_{study}", ["--study", study] + EP_FUSED, study)
+
+    scan_argv = ["--study", "synthetic", "--rounds", "scan"] + EP_FUSED
+    scan = logreg("train_scan_synthetic", scan_argv, "synthetic")
+    # again, counting the fit's host reads: the counter runs inside the
+    # coordinator's rounds only (not the study's draw or the gold fit)
+    counter = transfer_counter(dev)
+    step_fn = StudyCoordinator.step
+
+    def counted_step(self, *a, **kw):
+        with counter:
+            return step_fn(self, *a, **kw)
+
+    StudyCoordinator.step = counted_step
+    try:
+        counted = logreg("train_scan_synthetic_counted", scan_argv,
+                         "synthetic")
+    finally:
+        StudyCoordinator.step = step_fn
+    step_run = runs["train_fused_synthetic"]
+    check(scan["iterations"] == step_run["iterations"]
+          and scan["bytes_transmitted"] == step_run["bytes_transmitted"],
+          f"phase 22 scan vs step rounds: {scan['iterations']} vs "
+          f"{step_run['iterations']}")
+    # the fit is one block of 50 slots: one marked read-back, one
+    # `settled` read a slot (the documented deviation, ROADMAP item 12)
+    # and, with overflow_check armed as the command line arms it, one
+    # headroom maximum a round (the JAX package's is a debug callback);
+    # no other read and no upload
+    reads = dict(counter.reads)
+    fit_reads = {"core/scanfit.py:run_fit_block": 1,
+                 "core/scanfit.py:scan_rounds": 50,
+                 "core/fixed_point.py:check_headroom": counted["iterations"]}
+    if not on_card:  # a copy from the CPU to the CPU is no copy
+        del fit_reads["core/scanfit.py:run_fit_block"]
+    check(reads == fit_reads and not counter.uploads,
+          f"phase 22 scan: the fit's host reads by site {reads} (want "
+          f"{fit_reads}), uploads {dict(counter.uploads)} (want none)")
+    runs["train_scan_synthetic_counted"]["fit_host_reads_by_site"] = reads
+
+    rep, _, launches = timed("train_select_insurance", lambda: train.main(
+        ["--arch", "logreg_paper", "--scale", scale] + EP_SELECT
+        + ["--device", str(dev)]))
+    check(rep["lambda_1se"] >= rep["lambda_best"]
+          and rep["lambda_1se"] in rep["lambdas"] and rep["folds"] == 3,
+          f"phase 22 select: {rep}")
+    device_field(rep, "select")
+    if on_card:
+        check_path_launches(launches, rep["secure_rounds"],
+                            "phase 22 select")
+    runs["train_select_insurance"].update(
+        rounds=rep["secure_rounds"], lambda_best=rep["lambda_best"],
+        lambda_1se=rep["lambda_1se"], bytes_per_round=rep["bytes_per_round"],
+        nonzero_coefs=rep["nonzero_coefs"])
+
+    rep, _, launches = timed("train_l1_parkinsons_total", lambda: train.main(
+        ["--arch", "logreg_paper", "--scale", scale] + EP_L1
+        + ["--device", str(dev)]))
+    check(rep["converged"] and 0 < rep["nonzero_coefs"] <= 20,
+          f"phase 22 l1: {rep}")
+    device_field(rep, "l1")
+    # secure_fit with its default aggregator: the reference loop
+    want(launches, "train_l1_parkinsons_total")
+    runs["train_l1_parkinsons_total"].update(
+        iterations=rep["iterations"], nonzero_coefs=rep["nonzero_coefs"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, stopped = pathlib.Path(tmp) / "whole", \
+            pathlib.Path(tmp) / "stopped"
+        ck = ["--study", "parkinsons.total"] + EP_FUSED
+        rep = logreg("train_checkpointed_parkinsons_total",
+                     ck + ["--checkpoint-dir", str(whole)],
+                     "parkinsons.total")
+        n = rep["iterations"]
+        shutil.copytree(whole, stopped)
+        for p in stopped.iterdir():  # stopped after round n - 2
+            if int(p.name[5:15]) > n - 2:
+                p.unlink()
+        res, _, launches = timed("train_resumed_parkinsons_total",
+                                 lambda: train.main(
+                                     ["--arch", "logreg_paper", "--scale",
+                                      scale] + ck + [
+                                         "--checkpoint-dir", str(stopped),
+                                         "--resume", "--device", str(dev)]))
+        final = f"ckpt_{n:010d}.npz"
+        with np.load(whole / final) as a, np.load(stopped / final) as b:
+            same_beta = np.array_equal(a["beta"], b["beta"])
+        check(res["iterations"] == n and res["converged"] and same_beta
+              and res["max_abs_err_vs_gold"] == rep["max_abs_err_vs_gold"],
+              f"phase 22 resumed logreg: {res}")
+        want(launches, "train_resumed_parkinsons_total", K1=2, K2=2)
+        runs["train_resumed_parkinsons_total"].update(
+            resumed_at=n - 2, iterations=n, beta_bit_identical=same_beta)
+
+    rep, _, launches = timed("train_lm_fail_compress",
+                             lambda: train.main(EP_FAIL
+                                                + ["--device", str(dev)]))
+    check(rep["steps"] == 4 and all(np.isfinite(rep["losses"])),
+          f"phase 22 LM --fail-at 2 --compress: {rep}")
+    device_field(rep, "LM --fail-at")
+    # four institutions for steps 0-1, three after the failure at step 2
+    att = k7_layers(smoke_config("qwen2_5_32b"), 32) * (4 + 4 + 3 + 3)
+    want(launches, "train_lm_fail_compress", K7=att, K8a=att, K8b=att)
+    runs["train_lm_fail_compress"]["losses"] = rep["losses"]
+
+    # -- (c) launch.serve's command line ---------------------------------------
+    for arch in EP_SERVE:
+        rep, _, launches = timed(f"serve_{arch}", lambda a=arch: serve.main(
+            ["--arch", a, "--device", str(dev)]))
+        check(rep["tokens_generated"] == 8 * 16 and rep["batches"] == 2
+              and rep["nonfinite_logits"] == 0, f"phase 22 serve {arch}: "
+              f"{rep}")
+        device_field(rep, f"serve {arch}")
+        att = k7_layers(smoke_config(arch), 32) * 2  # a prefill a batch
+        want(launches, f"serve_{arch}", K7=att)
+        runs[f"serve_{arch}"].update(
+            tokens_per_second=rep["tokens_per_second"],
+            prefill_seconds=rep["prefill_seconds"],
+            decode_seconds=rep["decode_seconds"])
+
+    # -- (d) an institution's CPU tensors under a coordinator on the card ----
+    parts = generate_synthetic(0, 5, 2_000, 8, device="cpu").parts
+    counter = transfer_counter(dev)
+    with counter:
+        coord = StudyCoordinator(
+            [Institution(f"i{j}", X, y) for j, (X, y) in enumerate(parts)],
+            aggregator=SecureCollective(backend="kernel"), fused=True,
+            device=dev)
+        at_start = sum(counter.uploads.values())
+        for _ in range(3):
+            coord.step()
+    per_round = sum(counter.uploads.values()) - at_start
+    if on_card:
+        check(at_start == 2 * len(parts) and per_round == 0,
+              f"phase 22 CPU institutions: {at_start} uploads at the start, "
+              f"{per_round} in 3 rounds: {dict(counter.uploads)}")
+    runs["cpu_institutions"] = {"uploads_at_construction": at_start,
+                                "uploads_in_3_rounds": per_round}
+    print(f"phase 22 CPU institutions under a coordinator on {dev}: "
+          f"{at_start} uploads at construction, {per_round} in 3 rounds",
+          flush=True)
+    return {"runs": runs, "scale": float(scale),
+            "phase_seconds": time.perf_counter() - t_phase, "card": smi}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4295,7 +4745,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--trace", default="",
                     help="with --profile, write the Chrome trace here")
-    ap.add_argument("--only", type=int, choices=(18, 19, 20, 21),
+    ap.add_argument("--only", type=int, choices=(18, 19, 20, 21, 22),
                     default=None,
                     help="after the card and the build, run only this "
                          "phase (no kernels line, no last line)")
@@ -4415,6 +4865,10 @@ def main() -> int:
         return 0
     if args.only == 21:
         print(json.dumps({"dry_run": dryrun_phase(dev, smi, counts)}))
+        return 0
+    if args.only == 22:
+        print(json.dumps({"entry_points": entry_points_phase(dev, smi,
+                                                             counts)}))
         return 0
 
     # -- the study (Algorithm 3, drawn on the card from a seed) -------------
@@ -4892,6 +5346,12 @@ def main() -> int:
     print(json.dumps({"dry_run": dryrun_phase(dev, smi, counts,
                                               d2b_out=d2b_out)}))
 
+    # -- 22. the normal entry points ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_out = entry_points_phase(dev, smi, counts)
+    print(json.dumps({"entry_points": ep_out}))
+
     # -- 12. times and bounds ------------------------------------------------
     n1 = S * rows * 128
     rows_total = int(packed.counts.sum())
@@ -5099,7 +5559,11 @@ def main() -> int:
                **{f"train_{arch}": out["launches"]
                   for arch, out in f4_out.items()},
                **{f"secure_train_{arch}": launches
-                  for arch, launches in f4_secure.items()}}
+                  for arch, launches in f4_secure.items()},
+               **{f"entry_{label}": collections.defaultdict(
+                   int, run["launches"])
+                  for label, run in ep_out["runs"].items()
+                  if "launches" in run}}
     kernels = []
     for e in entries:
         ms, call_ms = cuda_times(e["run"], 30)
@@ -5179,6 +5643,9 @@ def main() -> int:
         "d2b_launches_per_rank": {
             arch: [r["launches"] for r in m["ranks"]]
             for arch, m in d2b_out["gloo_ranks"]["models"].items()},
+        "entry_points_phase_seconds": ep_out["phase_seconds"],
+        "entry_points_seconds": {label: run["seconds"] for label, run in
+                                 ep_out["runs"].items() if "seconds" in run},
         "script_seconds_to_here": time.perf_counter() - t_script,
         "f4_train": {arch: {k: out[k] for k in (
             "median_seconds_per_step_after_the_first", "tokens_per_second",

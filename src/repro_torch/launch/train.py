@@ -175,6 +175,7 @@ def run_logreg(args) -> dict:
             "nonzero_coefs": int((np.abs(report.beta) > 1e-6).sum()),
             "features": study.num_features,
             "protect": args.protect,
+            "device": str(dev),
         }
         print(json.dumps(out, indent=2))
         return out
@@ -188,6 +189,7 @@ def run_logreg(args) -> dict:
             "nonzero_coefs": int((abs(res.beta) > 1e-6).sum()),
             "features": study.num_features,
             "total_seconds": res.total_seconds,
+            "device": str(dev),
         }
         print(json.dumps(out, indent=2))
         return out

@@ -55,10 +55,12 @@ def _imported_modules(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-], ids=lambda p: str(p.relative_to(ROOT)))
+] + sorted((ROOT / "examples").glob("torch_*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     """Every module of the port, the ``runtime`` copies and
-    ``core/multistudy.py`` included, and ``chip_smoke.py``."""
+    ``core/multistudy.py`` included, ``chip_smoke.py`` and the port's
+    examples."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
@@ -238,3 +240,31 @@ def test_gate_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert certify(spec, "cpu")[0].ok
+
+
+TWINS = ("torch_quickstart", "torch_fault_tolerant_consortium",
+         "torch_smart_grid_selection", "torch_secure_lm_training")
+
+
+def test_the_walk_reaches_the_example_twins():
+    assert sorted(p.stem for p in (ROOT / "examples").glob("torch_*.py")) \
+        == sorted(TWINS)
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twins_raise_without_a_card(monkeypatch, name):
+    """Each twin's ``main`` (and ``run(device=None)``) runs on the card:
+    without one it raises before any work; ``--device cpu`` runs it (the
+    ``tests/test_torch_example_*.py`` files)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: mod.main([]), lambda: mod.run()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    if name == "torch_quickstart":
+        assert mod.main(["--device", "cpu"])["device"] == "cpu"

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
+from ..obs.trace import traced as _traced
 from .logreg import LocalSummaries
 
 __all__ = ["PackedPartitions", "pack_partitions", "pack_cache_clear",
@@ -191,6 +192,7 @@ def _mixed_summaries(beta, X, X32, y, counts):
     return _mixed_gram(X * w[..., None], X32), g, dev
 
 
+@_traced("summaries")
 def batched_local_summaries(
     beta: torch.Tensor,
     packed: PackedPartitions,
@@ -238,6 +240,7 @@ class CVSummaries(NamedTuple):
     val_count: torch.Tensor  # (C, S) held-out row count
 
 
+@_traced("summaries")
 def batched_cv_summaries(
     betas: torch.Tensor,
     packed: PackedPartitions,

@@ -106,7 +106,6 @@ class FitResult:
     iterations: int
     converged: bool
     deviance_trace: list
-    central_seconds: float = 0.0
     total_seconds: float = 0.0
     bytes_transmitted: int = 0
 
@@ -150,6 +149,7 @@ def _soft_threshold(x, t):
     return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
 
 
+@_traced("solve")
 def prox_newton_step(beta: torch.Tensor, hessian: torch.Tensor,
                      gradient: torch.Tensor, lam: float, l1: float,
                      inner_steps: int = 200) -> torch.Tensor:
@@ -178,6 +178,7 @@ def prox_newton_step(beta: torch.Tensor, hessian: torch.Tensor,
     return b
 
 
+@_traced("solve")
 def batched_prox_newton_step(betas, H, g, lams, l1: float,
                              inner_steps: int = 200):
     """The Newton (``l1 == 0``) or proximal Newton step of every slot at
@@ -379,7 +380,6 @@ class SecureFitDriver:
         self._obj_prev = np.inf
         self.converged = False
         self._last_round_metrics: tuple[float, float] | None = None
-        self.central_seconds = 0.0
         self.total_seconds = 0.0
         self.bytes_transmitted = 0
 
@@ -516,7 +516,6 @@ class SecureFitDriver:
             })
 
         # ---- centralized phase (Computation Centers, steps 11-16)
-        t0 = time.perf_counter()
         revealed = {}
         if self.protect != "none":
             agg_protected = self.agg.aggregate(protected)
@@ -540,18 +539,10 @@ class SecureFitDriver:
         global_dev = revealed.get("deviance", summed_plain.get("deviance"))
         obj = float(regularized_objective(global_dev, self.beta, self.lam,
                                           self.l1))
-        self.central_seconds += time.perf_counter() - t0
-
-        def make_beta_new():
-            t1 = time.perf_counter()
-            beta_new = prox_newton_step(
-                self.beta, global_h.to(torch.float64),
-                global_g.to(torch.float64), self.lam, self.l1,
-            )
-            self.central_seconds += time.perf_counter() - t1
-            return beta_new
-
-        return obj, make_beta_new
+        return obj, lambda: prox_newton_step(
+            self.beta, global_h.to(torch.float64),
+            global_g.to(torch.float64), self.lam, self.l1,
+        )
 
     def _round_fused(self, parts, points):
         """One fused iteration: one launch per phase, one host sync.
@@ -570,9 +561,10 @@ class SecureFitDriver:
             self.protect, self.l1, points=pts,
             summaries_backend=self.summaries_backend,
         )
-        # host-sync: the one readback per fused iteration
-        obj, grad_norm, step_norm = torch.stack(
-            [obj, grad_norm, step_norm]).tolist()
+        with _metrics.host_read("secure_fit", "SecureFitDriver._round_fused"):
+            # host-sync: the one readback per fused iteration
+            obj, grad_norm, step_norm = torch.stack(
+                [obj, grad_norm, step_norm]).tolist()
         self._last_round_metrics = (grad_norm, step_norm)
         return obj, lambda: beta_new
 
@@ -632,9 +624,12 @@ class SecureFitDriver:
         return self.result()
 
     def result(self) -> FitResult:
+        stream = "secure_fit_scan" if self.rounds == "scan" else "secure_fit"
+        with _metrics.host_read(stream, "SecureFitDriver.result"):
+            # host-sync: the fit's beta, once
+            beta = self.beta.cpu().numpy()
         return FitResult(
-            self.beta.cpu().numpy(), self.iteration, self.converged,
-            list(self.trace), central_seconds=self.central_seconds,
+            beta, self.iteration, self.converged, list(self.trace),
             total_seconds=self.total_seconds,
             bytes_transmitted=self.bytes_transmitted,
         )
@@ -695,6 +690,7 @@ def _select_holders(protected, sel: torch.Tensor):
     return tree_unflatten(treedef, [l[sel] for l in leaves])
 
 
+@_traced("job")
 def secure_fit(
     parts: Sequence[tuple],
     lam: float = 1.0,

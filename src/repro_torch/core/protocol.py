@@ -421,9 +421,11 @@ class StudyCoordinator:
             self.protect, 0.0, points=points, include_count=True,
             summaries_backend=self.summaries_backend,
         )
-        # host-sync: the round's one read-back
-        obj, grad_norm, step_norm = torch.stack(
-            [obj, grad_norm, step_norm]).tolist()
+        with _metrics.host_read("coordinator",
+                                "StudyCoordinator._round_fused"):
+            # host-sync: the round's one read-back
+            obj, grad_norm, step_norm = torch.stack(
+                [obj, grad_norm, step_norm]).tolist()
         self._last_round_metrics = (grad_norm, step_norm)
         return obj, lambda: beta_new
 

@@ -32,6 +32,7 @@ import torch
 
 from .._device import host_buffer
 from ..obs import gate as _gate
+from ..obs import metrics as _metrics
 from .batched_summaries import PackedPartitions
 from .collective import SecureCollective
 
@@ -43,19 +44,22 @@ def _stack_emits(emits):
                  for i in range(len(emits[0])))
 
 
-def scan_rounds(round_fn, skip_fn, settled_fn, carry0, num_rounds: int):
+def scan_rounds(round_fn, skip_fn, settled_fn, carry0, num_rounds: int,
+                stream: str):
     """``num_rounds`` round slots with early skip.
 
     Each slot runs ``round_fn(carry)`` unless ``settled_fn(carry)`` (a
     boolean device scalar) is already True, in which case ``skip_fn``
     advances the slot for free.  Both return ``(carry, emit)`` with emit
     a tuple of device scalars or vectors of one structure.  Returns
-    ``(carry, stacked emits)``, each emit stacked over the slots.
+    ``(carry, stacked emits)``, each emit stacked over the slots.  Each
+    slot's read counts as one host read of the driver ``stream``.
     """
     carry, emits = carry0, []
     for _ in range(num_rounds):
-        # host-sync: one public scalar per slot
-        settled = bool(settled_fn(carry))
+        with _metrics.host_read(stream, "scan_rounds.settled"):
+            # host-sync: one public scalar per slot
+            settled = bool(settled_fn(carry))
         _gate.scan_slot(not settled)
         carry, emit = (skip_fn if settled else round_fn)(carry)
         emits.append(emit)
@@ -67,8 +71,10 @@ def fit_scan_block(beta, obj_prev, converged, iters, seed: int,
                    agg: SecureCollective, protect: str, l1: float,
                    tol: float, points: tuple[int, ...] | None,
                    include_count: bool, summaries_backend: str,
-                   num_rounds: int, num_parts: int, max_rounds: int):
-    """``num_rounds`` secure Newton rounds as one block.
+                   num_rounds: int, num_parts: int, max_rounds: int,
+                   stream: str = "secure_fit_scan"):
+    """``num_rounds`` secure Newton rounds as one block (its host reads
+    counted for the driver ``stream``).
 
     Returns ``(carry, objs, actives, grad_norms, step_norms)``: carry is
     ``(beta, obj_prev, converged, iters, slot)`` (device tensors, ``slot``
@@ -119,7 +125,7 @@ def fit_scan_block(beta, obj_prev, converged, iters, seed: int,
 
     carry0 = (beta, obj_prev, converged, iters, int(round_base))
     carry, (objs, actives, gnorms, snorms) = scan_rounds(
-        round_fn, skip_fn, settled, carry0, num_rounds)
+        round_fn, skip_fn, settled, carry0, num_rounds, stream)
     return carry, objs, actives, gnorms, snorms
 
 
@@ -138,7 +144,6 @@ def run_fit_block(fit, packed: PackedPartitions, points, num_rounds: int,
     executed rounds as ``RoundReport`` records.
     """
     from .newton import RoundReport
-    from ..obs import metrics as _metrics
 
     device = packed.X.device
     carry, objs, actives, gnorms, snorms = fit_scan_block(
@@ -148,14 +153,15 @@ def run_fit_block(fit, packed: PackedPartitions, points, num_rounds: int,
         torch.zeros((), dtype=torch.int32, device=device),
         fit.seed, fit._round_base, packed, fit.lam, fit.agg, fit.protect,
         l1, float(fit.tol), points, include_count, fit.summaries_backend,
-        num_rounds, packed.num_institutions, num_rounds,
+        num_rounds, packed.num_institutions, num_rounds, stream,
     )
     flat, unflatten = host_buffer(objs, actives, gnorms, snorms, carry[1],
                                   carry[2])
-    # host-sync: the block's one read-back, one copy (beta stays on the
-    # device)
-    objs, actives, gnorms, snorms, obj_prev, conv = unflatten(
-        flat.cpu().numpy())
+    with _metrics.host_read(stream, "run_fit_block"):
+        # host-sync: the block's one read-back, one copy (beta stays on
+        # the device)
+        objs, actives, gnorms, snorms, obj_prev, conv = unflatten(
+            flat.cpu().numpy())
     objs, gnorms, snorms = objs.tolist(), gnorms.tolist(), snorms.tolist()
     reports = []
     for r in range(num_rounds):

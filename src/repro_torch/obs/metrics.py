@@ -5,9 +5,10 @@ Two halves:
 
 * **Registry** — labeled counters/gauges the drivers update once per
   round (``repro_rounds_total``, ``repro_round_bytes``,
-  ``repro_objective`` / ``repro_grad_norm`` / ``repro_step_norm``) and
-  that a privacy ledger can be folded into
-  (``repro_declass_total{site=...}``).  :func:`render_prometheus` /
+  ``repro_objective`` / ``repro_grad_norm`` / ``repro_step_norm``), the
+  host's blocking reads of device values (``repro_host_reads_total``,
+  one at each :func:`host_read`) and that a privacy ledger can be folded
+  into (``repro_declass_total{site=...}``).  :func:`render_prometheus` /
   :func:`export_textfile` emit the standard Prometheus text exposition
   format, ready for the node-exporter textfile collector.
 * **Byte conventions** — the one definition of what a ring collective
@@ -22,6 +23,8 @@ from __future__ import annotations
 
 import threading
 
+from . import trace as _trace
+
 __all__ = [
     "ALL_REDUCE_FACTOR",
     "REDUCE_SCATTER_FACTOR",
@@ -35,6 +38,8 @@ __all__ = [
     "snapshot",
     "reset",
     "observe_round",
+    "HOST_READS",
+    "host_read",
     "render_prometheus",
     "export_textfile",
 ]
@@ -119,6 +124,20 @@ def observe_round(driver: str, nbytes: int, objective: float | None = None,
         set_gauge("repro_grad_norm", grad_norm, driver=driver)
     if step_norm is not None:
         set_gauge("repro_step_norm", step_norm, driver=driver)
+
+
+HOST_READS = "repro_host_reads_total"
+
+
+def host_read(driver: str, name: str):
+    """Count one blocking read of device values by ``driver`` (tracing on
+    or off) and return the ``host_read`` span to wrap the read in.
+
+    The read itself stays in the driver, on its ``# host-sync:`` line:
+    nothing here touches a device value.
+    """
+    inc(HOST_READS, driver=driver)
+    return _trace.span("host_read", name)
 
 
 # -- Prometheus text exposition ---------------------------------------------

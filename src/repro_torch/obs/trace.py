@@ -1,31 +1,65 @@
 """Host-side span tracer: ring-buffered, ~zero-cost when disabled.
 
-One module-level tracer records :class:`Span` intervals (protect /
-aggregate / reveal / newton / round / retry / ...) from every secure
-driver.  ``span(kind, ...)`` returns a shared no-op context manager when
-tracing is off — the disabled cost is one module-global read and a
-branch, which is how the instrumented drivers stay bit- and
-perf-invisible (see ``benchmarks/obs_overhead.py``).
+One module-level tracer records :class:`Span` intervals from every secure
+driver: the job (``secure_fit``, ``secure_cv_path``), the round's phases
+(newton / summaries / protect / aggregate / reveal / secure_round /
+solve), the host's reads of device values (host_read), the CV fold draw
+(folds), and round / retry / selection.  ``span(kind, ...)`` returns a
+shared no-op context manager when tracing is off: the disabled cost is
+one module-global read and a branch, which is how the instrumented
+drivers stay bit- and perf-invisible.
+
+**What a span's duration is.** Host time, on the driving thread.  The
+port's device calls return once their work is queued, so the span of a
+round phase (summaries, protect, aggregate, reveal, solve) covers the
+enqueue of its kernels, not their run; a host_read span covers the wait
+for the device and the copy.  A phase's device time comes from a
+``torch.profiler`` capture: the profiler links each kernel to the op that
+launched it, and the ops under a span are the span's.
+
+**Clock.** Span stamps are nanoseconds on the clock ``torch.profiler``
+stamps its events on (kineto's: nanoseconds since the Unix epoch).  Each
+tracer takes one anchor pair of ``time.perf_counter_ns`` and
+``time.time_ns`` when it is made (:func:`enable`) and stamps spans with
+the monotonic counter plus that offset, so a span maps onto a profiler
+capture of the same process by one subtraction (the capture's
+``trace_start_ns``) and durations keep the monotonic clock's resolution.
+
+**Fields.** Every span has an ``id`` (unique within its tracer), its
+``parent`` (the id of the span enclosing it on the same thread, None at
+the top) and its ``job`` (the id of the enclosing span of kind ``job``,
+its own id for a job span, None outside any job), so the spans of one
+fit or path share an identifier.  ``tid`` is the thread's native id, the
+one the profiler's events carry.  The ring evicts its oldest span past
+``capacity`` and counts each eviction in :attr:`SpanTracer.dropped`.
 
 Exporters:
 
-* :meth:`SpanTracer.export_jsonl` — one JSON object per line, the run
-  ledger ``results/show.py`` renders;
+* :meth:`SpanTracer.export_jsonl` — one JSON object per line (``kind``,
+  ``name``, ``t0`` and ``dur`` in seconds, ``tid``, ``id``, ``parent``,
+  ``job``, ``attrs``), which ``python -m repro_torch.obs summary`` reads;
 * :meth:`SpanTracer.export_chrome_trace` — the Chrome trace-event JSON
-  (``ph: "X"`` duration events, microsecond timestamps) that opens
-  directly in ``chrome://tracing`` or https://ui.perfetto.dev;
-* :meth:`SpanTracer.summary_lines` — the per-kind wall-time table the
+  (``ph: "X"`` duration events) that opens in ``chrome://tracing`` or
+  https://ui.perfetto.dev.  Timestamps are absolute microseconds on the
+  profiler's clock (``baseTimeNanoseconds`` 0), not shifted to the first
+  span, so the file overlays a ``torch.profiler`` export of the same run
+  (whose ``ts`` count from its own ``baseTimeNanoseconds``);
+* :meth:`SpanTracer.summary_lines` — the per-kind host-time table the
   examples print.
 
 Optional ``torch.profiler`` hook: ``enable(profiler=True)`` additionally
 wraps every span in a ``torch.profiler.record_function`` range so spans
 land inside a captured profiler trace, beside the CUDA kernels they
-launched.  The import is lazy and failure-tolerant on purpose: this
+launched.  A span's stamps sit just inside its range's start and just
+after its end: ``t0`` is taken once the range is open, ``t1`` once it
+has closed.  The import is lazy and failure-tolerant on purpose: this
 module is stdlib-only and must import without torch.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import os
 import threading
 import time
 from collections import deque
@@ -38,25 +72,36 @@ __all__ = [
     "enable",
     "disable",
     "get",
+    "last",
 ]
 
 
 class Span:
-    """One closed interval: [t0, t1] seconds (perf_counter domain)."""
+    """One closed interval [t0_ns, t1_ns] on the profiler's clock."""
 
-    __slots__ = ("kind", "name", "t0", "t1", "tid", "attrs")
+    __slots__ = ("kind", "name", "t0_ns", "t1_ns", "tid", "attrs", "id",
+                 "parent", "job")
 
-    def __init__(self, kind, name, t0, t1, tid, attrs):
+    def __init__(self, kind, name, t0_ns, t1_ns, tid, attrs, id=None,
+                 parent=None, job=None):
         self.kind = kind
         self.name = name
-        self.t0 = t0
-        self.t1 = t1
+        self.t0_ns = t0_ns
+        self.t1_ns = t1_ns
         self.tid = tid
         self.attrs = attrs
+        self.id = id
+        self.parent = parent
+        self.job = job
+
+    @property
+    def t0(self) -> float:
+        """Start, seconds since the Unix epoch."""
+        return self.t0_ns * 1e-9
 
     @property
     def duration(self) -> float:
-        return self.t1 - self.t0
+        return (self.t1_ns - self.t0_ns) * 1e-9
 
     def to_dict(self) -> dict:
         return {
@@ -65,6 +110,9 @@ class Span:
             "t0": self.t0,
             "dur": self.duration,
             "tid": self.tid,
+            "id": self.id,
+            "parent": self.parent,
+            "job": self.job,
             **({"attrs": self.attrs} if self.attrs else {}),
         }
 
@@ -88,14 +136,15 @@ _NOOP = _NoopSpan()
 
 
 class _LiveSpan:
-    __slots__ = ("_tracer", "kind", "name", "attrs", "_t0", "_ann")
+    __slots__ = ("_tracer", "kind", "name", "attrs", "_t0", "_ann", "_th",
+                 "id", "parent", "job")
 
     def __init__(self, tracer, kind, name, attrs):
         self._tracer = tracer
         self.kind = kind
         self.name = name
         self.attrs = attrs
-        self._t0 = 0.0
+        self._t0 = 0
         self._ann = None
 
     def set(self, **attrs):
@@ -105,46 +154,80 @@ class _LiveSpan:
 
     def __enter__(self):
         tr = self._tracer
+        self._th = tr._thread()
+        stack = self._th.stack
+        up = stack[-1] if stack else None
+        self.id = next(tr._ids)
+        self.parent = up.id if up is not None else None
+        self.job = self.id if self.kind == "job" else (
+            up.job if up is not None else None)
+        stack.append(self)
         if tr.profiler:
             ann = tr._annotation(self.name)
             if ann is not None:
                 self._ann = ann
                 ann.__enter__()
-        self._t0 = time.perf_counter()
+        self._t0 = tr.now_ns()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
+        tr = self._tracer
         if self._ann is not None:
             self._ann.__exit__(*exc)
-        self._tracer._emit(
-            Span(self.kind, self.name, self._t0, t1,
-                 threading.get_ident(), self.attrs)
-        )
+        t1 = tr.now_ns()
+        self._th.stack.pop()
+        tr._emit(Span(self.kind, self.name, self._t0, t1, self._th.tid,
+                      self.attrs, self.id, self.parent, self.job))
         return False
 
 
 class SpanTracer:
-    """Ring buffer of spans (oldest evicted past ``capacity``)."""
+    """Ring buffer of spans (oldest evicted past ``capacity`` and counted
+    in ``dropped``)."""
 
     def __init__(self, capacity: int = 65536, profiler: bool = False):
         self.spans: deque = deque(maxlen=capacity)
+        self.dropped = 0
         self.profiler = profiler
         self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        # the anchor pair: perf_counter_ns + offset is the profiler's clock
+        p0 = time.perf_counter_ns()
+        epoch = time.time_ns()
+        p1 = time.perf_counter_ns()
+        self._offset_ns = epoch - (p0 + p1) // 2
+
+    def now_ns(self) -> int:
+        """Now on the profiler's clock (ns since the Unix epoch)."""
+        return time.perf_counter_ns() + self._offset_ns
 
     # -- recording ---------------------------------------------------------
     def span(self, kind: str, name: str | None = None, **attrs):
         return _LiveSpan(self, kind, name or kind, attrs)
 
+    def _thread(self):
+        """This thread's ``stack`` (its open spans, innermost last) and
+        ``tid`` (its native id, read once: the read is a system call,
+        which costs microseconds on some hosts)."""
+        th = self._local
+        if not hasattr(th, "tid"):
+            th.stack, th.tid = [], threading.get_native_id()
+        return th
+
     def _emit(self, s: Span):
         with self._lock:
+            if len(self.spans) == self.spans.maxlen:
+                self.dropped += 1
             self.spans.append(s)
 
     def record(self, d: dict):
         """Re-ingest one :meth:`Span.to_dict` object (JSONL round-trip)."""
-        self._emit(Span(d["kind"], d["name"], d["t0"],
-                        d["t0"] + d["dur"], d.get("tid", 0),
-                        d.get("attrs", {})))
+        t0 = round(d["t0"] * 1e9)
+        self._emit(Span(d["kind"], d["name"], t0,
+                        t0 + round(d["dur"] * 1e9), d.get("tid", 0),
+                        d.get("attrs", {}), d.get("id"), d.get("parent"),
+                        d.get("job")))
 
     def _annotation(self, name: str):
         """A torch.profiler.record_function, or None without torch."""
@@ -158,6 +241,7 @@ class SpanTracer:
     def clear(self):
         with self._lock:
             self.spans.clear()
+            self.dropped = 0
 
     # -- exporters ---------------------------------------------------------
     def export_jsonl(self, path) -> int:
@@ -170,31 +254,33 @@ class SpanTracer:
         return len(spans)
 
     def export_chrome_trace(self, path) -> int:
-        """Chrome trace-event JSON (open in chrome://tracing / Perfetto)."""
+        """Chrome trace-event JSON (open in chrome://tracing / Perfetto),
+        in absolute microseconds on the profiler's clock."""
         with self._lock:
             spans = list(self.spans)
-        t_origin = min((s.t0 for s in spans), default=0.0)
+        pid = os.getpid()
         events = [
             {
                 "name": s.name,
                 "cat": s.kind,
                 "ph": "X",
-                "ts": (s.t0 - t_origin) * 1e6,
-                "dur": s.duration * 1e6,
-                "pid": 0,
+                "ts": s.t0_ns / 1e3,
+                "dur": (s.t1_ns - s.t0_ns) / 1e3,
+                "pid": pid,
                 "tid": s.tid,
-                "args": {k: _jsonable(v) for k, v in s.attrs.items()},
+                "args": {"id": s.id, "parent": s.parent, "job": s.job,
+                         **{k: _jsonable(v) for k, v in s.attrs.items()}},
             }
             for s in spans
         ]
         with open(path, "w") as fh:
-            json.dump({"traceEvents": events,
-                       "displayTimeUnit": "ms"}, fh)
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": 0}, fh)
         return len(events)
 
     # -- summaries ---------------------------------------------------------
     def summary(self) -> dict:
-        """Per-kind {count, total_s, mean_s, max_s} aggregates."""
+        """Per-kind {count, total_s, mean_s, max_s} host-time aggregates."""
         with self._lock:
             spans = list(self.spans)
         out: dict = {}
@@ -233,6 +319,7 @@ def _jsonable(v):
 # -- module-level tracer (what the drivers call) ----------------------------
 
 _tracer: SpanTracer | None = None
+_last: SpanTracer | None = None
 
 
 def enable(capacity: int = 65536, profiler: bool = False) -> SpanTracer:
@@ -244,13 +331,21 @@ def enable(capacity: int = 65536, profiler: bool = False) -> SpanTracer:
 
 def disable() -> SpanTracer | None:
     """Stop tracing; returns the final tracer so callers can export it."""
-    global _tracer
+    global _tracer, _last
     t, _tracer = _tracer, None
+    if t is not None:
+        _last = t
     return t
 
 
 def get() -> SpanTracer | None:
     return _tracer
+
+
+def last() -> SpanTracer | None:
+    """The tracer :func:`disable` last stopped (None before the first):
+    its spans stay readable after a caller let the return value go."""
+    return _last
 
 
 def span(kind: str, name: str | None = None, **attrs):

@@ -22,9 +22,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import traced as _traced
+
 __all__ = ["assign_folds", "pack_fold_ids"]
 
 
+@_traced("folds")
 def assign_folds(num_rows: int, num_folds: int, name: str | int,
                  fold_seed: int = 0) -> torch.Tensor:
     """(num_rows,) int32 fold ids in [0, num_folds) for one institution,
@@ -43,6 +46,7 @@ def assign_folds(num_rows: int, num_folds: int, name: str | int,
     return pattern[torch.randperm(num_rows, generator=gen)]
 
 
+@_traced("folds")
 def pack_fold_ids(fold_parts: Sequence, n_max: int,
                   device=None) -> torch.Tensor:
     """Stack per-institution fold ids into the packed (S, N_max) int32

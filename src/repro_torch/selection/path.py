@@ -130,7 +130,8 @@ def _cv_sweep_block(carry, seed: int, packed: PackedPartitions, fold_ids,
     def settled(carry):
         return torch.all(carry[2] | (carry[3] >= max_rounds))
 
-    return scan_rounds(round_fn, skip_fn, settled, carry, num_rounds)
+    return scan_rounds(round_fn, skip_fn, settled, carry, num_rounds,
+                       "selection_path")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,20 +318,26 @@ class PathDriver:
             )
             flat, unflatten = host_buffer(objs, actives, carry[2],
                                           carry[3])
-            # host-sync: the block's one read-back, the trace and the
-            # stopping state in one copy (the carry stays on the device
-            # for the next block)
-            objs, actives, conv_f, iters_f = unflatten(flat.cpu().numpy())
+            with _metrics.host_read("selection_path",
+                                    "PathDriver.run_chunk.block"):
+                # host-sync: the block's one read-back, the trace and the
+                # stopping state in one copy (the carry stays on the
+                # device for the next block)
+                objs, actives, conv_f, iters_f = unflatten(
+                    flat.cpu().numpy())
             chunk_trace.append(objs)
             executed += int(actives.any(axis=1).sum())
             if bool(conv_f.all()) or int(iters_f.max()) >= s.max_rounds:
                 break
         flat, unflatten = host_buffer(carry[0], carry[4], carry[5],
                                       carry[6])
-        # host-sync: the chunk's last read-back, the betas and the
-        # held-out stats in one copy (the slot, carry[7], is a host int)
-        (betas_f, vdev_f, vcorr_f, vcnt_f), slot = \
-            unflatten(flat.cpu().numpy()), carry[7]
+        with _metrics.host_read("selection_path",
+                                "PathDriver.run_chunk.chunk"):
+            # host-sync: the chunk's last read-back, the betas and the
+            # held-out stats in one copy (the slot, carry[7], is a host
+            # int)
+            (betas_f, vdev_f, vcorr_f, vcnt_f), slot = \
+                unflatten(flat.cpu().numpy()), carry[7]
 
         state["round_base"] = np.asarray(slot)
         state["rounds_total"] = np.asarray(
@@ -414,6 +421,7 @@ class PathDriver:
         )
 
 
+@_traced("job")
 def secure_cv_path(
     parts: Sequence,
     lambdas: Sequence[float],

@@ -2291,7 +2291,8 @@ def irls_ptxas(log_text: str, lib) -> dict:
                 f"{n} rows (float64 mma), {h.group(1)} column tiles a warp",
                 None)),
             (rf"{prefix}gram_kernelILi(\d+)E", lambda h, n=name: (
-                f"{n} Gram (3xTF32 wgmma), {h.group(1)}-row tiles", None)),
+                f"{n} Gram (3xTF32 wgmma), {h.group(1)}-column tiles",
+                None)),
             (rf"{prefix}reduce_kernel", lambda h, n=name: (
                 f"{n} reduce", 0)))))
     return {"kernels": rows, "d": D, "plans": plans}

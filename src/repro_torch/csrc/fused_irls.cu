@@ -28,10 +28,11 @@ k3_rows_kernel(IRLS_ROWS_PARAMS) {
   irls_rows<MTW>(IRLS_ROWS_ARGS);
 }
 
-template <int TN>
-__global__ void __launch_bounds__(IRLS_GTHREADS, 1)
+template <int NT>
+__global__ void __launch_bounds__(IrlsGram<NT>::THREADS,
+                                  IrlsGram<NT>::MIN_BLOCKS)
 k3_gram_kernel(IRLS_GRAM_PARAMS) {
-  irls_gram<TN>(IRLS_GRAM_ARGS);
+  irls_gram<NT>(IRLS_GRAM_ARGS);
 }
 
 __global__ void __launch_bounds__(IRLS_THREADS)
@@ -42,7 +43,7 @@ k3_reduce_kernel(IRLS_REDUCE_PARAMS) {
 static const IrlsKernels k3_kernels = {
     {k3_rows_kernel<2>, k3_rows_kernel<4>, k3_rows_kernel<8>,
      k3_rows_kernel<16>},
-    {k3_gram_kernel<32>, k3_gram_kernel<16>},
+    {k3_gram_kernel<32>, k3_gram_kernel<128>},
     k3_reduce_kernel};
 
 // K3's plan at dimension d (irls_plan's five ints)

@@ -23,10 +23,11 @@ irls_cv_rows_kernel(IRLS_ROWS_PARAMS) {
   irls_rows<MTW>(IRLS_ROWS_ARGS);
 }
 
-template <int TN>
-__global__ void __launch_bounds__(IRLS_GTHREADS, 1)
+template <int NT>
+__global__ void __launch_bounds__(IrlsGram<NT>::THREADS,
+                                  IrlsGram<NT>::MIN_BLOCKS)
 irls_cv_gram_kernel(IRLS_GRAM_PARAMS) {
-  irls_gram<TN>(IRLS_GRAM_ARGS);
+  irls_gram<NT>(IRLS_GRAM_ARGS);
 }
 
 __global__ void __launch_bounds__(IRLS_THREADS)
@@ -37,7 +38,7 @@ irls_cv_reduce_kernel(IRLS_REDUCE_PARAMS) {
 static const IrlsKernels k5_kernels = {
     {irls_cv_rows_kernel<2>, irls_cv_rows_kernel<4>, irls_cv_rows_kernel<8>,
      irls_cv_rows_kernel<16>},
-    {irls_cv_gram_kernel<32>, irls_cv_gram_kernel<16>},
+    {irls_cv_gram_kernel<32>, irls_cv_gram_kernel<128>},
     irls_cv_reduce_kernel};
 
 // K5's plan at dimension d (irls_plan's five ints)

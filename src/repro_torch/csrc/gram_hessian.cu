@@ -11,14 +11,15 @@
 //
 // What bounds it on the H100: bytes.  It reads 4 N (d + 1) bytes once,
 // 0.031 ms at 200,000 x 128; the symmetric Gram as three TF32 products
-// takes 0.020 ms at the dense TF32 peak, and the split of every staged
-// element runs beside them on the CUDA cores.
+// takes 0.020 ms at the dense TF32 peak.  The Gram's two tile regimes and
+// what bounds each are irls_tc.cuh's.
 #include "irls_tc.cuh"
 
-template <int TN>
-__global__ void __launch_bounds__(IRLS_GTHREADS, 1)
+template <int NT>
+__global__ void __launch_bounds__(IrlsGram<NT>::THREADS,
+                                  IrlsGram<NT>::MIN_BLOCKS)
 k6_gram_kernel(IRLS_GRAM_PARAMS) {
-  irls_gram<TN>(IRLS_GRAM_ARGS);
+  irls_gram<NT>(IRLS_GRAM_ARGS);
 }
 
 __global__ void __launch_bounds__(IRLS_THREADS)
@@ -28,7 +29,7 @@ k6_reduce_kernel(IRLS_REDUCE_PARAMS) {
 
 static const IrlsKernels k6_kernels = {
     {nullptr, nullptr, nullptr, nullptr},  // no rows kernel: w is given
-    {k6_gram_kernel<32>, k6_gram_kernel<16>},
+    {k6_gram_kernel<32>, k6_gram_kernel<128>},
     k6_reduce_kernel};
 
 // K6's plan at dimension d (irls_plan's five ints; the rows entries are

@@ -48,26 +48,39 @@
 //    in a fixed order); between them one thread per (configuration, row)
 //    computes p, the train weight (written to w, float32, for the Gram),
 //    the residual and the statistics.
-// 2. irls_gram, the Gram on Hopper's warpgroup products (wgmma, TF32
-//    operands in shared memory, float32 sums); what bounds it is the
-//    shared memory the split operands pass through (written once, read by
-//    every product: ~240 KB a 32-row tile at d = 128) beside the three
-//    TF32 products; the read of Xm (4 d bytes a row) is below both.  H is cut
-//    into 64 x 64 blocks, of which only those on and above the diagonal
-//    are computed (the reduce mirrors the result); a unit is three of
-//    them, one per warpgroup of a 384-thread block (at d <= 128 the whole
-//    upper half: (0, 0), (0, 1), (1, 1), three quarters of the full
-//    product).  The grid is (Q x units, NSLG, S), the configuration the
-//    fastest axis, so the blocks that read the same rows of Xm run side
-//    by side and share them through L2.  A block streams its slice in
-//    tiles of 32 rows through a two-stage cp.async ring (the unit's
-//    64-column ranges of Xm and the rows' weights, zero-filled past the
-//    slice and past d); all 384 threads split each staged element once
-//    into the four K-major operands a_hi, a_lo, x_hi, x_lo (tc_common.cuh's
-//    core layout, 16-byte stores); then each warpgroup issues twelve
-//    m64n64k8 products (three a k-step, the cross terms first) on its
-//    block and adds them to its sum, while the threads split the next
-//    tile.
+// 2. irls_gram, the Gram on Hopper's warpgroup products (wgmma: a = w x
+//    from registers, x from shared memory, float32 sums).  H is cut into
+//    tiles of 64 rows by NT columns, a warpgroup's, of which only those
+//    that reach the diagonal or above are computed (the reduce mirrors the
+//    result).  A block is a producer (a warp, or a warpgroup that hands
+//    its registers to the consumers) and one or two consumer warpgroups;
+//    they meet only at mbarriers, a full and an empty one a stage, never
+//    at a block-wide barrier.  The producer keeps RSTAGES tiles of IRLS_TN
+//    rows in flight (cp.async): the block's column ranges of Xm, zero past
+//    the slice and past d, and the rows' weights.  A consumer warpgroup
+//    splits tile t + 1's x once into the TF32 terms x_hi and x_lo (K-major
+//    in tc_common.cuh's core layout, one of SSTAGES split stages) while
+//    the tensor cores run tile t; each warpgroup forms its a = w x from
+//    the staged tile in registers, splits it there into a_hi and a_lo, and
+//    issues the tile's products a k-step at a time, its 64 x 128 tile as
+//    two 64-column chains.  The tile is chosen by d alone:
+//    - narrow, d <= 32: one warpgroup computes the whole 64 x 32 upper
+//      block (NT = 32) and streams Xm once.  What bounds it is the read of
+//      Xm (4 d bytes a row) beside one warpgroup's chain of products a
+//      tile (the 64 rows padded from d), four blocks an SM;
+//    - wide, d > 32: H is cut into 128-column ranges and a block takes the
+//      range pair (I, J), I <= J: its two warpgroups compute rows 128 I +
+//      0..63 and 64..127 against columns 128 J + 0..127 (NT = 128), so x_hi
+//      and x_lo of range J are split once a tile for both (the warpgroups
+//      take turns), and a row of Xm is split ceil(d / 128) times.  What
+//      bounds it is the staging from L2 (the blocks of a row read its
+//      ranges 2 ceil(d / 128) times over: 4x Xm at d = 500) beside the
+//      consumers' chain: shared memory carries the split, the loads of a
+//      and each product's read of x_hi or x_lo (64 bytes a clock at the
+//      TF32 peak).
+//    The grid is (Q x units, NSLG, S), the range pair the fastest axis,
+//    so the blocks that read the same rows of Xm run side by side and
+//    share them through L2.
 // 3. irls_reduce sums the per-slice partials (the upper half of each H,
 //    packed, float32; g and the statistics in float64) in a fixed order,
 //    H's in float64 rounded once, and mirrors H; it moves the partials
@@ -75,11 +88,12 @@
 //
 // The launch plan.  irls_plan reports the configurations a rows block, the
 // rows kernel's tile rows (the largest of 32, 16, 8 whose shared memory
-// lets two blocks share an SM), the Gram's tile rows, the Gram units a
-// configuration and the Gram blocks an SM; kernels/fused_irls.py picks
-// the slice counts from it: about two rows blocks an SM, and the fewest
-// Gram slices from one full wave whose waves are at least 95% full, no
-// slice shorter than a tile.
+// lets two blocks share an SM), the Gram's tile rows (IRLS_TN), the Gram
+// blocks a configuration (the range pairs: one in the narrow regime) and
+// the Gram blocks an SM; kernels/fused_irls.py picks the slice counts from
+// it: about two rows blocks an SM, and the fewest Gram slices from one
+// full wave whose waves are at least 95% full, no slice shorter than a
+// tile.
 #pragma once
 
 #include "kernel_attributes.cuh"
@@ -90,11 +104,7 @@
 #define IRLS_CB 8            // configurations a rows block (the dmma's n)
 #define IRLS_MAX_DIM 1024
 #define IRLS_NSTAT 4         // dev_train, dev_val, correct_val, count_val
-#define IRLS_QT 64           // H block edge: one warpgroup's 64 x 64
-#define IRLS_WGS 3           // warpgroups (H blocks) a Gram block
-#define IRLS_GTHREADS (128 * IRLS_WGS)
-#define IRLS_RMAX 4          // column ranges a Gram unit stages, at most
-#define IRLS_SCH 3           // 16-byte chunks a Gram thread stages a tile
+#define IRLS_TN 32           // rows a Gram tile: one tensor-core chain
 #define IRLS_TWO_PER_SM (113 * 1024)  // shared memory for two blocks an SM
 #define IRLS_MAX_SMEM (227 * 1024)
 
@@ -109,22 +119,24 @@ struct IrlsDims {
   int ldx;    // doubles per staged X row and beta row: d rounded to 16,
               // plus 4, so the dmma fragments' 8-byte loads hit distinct
               // banks
-  int nq;     // 64-column ranges of H (H blocks a side)
-  int nb;     // H blocks on and above the diagonal
-  int units;  // Gram units per configuration: IRLS_WGS blocks each
-  int nreg;   // column ranges a unit stages, at most (2 or IRLS_RMAX)
+  int nt;     // columns of a Gram warpgroup's tile: 32 (narrow) or 128
+  int nr;     // NT-column ranges of H
+  int units;  // Gram blocks a configuration: the range pairs (I, J), I <= J
   int vec_x;  // X rows start on 16 bytes: 16-byte copies
   int vec_m;  // Xm rows start on 16 bytes
 };
+
+// the Gram warpgroup's tile columns at dimension d: the narrow regime's
+// whole upper block up to d = 32, 128-column ranges past it
+static int irls_gram_nt(int d) { return d <= 32 ? 32 : 128; }
 
 static IrlsDims irls_dims(int d) {
   IrlsDims D = {};
   D.d = d;
   D.ldx = (d + 15) / 16 * 16 + 4;
-  D.nq = (d + IRLS_QT - 1) / IRLS_QT;
-  D.nb = D.nq * (D.nq + 1) / 2;
-  D.units = (D.nb + IRLS_WGS - 1) / IRLS_WGS;
-  D.nreg = D.nq <= 2 ? D.nq : IRLS_RMAX;
+  D.nt = irls_gram_nt(d);
+  D.nr = (d + D.nt - 1) / D.nt;
+  D.units = D.nr * (D.nr + 1) / 2;
   return D;
 }
 
@@ -135,16 +147,43 @@ static size_t irls_rows_smem(const IrlsDims& D, int TNR) {
          sizeof(int) * 2 * TNR;
 }
 
-// rows a staged tile of the Gram kernel: 32, or 16 where a unit stages
-// four column ranges
-static int irls_gram_rows(const IrlsDims& D) { return D.nreg > 2 ? 16 : 32; }
+// A Gram kernel's shape at warpgroup tile width NT
+template <int NT>
+struct IrlsGram {
+  static constexpr int WGS = NT > 64 ? 2 : 1;  // consumer warpgroups
+  static constexpr int CONSUMERS = 128 * WGS;
+  // the producer: a warp, or (wide) a warpgroup that hands registers to
+  // the consumers (setmaxnreg: PREGS a thread, the consumers CREGS)
+  static constexpr int PRODUCERS = NT > 64 ? 128 : 32;
+  static constexpr int PREGS = 72, CREGS = 216;  // the block's 168 a thread
+  static constexpr int THREADS = CONSUMERS + PRODUCERS;
+  static constexpr int MIN_BLOCKS = NT > 64 ? 1 : 3;
+  static constexpr int RSTAGES = NT > 64 ? 3 : 4;  // raw tiles in flight
+  static constexpr int SSTAGES = NT > 64 ? 3 : 2;  // split tiles: two
+                                                   // warpgroups drift
+  static constexpr int LDR = NT + 8;  // floats a staged row: A's loads hit
+                                      // distinct banks
+  static constexpr int RAW = WGS * IRLS_TN * LDR;  // a stage: the j-range,
+                                                   // and the i-range (wide)
+  static constexpr int OPS = NT * IRLS_TN;  // floats of x_hi (or x_lo)
+};
 
-// two stages of the raw ranges and the weights; two buffers of each range
-// split into four K-major operands (a_hi, a_lo, x_hi, x_lo)
-static size_t irls_gram_smem(const IrlsDims& D) {
-  const size_t tn = irls_gram_rows(D);
-  return sizeof(float) * (2 * D.nreg * tn * IRLS_QT + 2 * tn +
-                          2 * 4 * D.nreg * IRLS_QT * tn);
+// the split stages (x_hi and x_lo), the raw stages (the ranges and the
+// weights), and a full and an empty mbarrier a stage of each
+template <int NT>
+static size_t irls_gram_smem_of() {
+  using G = IrlsGram<NT>;
+  return sizeof(float) * (G::SSTAGES * 2 * G::OPS +
+                          G::RSTAGES * (G::RAW + IRLS_TN)) +
+         sizeof(uint64_t) * 2 * (G::RSTAGES + G::SSTAGES);
+}
+
+static size_t irls_gram_smem(int nt) {
+  return nt > 64 ? irls_gram_smem_of<128>() : irls_gram_smem_of<32>();
+}
+
+static int irls_gram_threads(int nt) {
+  return nt > 64 ? IrlsGram<128>::THREADS : IrlsGram<32>::THREADS;
 }
 
 // the largest of 32, 16, 8 rows whose rows-kernel shared memory lets two
@@ -373,7 +412,7 @@ __device__ __forceinline__ void irls_rows(IRLS_ROWS_PARAMS) {
 
 // ------------------------------------------ 2. the Gram, tensor cores
 
-// H block b of the upper triangle, row by row: (qi, qj), qi <= qj
+// range pair b of the upper triangle, row by row: (qi, qj), qi <= qj
 __device__ __forceinline__ void irls_block(int b, int nq, int& qi, int& qj) {
   for (qi = 0; b >= nq - qi; ++qi) b -= nq - qi;
   qj = qi + b;
@@ -387,11 +426,21 @@ __device__ __forceinline__ void irls_split(float x, float& hi, float& lo) {
   lo = __uint_as_float(l);
 }
 
-// the compiler keeps the accumulator's registers where the asm leaves
-// them: no read or write of d moves across this point
-__device__ __forceinline__ void irls_fence_operand(float (&d)[32]) {
+// the compiler keeps these registers where the asm leaves them: no read or
+// write of them moves across this point (the accumulator, and the A
+// fragments an issued product still reads)
+template <int N>
+__device__ __forceinline__ void irls_fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
+  for (int e = 0; e < N; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+template <int K>
+__device__ __forceinline__ void irls_fence_frag(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
 }
 
 #define IRLS_GRAM_PARAMS                                                \
@@ -400,200 +449,242 @@ __device__ __forceinline__ void irls_fence_operand(float (&d)[32]) {
 #define IRLS_GRAM_ARGS Xm, w, counts, Hp, D
 
 // counts == nullptr: every institution's n_max rows are valid (K6)
-template <int TN>
+template <int NT>
 __device__ __forceinline__ void irls_gram(IRLS_GRAM_PARAMS) {
-  constexpr int KG = TN / 4;
-  constexpr int OPS = IRLS_QT * TN;  // floats of one split operand
-  float* sp = (float*)irls_smem;     // 2 buffers of nreg x 4 operands
-  float* raw = sp + 2 * 4 * D.nreg * OPS;  // 2 stages of nreg x TN x 64
-  float* ws = raw + 2 * D.nreg * TN * IRLS_QT;  // 2 stages of TN weights
-  const int buf = 4 * D.nreg * OPS;  // floats of one operand buffer
+  using G = IrlsGram<NT>;
+  constexpr int KG = IRLS_TN / 4;  // cores along K a tile
+  constexpr int KS = IRLS_TN / 8;  // k-steps a tile
+  constexpr int RS = G::RSTAGES, SS = G::SSTAGES;
+  float* sb = (float*)irls_smem;     // SS split stages of x_hi, x_lo
+  float* raw = sb + SS * 2 * G::OPS;  // RS raw stages of G::RAW
+  float* ws = raw + RS * G::RAW;      // RS x IRLS_TN weights
+  uint64_t* raw_full = (uint64_t*)(ws + RS * IRLS_TN);
+  uint64_t* raw_empty = raw_full + RS;
+  uint64_t* split_full = raw_empty + RS;
+  uint64_t* split_empty = split_full + SS;
 
+  // the block's range pair: rows of H from range bi, columns from bj
   const int q = blockIdx.x / D.units, u = blockIdx.x - q * D.units;
   const int sl = blockIdx.y, s = blockIdx.z;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int lane = tid & 31, wq = (tid >> 5) & 3;  // warp in the warpgroup
-  const int gid = lane >> 2, tig = lane & 3;
-
-  // the unit's H blocks, one a warpgroup (a unit past the last block
-  // repeats its first and stores nothing), and the distinct column ranges
-  // they read
-  int rq[IRLS_RMAX], nr = 0, ia = 0, ib = 0, qi = 0, qj = 0;
-  bool mine = false;
-  for (int g = 0; g < IRLS_WGS; ++g) {
-    int bi, bj;
-    const int b = IRLS_WGS * u + g;
-    irls_block(b < D.nb ? b : IRLS_WGS * u, D.nq, bi, bj);
-    int xa = 0, xb = 0;
-    for (int pass = 0; pass < 2; ++pass) {
-      const int v = pass ? bj : bi;
-      int at = 0;
-      while (at < nr && rq[at] != v) ++at;
-      if (at == nr) rq[nr++] = v;
-      (pass ? xb : xa) = at;
-    }
-    if (g == wg) {
-      qi = bi, qj = bj, ia = xa, ib = xb;
-      mine = b < D.nb;
-    }
-  }
-
+  int bi, bj;
+  irls_block(u, D.nr, bi, bj);
+  const bool diag = bi == bj;  // one raw range serves both
   long long r_begin, r_end;
   irls_slice(counts ? counts[s] : (int)D.n_max, D.n_max, sl, D.NSLG,
              r_begin, r_end);
-  const float* Xmb = Xm + (long long)s * D.n_max * D.d;
-  const float* wb = w + ((long long)q * D.S + s) * D.n_max;
-  const int ntiles = (int)((r_end - r_begin + TN - 1) / TN);
+  const int ntiles = (int)((r_end - r_begin + IRLS_TN - 1) / IRLS_TN);
 
-  // tile t's columns of the unit's ranges and its rows' weights, zero past
-  // the slice and past d, into ring slot t % 2 (one commit group a call,
-  // empty past the last tile).  With 16-byte rows (d % 4 == 0) a thread
-  // copies at most IRLS_SCH chunks a tile, whose offsets are set here once.
-  int soff[IRLS_SCH], goff[IRLS_SCH], srow[IRLS_SCH];
-  bool sok[IRLS_SCH];
-#pragma unroll
-  for (int i = 0; i < IRLS_SCH; ++i) {
-    const int ch = tid + IRLS_GTHREADS * i;
-    const int r = ch / (TN * (IRLS_QT / 4)),
-              rem = ch - r * (TN * (IRLS_QT / 4));
-    const int row = rem / (IRLS_QT / 4), c = (rem - row * (IRLS_QT / 4)) * 4;
-    const int col = (r < nr ? rq[r] : 0) * IRLS_QT + c;
-    soff[i] = (r * TN + row) * IRLS_QT + c;
-    goff[i] = row * D.d + col;
-    srow[i] = row;
-    sok[i] = r < nr && col < D.d;  // d % 4 == 0: a chunk is all in or out
-  }
-  auto stage = [&](int t) {
-    if (t < ntiles) {
-      const long long r0 = r_begin + (long long)t * TN;
-      const int nrows = (int)min((long long)TN, r_end - r0);
-      float* dst = raw + (t & 1) * D.nreg * TN * IRLS_QT;
-      const float* src = Xmb + r0 * D.d;
-      if (D.vec_m) {
-#pragma unroll
-        for (int i = 0; i < IRLS_SCH; ++i) {
-          if (tid + IRLS_GTHREADS * i >= nr * TN * (IRLS_QT / 4)) break;
-          const bool in = sok[i] && srow[i] < nrows;
-          cp_async16(smem_u32(dst + soff[i]), in ? src + goff[i] : Xmb,
-                     in ? 16 : 0);
-        }
-      } else {
-        for (int idx = tid; idx < nr * TN * IRLS_QT; idx += IRLS_GTHREADS) {
-          const int r = idx / (TN * IRLS_QT), rem = idx - r * (TN * IRLS_QT);
-          const int row = rem / IRLS_QT, col = rq[r] * IRLS_QT + rem % IRLS_QT;
-          const bool in = row < nrows && col < D.d;
-          cp_async4(smem_u32(dst + idx), in ? src + row * D.d + col : Xmb,
-                    in ? 4 : 0);
-        }
-      }
-      if (tid < TN) {
-        const bool in = tid < nrows;
-        cp_async4(smem_u32(ws + (t & 1) * TN + tid), in ? wb + r0 + tid : wb,
-                  in ? 4 : 0);
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RS; ++i) {
+      mbar_init(raw_full + i, G::PRODUCERS);       // their copies landed
+      mbar_init(raw_empty + i, G::CONSUMERS / 32);  // a's loads done
     }
-    cp_async_commit();
-  };
+    for (int i = 0; i < SS; ++i) {
+      mbar_init(split_full + i, 128);                 // split
+      mbar_init(split_empty + i, G::CONSUMERS / 32);  // products done
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  // split each element of staged tile t once: a = w x and x, each as TF32
-  // hi and lo, into operand buffer t % 2; an item is (range r, 4-row group
-  // kg, column f): four rows of one column, 16-byte stores
-  auto split = [&](int t) {
-    const float* src = raw + (t & 1) * D.nreg * TN * IRLS_QT;
-    const float* wt = ws + (t & 1) * TN;
-    float* dst = sp + (t & 1) * buf;
-    for (int idx = tid; idx < nr * IRLS_QT * KG; idx += IRLS_GTHREADS) {
-      const int r = idx / (IRLS_QT * KG), rem = idx - r * (IRLS_QT * KG);
-      const int kg = rem / IRLS_QT, f = rem - kg * IRLS_QT;
-      const float* col = src + r * TN * IRLS_QT + 4 * kg * IRLS_QT + f;
-      const float4 w4 = *reinterpret_cast<const float4*>(wt + 4 * kg);
-      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-      float ah[4], al[4], xh[4], xl[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = col[j * IRLS_QT];
-        irls_split(wv[j] * x, ah[j], al[j]);
-        irls_split(x, xh[j], xl[j]);
+  // the warp's role, as a value the compiler knows to be the same in the
+  // whole warp: a branch on threadIdx.x would make it treat every product
+  // as divergent and serialise them
+  const int warp_id = __shfl_sync(0xffffffff, (int)threadIdx.x / 32, 0);
+  if (warp_id >= G::CONSUMERS / 32) {
+    // The producer: tile t's rows of the j-range (and, off the diagonal,
+    // of the i-range) and their weights go to raw stage t % RS once the
+    // consumers have read tile t - RS there.
+    if constexpr (G::PRODUCERS == 128) wg_setmaxnreg_dec<G::PREGS>();
+    const int ptid = threadIdx.x - G::CONSUMERS;
+    const float* Xmb = Xm + (long long)s * D.n_max * D.d;
+    const float* wb = w + ((long long)q * D.S + s) * D.n_max;
+    auto copy = [&](int t) {
+      const int st = t % RS;
+      if (t >= RS) mbar_wait(raw_empty + st, (t / RS - 1) & 1);
+      const long long r0 = r_begin + (long long)t * IRLS_TN;
+      const int nrows = (int)min((long long)IRLS_TN, r_end - r0);
+      const float* src = Xmb + r0 * D.d;
+      for (int rg = 0; rg < (diag ? 1 : 2); ++rg) {
+        float* dst = raw + st * G::RAW + rg * IRLS_TN * G::LDR;
+        const int c0 = (rg ? bi : bj) * NT;
+        if (D.vec_m) {  // d % 4 == 0: a chunk is all in or all out
+          constexpr int CPR = NT / 4;  // 16-byte chunks a row
+          const int c = 4 * (ptid % CPR);
+          const bool cin = c0 + c < D.d;
+#pragma unroll 1
+          for (int row = ptid / CPR; row < IRLS_TN;
+               row += G::PRODUCERS / CPR) {
+            const bool in = cin && row < nrows;
+            cp_async16(smem_u32(dst + row * G::LDR + c),
+                       in ? src + (long long)row * D.d + c0 + c : Xmb,
+                       in ? 16 : 0);
+          }
+        } else {
+          for (int idx = ptid; idx < IRLS_TN * NT; idx += G::PRODUCERS) {
+            const int row = idx / NT, c = idx - row * NT;
+            const bool in = row < nrows && c0 + c < D.d;
+            cp_async4(smem_u32(dst + row * G::LDR + c),
+                      in ? src + (long long)row * D.d + c0 + c : Xmb,
+                      in ? 4 : 0);
+          }
+        }
       }
-      float* o = dst + 4 * r * OPS + wg_core_off(f, 4 * kg, KG);
-      *reinterpret_cast<float4*>(o) = make_float4(ah[0], ah[1], ah[2], ah[3]);
-      *reinterpret_cast<float4*>(o + OPS) =
-          make_float4(al[0], al[1], al[2], al[3]);
-      *reinterpret_cast<float4*>(o + 2 * OPS) =
-          make_float4(xh[0], xh[1], xh[2], xh[3]);
-      *reinterpret_cast<float4*>(o + 3 * OPS) =
+      if (ptid < IRLS_TN) {
+        const bool in = ptid < nrows;
+        cp_async4(smem_u32(ws + st * IRLS_TN + ptid),
+                  in ? wb + r0 + ptid : wb, in ? 4 : 0);
+      }
+      cp_async_mbar_arrive(raw_full + st);
+    };
+    for (int t = 0; t < ntiles; ++t) copy(t);
+    cp_async_wait_all();
+    return;
+  }
+
+  // the consumers
+  if constexpr (G::PRODUCERS == 128) wg_setmaxnreg_inc<G::CREGS>();
+  const int wg = warp_id >> 2, warp = warp_id & 3, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int i0 = bi * NT + 64 * wg;  // the warpgroup's first row of H
+  const bool wg_on = i0 < D.d;       // the same in the whole warpgroup
+  // the warp's rows of a: columns 16 warp + gid (+ 8) of the warpgroup's
+  // 64 in the staged i-range (the j-range on the diagonal); rows past the
+  // range (narrow: past 32) or past d are zero
+  const bool a_on = wg_on && 16 * warp < NT && i0 + 16 * warp < D.d;
+  const int aoff =
+      a_on ? (diag ? 0 : IRLS_TN * G::LDR) + 64 * wg + 16 * warp + gid : 0;
+
+  // x of staged tile t's j-range, each element split once into x_hi and
+  // x_lo in split stage t % SS, once the products of tile t - SS are done,
+  // by warpgroup t % WGS (the two of a block take turns, so they drift
+  // apart); an item is (4-row group kg, column f): four rows of one
+  // column, 16-byte stores
+  auto split = [&](int t) {
+    const int st = t % SS;
+    if (t >= SS) mbar_wait(split_empty + st, (t / SS - 1) & 1);
+    mbar_wait(raw_full + t % RS, (t / RS) & 1);
+    const float* src = raw + (t % RS) * G::RAW;
+    float* dst = sb + st * 2 * G::OPS;
+#pragma unroll
+    for (int i = 0; i < NT * KG / 128; ++i) {
+      const int idx = (threadIdx.x & 127) + 128 * i;
+      const int kg = idx / NT, f = idx - kg * NT;
+      const float* col = src + 4 * kg * G::LDR + f;
+      float xh[4], xl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) irls_split(col[j * G::LDR], xh[j], xl[j]);
+      float* o = dst + wg_core_off(f, 4 * kg, KG);
+      *reinterpret_cast<float4*>(o) = make_float4(xh[0], xh[1], xh[2], xh[3]);
+      *reinterpret_cast<float4*>(o + G::OPS) =
           make_float4(xl[0], xl[1], xl[2], xl[3]);
     }
     fence_proxy_async();  // the stores become visible to wgmma
+    mbar_arrive(split_full + st);
   };
 
-  float acc[32], c[32];
+  // k-step ks of a = w x as the A fragment (tc_common.cuh): a rounded to
+  // float32, then split into a_hi and a_lo
+  auto form = [&](const float* src, const float* wt, int ks,
+                  uint32_t (&ah)[4], uint32_t (&al)[4]) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = c[e] = 0.f;
-  // the warpgroup's operand descriptors in each buffer: a = w x of range
-  // ia, x of range ib; cores 128 bytes apart along K, KG * 128 along rows
-  // (buffer 1 lies buf floats, buf / 4 descriptor units, past buffer 0)
-  const uint64_t d_ah = wg_desc(sp + (4 * ia + 0) * OPS, 128, KG * 128),
-                 d_al = wg_desc(sp + (4 * ia + 1) * OPS, 128, KG * 128),
-                 d_xh = wg_desc(sp + (4 * ib + 2) * OPS, 128, KG * 128),
-                 d_xl = wg_desc(sp + (4 * ib + 3) * OPS, 128, KG * 128);
+    for (int h = 0; h < 2; ++h) {
+      const int k = 8 * ks + tig + 4 * h;
+      const float wk = wt[k];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float x = a_on ? src[k * G::LDR + 8 * v] : 0.f;
+        tf32_split(__fmul_rn(wk, x), ah[2 * h + v], al[2 * h + v]);
+      }
+    }
+  };
 
-  // the pipeline: tile t's products run on the tensor cores while the
-  // threads split tile t + 1 and the copies of tile t + 2 are in flight
-  stage(0);
-  stage(1);
-  cp_async_wait<1>();  // tile 0 has landed
-  __syncthreads();
-  split(0);
-  __syncthreads();
+  // the warpgroup's 64 x NT tile as NH column halves of NS, each its own
+  // chain of products, so the tensor cores have two independent chains
+  // of a warpgroup to overlap (the same sums, entry by entry)
+  constexpr int NS = NT > 64 ? 64 : NT, NH = NT / NS;
+  float acc[NH][NS / 2], c[NH][NS / 2];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int e = 0; e < NS / 2; ++e) acc[h][e] = c[h][e] = 0.f;
+  // x_hi and x_lo in split stage 0: cores 128 bytes apart along K, KG *
+  // 128 along N (half h NS / 8 such rows, NS KG descriptor units, further);
+  // stage i lies 2 i OPS floats (i OPS / 2 descriptor units) past it
+  const uint64_t d_xh = wg_desc(sb, 128, KG * 128),
+                 d_xl = wg_desc(sb + G::OPS, 128, KG * 128);
+
+  if (ntiles > 0 && wg == 0) split(0);
   for (int t = 0; t < ntiles; ++t) {
-    stage(t + 2);  // into ring slot t % 2, which split(t) has read
-
     // c = a^T x over tile t's rows, three TF32 products a k-step, summed
     // from zero; c joins acc with round to nearest (the tensor cores round
     // their float32 sums toward zero, and a chain over a whole slice would
-    // drift)
-    const uint64_t bsel = (t & 1) * (uint64_t)(buf / 4);
-    irls_fence_operand(c);
-    wg_fence();
-    // The small cross terms go first: each product's float32 sum rounds
-    // toward zero, and with the large hi x hi products last only their
-    // own TN / 8 sums round at the tile's full size (interleaved, all
-    // 3 TN / 8 did: three times the bias).  A k-step is two cores along K
+    // drift).  The small cross terms go first: each product's float32 sum
+    // rounds toward zero, and with the large hi x hi products last only
+    // their own KS sums round at the tile's full size (interleaved, all
+    // 3 KS did: three times the bias).  A k-step is two cores along K
     // further: 256 bytes, 16 descriptor units.
+    const int rst = t % RS, sst = t % SS;
+    mbar_wait(split_full + sst, (t / SS) & 1);
+    uint32_t ah[KS][4], al[KS][4];
+    if (wg_on) {
+      const float* src = raw + rst * G::RAW + aoff;
+      const float* wt = ws + rst * IRLS_TN;
+      const uint64_t o = (uint64_t)sst * (G::OPS / 2);
 #pragma unroll
-    for (int ks = 0; ks < TN / 8; ++ks) {
-      const uint64_t o = bsel + 16 * ks;
-      wgmma_tf32_64x64(c, d_al + o, d_xh + o, ks > 0);
-      wgmma_tf32_64x64(c, d_ah + o, d_xl + o, 1);
+      for (int h = 0; h < NH; ++h) irls_fence_operand(c[h]);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        form(src, wt, ks, ah[ks], al[ks]);
+        wg_fence();  // the fragment's registers are written
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const uint64_t b = o + 16 * ks + h * NS * KG;
+          wgmma_tf32_rs(c[h], al[ks], d_xh + b, ks > 0);
+          wgmma_tf32_rs(c[h], ah[ks], d_xl + b, 1);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          wgmma_tf32_rs(c[h], ah[ks], d_xh + o + 16 * ks + h * NS * KG, 1);
+      wg_commit();
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(raw_empty + rst);  // tile t is read
+    if (t + 1 < ntiles && (t + 1) % G::WGS == wg)
+      split(t + 1);  // beside the products of tile t
+    if (wg_on) {
+      wg_wait<0>();
 #pragma unroll
-    for (int ks = 0; ks < TN / 8; ++ks)
-      wgmma_tf32_64x64(c, d_ah + bsel + 16 * ks, d_xh + bsel + 16 * ks, 1);
-    wg_commit();
-    if (t + 1 < ntiles) {
-      cp_async_wait<1>();  // tile t + 1 has landed
-      __syncthreads();
-      split(t + 1);  // into the other operand buffer, which no product reads
+      for (int h = 0; h < NH; ++h) {
+        irls_fence_operand(c[h]);
+#pragma unroll
+        for (int e = 0; e < NS / 2; ++e) acc[h][e] += c[h][e];
+      }
+      irls_fence_frag(ah);
+      irls_fence_frag(al);
     }
-    wg_wait<0>();
-    irls_fence_operand(c);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] += c[e];
-    __syncthreads();  // buffer (t + 1) % 2 is complete; t % 2 is free
+    __syncwarp();
+    if (lane == 0) mbar_arrive(split_empty + sst);  // its products are done
   }
 
-  // the block's part of the packed upper half: (i, j), i <= j, at
+  // the warpgroup's part of the packed upper half: (i, j), i <= j, at
   // i d - i (i - 1) / 2 + (j - i)
-  if (!mine) return;
+  if (!wg_on) return;
   const long long npk = (long long)D.d * (D.d + 1) / 2;
   float* Hb = Hp + (((long long)q * D.S + s) * D.NSLG + sl) * npk;
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const long long i = qi * IRLS_QT + 16 * wq + gid + 8 * ((e >> 1) & 1);
-    const long long j = qj * IRLS_QT + 8 * (e >> 2) + 2 * tig + (e & 1);
-    if (i <= j && j < D.d) Hb[i * D.d - i * (i - 1) / 2 + (j - i)] = acc[e];
-  }
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int e = 0; e < NS / 2; ++e) {
+      const long long i = i0 + 16 * warp + gid + 8 * ((e >> 1) & 1);
+      const long long j =
+          (long long)bj * NT + NS * h + 8 * (e >> 2) + 2 * tig + (e & 1);
+      if (i <= j && j < D.d)
+        Hb[i * D.d - i * (i - 1) / 2 + (j - i)] = acc[h][e];
+    }
 }
 
 // ------------------------------------------------------- 3. the reduce
@@ -687,7 +778,7 @@ typedef void (*IrlsReduceFn)(IRLS_REDUCE_PARAMS);
 // one entry's instantiations of the three bodies
 struct IrlsKernels {
   IrlsRowsFn rows[4];  // g m-tiles a warp: 2, 4, 8, 16
-  IrlsGramFn gram[2];  // tile rows: 32, 16
+  IrlsGramFn gram[2];  // warpgroup tile columns: 32, 128
   IrlsReduceFn reduce;
 };
 
@@ -697,30 +788,30 @@ static IrlsRowsFn irls_rows_fn(const IrlsKernels& k, const IrlsDims& D) {
   return k.rows[mtw <= 2 ? 0 : mtw <= 4 ? 1 : mtw <= 8 ? 2 : 3];
 }
 
-// the Gram kernel for the dimensions' tile rows
+// the Gram kernel for the dimensions' tile columns
 static IrlsGramFn irls_gram_fn(const IrlsKernels& k, const IrlsDims& D) {
-  return k.gram[irls_gram_rows(D) == 32 ? 0 : 1];
+  return k.gram[D.nt == 32 ? 0 : 1];
 }
 
 // The plan at dimension d, into out[5]: configurations a rows
 // block, the rows kernel's tile rows, the Gram kernel's tile rows, the
-// Gram units a configuration, and the Gram kernel's blocks an SM
+// Gram blocks a configuration, and the Gram kernel's blocks an SM
 static int irls_plan(const IrlsKernels& k, int d, int* out) {
   if (d < 1 || d > IRLS_MAX_DIM) return (int)cudaErrorInvalidValue;
   const IrlsDims D = irls_dims(d);
   const int tnr = irls_rows_tile(D);
-  const int smem = (int)irls_gram_smem(D);
+  const int smem = (int)irls_gram_smem(D.nt);
   if (tnr < 0 || smem > IRLS_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const IrlsGramFn gram = irls_gram_fn(k, D);
   cudaError_t err = cudaFuncSetAttribute(
       gram, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram,
-                                                      IRLS_GTHREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gram, irls_gram_threads(D.nt), smem);
   out[0] = IRLS_CB;
   out[1] = tnr;
-  out[2] = irls_gram_rows(D);
+  out[2] = IRLS_TN;
   out[3] = D.units;
   out[4] = per_sm;
   return (int)err;
@@ -758,7 +849,7 @@ static int irls_launch(const IrlsKernels& k, const IrlsDims& D,
                                    D.TNR != 32))))
     return (int)cudaErrorInvalidValue;
   const size_t smem_r = rows_too ? irls_rows_smem(D, D.TNR) : 0;
-  const size_t smem_g = irls_gram_smem(D);
+  const size_t smem_g = irls_gram_smem(D.nt);
   if (smem_r > IRLS_MAX_SMEM || smem_g > IRLS_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -780,7 +871,8 @@ static int irls_launch(const IrlsKernels& k, const IrlsDims& D,
                              (int)smem_g);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_g((unsigned)(D.C * D.units), (unsigned)D.NSLG, (unsigned)D.S);
-  gram<<<grid_g, IRLS_GTHREADS, smem_g, st>>>(Xm, w, counts, Hp, D);
+  gram<<<grid_g, irls_gram_threads(D.nt), smem_g, st>>>(Xm, w, counts, Hp,
+                                                        D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int QS = D.C * D.S;
@@ -794,9 +886,9 @@ static int irls_launch(const IrlsKernels& k, const IrlsDims& D,
 
 // A source's IRLS instantiations (kernel_attributes.cuh), each at the
 // largest d it serves: the rows kernel of m m-tiles a warp up to d = 64 m
-// with irls_rows_tile's tile, the 32-row Gram up to d = 128 and the
-// 16-row one past it, the reduce (no dynamic shared memory).  K6 has no
-// rows kernel.  ``fam`` is "K3", "K5" or "K6".
+// with irls_rows_tile's tile, the Gram of each tile width (its shared
+// memory depends on the width alone), the reduce (no dynamic shared
+// memory).  K6 has no rows kernel.  ``fam`` is "K3", "K5" or "K6".
 static int irls_attributes(const IrlsKernels& k, const char* fam,
                            ReproKernelAttr* out, int* err) {
   char name[48];
@@ -808,14 +900,12 @@ static int irls_attributes(const IrlsKernels& k, const char* fam,
     REPRO_ATTR(i, name, k.rows[r], IRLS_THREADS,
                (int)irls_rows_smem(D, irls_rows_tile(D)));
   }
-  snprintf(name, sizeof(name), "%s gram TN32", fam);
-  REPRO_ATTR(i, name, k.gram[0], IRLS_GTHREADS,
-             (int)irls_gram_smem(irls_dims(2 * IRLS_QT)));
-  ++i;
-  snprintf(name, sizeof(name), "%s gram TN16", fam);
-  REPRO_ATTR(i, name, k.gram[1], IRLS_GTHREADS,
-             (int)irls_gram_smem(irls_dims(IRLS_MAX_DIM)));
-  ++i;
+  for (int g = 0; g < 2; ++g, ++i) {
+    const int nt = g ? 128 : 32;
+    snprintf(name, sizeof(name), "%s gram N%d", fam, nt);
+    REPRO_ATTR(i, name, k.gram[g], irls_gram_threads(nt),
+               (int)irls_gram_smem(nt));
+  }
   snprintf(name, sizeof(name), "%s reduce", fam);
   REPRO_ATTR(i, name, k.reduce, IRLS_THREADS, 0);
   return i + 1;

@@ -1,7 +1,7 @@
 // Building blocks shared by the tensor-core kernels (run on sm_90a):
-// cp.async staging, the TF32 rounding, and Hopper's warpgroup products
-// (wgmma) on TF32 operands in shared memory.  K7 and K8 (flash_common.cuh
-// adds their bf16 pieces) and K5 include it.
+// cp.async staging, mbarriers, the TF32 rounding, and Hopper's warpgroup
+// products (wgmma) on TF32 operands.  K7 and K8 (flash_common.cuh adds
+// their bf16 pieces) and the IRLS kernels (irls_tc.cuh) include it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,12 +45,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// wait until every cp.async this thread issued has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
-// from zero; the low 13 bits of the result are zero
+// from zero; the low 13 bits of the result are zero.  Half a unit of the
+// 10th bit added to the magnitude, then the 13 bits cut: cvt.rna.tf32.f32's
+// bits for every finite float32 (all 2^32 - 2^24 of them compared on an
+// H100), in two integer operations where the conversion takes the slower
+// conversion unit
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // x = hi + lo as two TF32 terms: hi = rna(x), lo = rna(x - hi) (x - hi is
@@ -62,11 +69,11 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
 }
 
 // ---------------------------------------------------------------------
-// wgmma: one warpgroup (4 warps) multiplies operands that sit in shared
-// memory, described by 64-bit descriptors.  The layout used here is the
-// K-major one without swizzle: an F x K operand (F rows of the product, K
-// the reduction) is cut into core matrices of 8 rows x 4 TF32 (16 bytes a
-// row, 128 bytes a core), and element (f, k) lies at float
+// wgmma: one warpgroup (4 warps) multiplies an operand in registers by
+// one in shared memory, described by a 64-bit descriptor.  The layout used
+// here is the K-major one without swizzle: an F x K operand (F rows of the
+// product, K the reduction) is cut into core matrices of 8 rows x 4 TF32
+// (16 bytes a row, 128 bytes a core), and element (f, k) lies at float
 //   ((f / 8) * (K / 4) + k / 4) * 32 + (f % 8) * 4 + k % 4,
 // so cores are 128 bytes apart along K (the descriptor's leading byte
 // offset) and K / 4 * 128 bytes apart along F (its stride byte offset).
@@ -103,18 +110,40 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x 64, float32) = a (64 x 8) b (64 x 8)^T + (scale_d ? d : 0), TF32
-// operands in shared memory.  Thread t of the warpgroup holds rows
-// 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in
-// d[4 j + 0..3], as mma.sync's C fragments.
-__device__ __forceinline__ void wgmma_tf32_64x64(float (&d)[32], uint64_t da,
-                                                 uint64_t db, int scale_d) {
+// d (64 x N, float32) = a (64 x 8) b (N x 8)^T + (scale_d ? d : 0), TF32,
+// N = 32 or 64 (the size of d: N / 2 floats a thread); a in
+// registers, b in shared memory.  Thread t of the warpgroup gives a's rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) at columns t % 4 (+ 4), as mma.sync's
+// m16n8k8 A fragment: a[0] (row, col), a[1] (row + 8, col), a[2] (row,
+// col + 4), a[3] (row + 8, col + 4); it holds d's rows 16 (t / 32) +
+// (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in d[4 j + 0..3],
+// as mma.sync's C fragments.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -122,5 +151,59 @@ __device__ __forceinline__ void wgmma_tf32_64x64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// the warpgroup's registers a thread: given back (dec) or taken (inc),
+// all four warps together
+template <int N>
+__device__ __forceinline__ void wg_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void wg_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------
+// mbarriers: a producer's copies and its consumers' releases
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the initialised barriers become visible to the block's other threads
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// one arrival on bar once every cp.async this thread issued before has
+// landed (the arrival is counted in the barrier's initial count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
 }

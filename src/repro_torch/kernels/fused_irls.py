@@ -176,10 +176,11 @@ def fused_irls_cv_plain(betas, X, Xm, y, counts, fold_ids, fold_of):
 def irls_plan(kernel: str, d: int, device) -> dict:
     """What ``repro_<kernel>_plan`` (``kernel`` is "k3", "k5" or "k6")
     reports at dimension ``d``: configurations a rows block, the rows
-    kernel's and the Gram kernel's tile rows, the Gram units a
-    configuration (a unit is three 64 x 64 blocks of H's upper half: one at
-    d <= 128) and the blocks an SM the Gram kernel's registers and shared
-    memory allow; with the device's SM count."""
+    kernel's and the Gram kernel's tile rows, the Gram blocks a
+    configuration (past d = 32 the pairs of 128-column ranges of H's upper
+    half; one block, the whole upper block, up to it) and the blocks an SM
+    the Gram kernel's registers and shared memory allow; with the device's
+    SM count."""
     out = (ctypes.c_int * 5)()
     _build.check(getattr(_build.library(), f"repro_{kernel}_plan")(d, out),
                  f"repro_{kernel}_plan")
@@ -194,10 +195,12 @@ def _gram_slices(per_slice: int, n: int, plan: dict) -> int:
     """Row slices of a Gram launch of ``per_slice`` blocks a slice over
     ``n`` rows.  The Gram kernel runs in waves of its blocks an SM times
     the SM count: the first slice count, from one that fills a wave,
-    whose waves are at least 95% full, and no slice shorter than a tile."""
+    whose waves are at least 95% full (up to 4 times that count and 8
+    more: a launch of more blocks than a wave, K5's 400 at d 500, finds
+    its count past the first few), and no slice shorter than a tile."""
     wave = max(1, plan["gram_per_sm"]) * plan["sms"]
     first = max(1, math.ceil(wave / per_slice))
-    nsl = next((c for c in range(first, 4 * first + 1)
+    nsl = next((c for c in range(first, 4 * first + 9)
                 if c * per_slice / (-(-c * per_slice // wave) * wave)
                 >= 0.95), first)
     return max(1, min(nsl, math.ceil(n / plan["tn_gram"])))

@@ -66,8 +66,10 @@ class KernelKnobs:
     ``block_q``, ``block_k``, ``block_k_wide``: a flash kernel's query
     rows a block and key rows a tile (``block_k_wide`` at head dim 256);
     ``f32_threads``: the flash family's float32 CUDA-core kernels' threads;
-    ``cb``: configurations a rows block, and ``gram_threads`` the Gram
-    kernel's threads (IRLS); ``stage``: the most points (K1) or weights
+    ``cb``: configurations a rows block, and ``gram_threads`` the wide
+    Gram kernel's threads: two consumer warpgroups and a producer one
+    (IRLS; the narrow ones take one warpgroup and a producer warp);
+    ``stage``: the most points (K1) or weights
     (K2) a table-path launch stages in shared memory.
     """
 
@@ -88,7 +90,8 @@ class KernelKnobs:
 
 
 # The values the sources compile with (K1_THREADS, K7Tile, K8aTile,
-# K8Tile, IRLS_THREADS, IRLS_GTHREADS, IRLS_CB, K1_STAGE_POINTS, ...)
+# K8Tile, IRLS_THREADS, IrlsGram<128>::THREADS, IRLS_CB, K1_STAGE_POINTS,
+# ...)
 DEFAULT_KNOBS = {
     "K1": KernelKnobs("K1", threads=128, min_blocks=8, elements=4,
                       stage=12_288),
@@ -110,7 +113,12 @@ DEFAULT_KNOBS = {
 }
 
 _FLASH_DP = (32, 64, 128, 256)  # the bf16 instantiations' padded head dims
-_IRLS_MAX_DIM, _IRLS_QT, _IRLS_WGS, _IRLS_RMAX = 1024, 64, 3, 4
+# the Gram's IRLS_TN; its warpgroup tile widths (IrlsGram<NT>), the blocks
+# an SM their launch bounds promise, and the narrow ones' threads (a
+# warpgroup and a producer warp)
+_IRLS_TN = 32
+_IRLS_GRAM_NT = {32: 3, 128: 1}
+_IRLS_NARROW_THREADS = 128 + 32
 _IRLS_TWO_PER_SM = 113 * 1024
 _IRLS_STAT, _IRLS_REDUCE_STATIC = 4, 256 * 8  # double part[IRLS_THREADS]
 _K1_STRUCT_POINTS = 16
@@ -164,14 +172,12 @@ def _k8b_f32(rows, d):
     return (4 * rows * (d + 1) + 2 * rows * (rows + 1) + 3 * rows) * 4
 
 
-def _irls_dims(d):
-    ldx = (d + 15) // 16 * 16 + 4
-    nq = (d + _IRLS_QT - 1) // _IRLS_QT
-    return ldx, nq, (nq if nq <= 2 else _IRLS_RMAX)
+def _irls_ldx(d):
+    return (d + 15) // 16 * 16 + 4
 
 
 def _irls_rows_smem(kn, d, tnr):
-    ldx = _irls_dims(d)[0]
+    ldx = _irls_ldx(d)
     return 8 * (2 * tnr * ldx + kn.cb * ldx + 64 * kn.cb + kn.cb * (tnr + 4)
                 + 2 * tnr + kn.threads * _IRLS_STAT) + 4 * 2 * tnr
 
@@ -185,11 +191,15 @@ def _irls_rows_tile(kn, d):
     return 8
 
 
-def _irls_gram_smem(d):
-    nreg = _irls_dims(d)[2]
-    tn = 16 if nreg > 2 else 32
-    return 4 * (2 * nreg * tn * _IRLS_QT + 2 * tn
-                + 2 * 4 * nreg * _IRLS_QT * tn)
+def _irls_gram_smem(nt):
+    """The split stages (x_hi and x_lo), the raw stages (the j-range, and
+    the i-range at the wide width, rows padded by 8, with their weights),
+    and a full and an empty mbarrier a stage of each: IrlsGram<NT>."""
+    wide = nt > 64
+    raw, split = (3, 3) if wide else (4, 2)
+    return 4 * (split * 2 * nt * _IRLS_TN
+                + raw * ((1 + wide) * _IRLS_TN * (nt + 8) + _IRLS_TN)) \
+        + 8 * 2 * (raw + split)
 
 
 def instantiations(knobs: KernelKnobs) -> list:
@@ -216,10 +226,11 @@ def instantiations(knobs: KernelKnobs) -> list:
                                           _irls_rows_tile(kn, 64 * m)))
             for m in (2, 4, 8, 16)]
         return out + [
-            Instantiation(f"{fam} gram TN32", kn.gram_threads, 1, 0,
-                          _irls_gram_smem(2 * _IRLS_QT)),
-            Instantiation(f"{fam} gram TN16", kn.gram_threads, 1, 0,
-                          _irls_gram_smem(_IRLS_MAX_DIM)),
+            Instantiation(f"{fam} gram N{nt}",
+                          kn.gram_threads if nt > 64 else
+                          _IRLS_NARROW_THREADS, blocks, 0,
+                          _irls_gram_smem(nt))
+            for nt, blocks in _IRLS_GRAM_NT.items()] + [
             Instantiation(f"{fam} reduce", kn.threads, 0,
                           _IRLS_REDUCE_STATIC, 0)]
     bf16, f32 = {"K7": (_k7_bf16, None), "K8a": (_k8a_bf16, _k8a_f32),
@@ -296,9 +307,9 @@ def _check_family(name: str, kn: KernelKnobs) -> None:
     if kn.cb and kn.cb != 8:
         raise ValueError(f"{name}: cb={kn.cb} is not the float64 mma's "
                          "n of 8")
-    if kn.gram_threads and kn.gram_threads != 128 * _IRLS_WGS:
+    if kn.gram_threads and kn.gram_threads != 3 * 128:
         raise ValueError(f"{name}: gram_threads={kn.gram_threads} is not "
-                         f"{_IRLS_WGS} warpgroups of 128")
+                         "two consumer warpgroups of 128 and a producer one")
 
 
 def validate_real_kernel_knobs(knobs=None, *,

@@ -274,6 +274,16 @@ def test_k1_and_k2_cuda_tensors_never_reach_the_plain_versions(
     ((700, 90), 530, 12),  # a count past N_max reads no row beyond it
     ((40, 3, 17), 40, 1),  # d 1
     ((600, 411), 600, 1024),  # d 1024, the largest K3 takes
+    ((3000, 2811, 2950), 3000, 28),  # HIGGS's width: the narrow Gram
+    ((2000, 1900), 2000, 500),  # PASCAL alpha's: the wide Gram, 4 ranges
+    # each side of the Gram's boundaries: 32 | 33 (narrow | wide), 64 | 65
+    # (a wide block's second warpgroup idle | at work), 128 | 129 (one |
+    # two 128-column ranges)
+    ((530, 499), 530, 32),
+    ((530, 499), 530, 33),
+    ((530, 499), 530, 64),
+    ((530, 499), 530, 65),
+    ((530, 499), 530, 129),
 ])
 def test_k3_kernel_matches_plain(cuda, counts, n, d):
     gen = torch.Generator(device=cuda).manual_seed(sum(counts) + d)
@@ -317,6 +327,15 @@ def test_k3_kernel_matches_plain(cuda, counts, n, d):
     # 8 λs x 5 folds x 8 institutions: few, long slices a pair
     ((6000, 5700, 6300, 5760, 6240, 5880, 6120, 6000), 6300, 128,
      (0, 1, 2, 3, 4) * 8),
+    # the λ path at PASCAL alpha's width: 5 folds, the wide Gram
+    ((2000, 1900, 2100), 2100, 500, (0, 1, 2, 3, 4)),
+    ((3000, 2811), 3000, 28, (0, 1, 2, 3, 4)),  # HIGGS's: the narrow Gram
+    # each side of the Gram's regime boundaries, as K3's
+    ((530, 499), 530, 32, (-1, 0, 3)),
+    ((530, 499), 530, 33, (-1, 0, 3)),
+    ((530, 499), 530, 64, (-1, 0, 3)),
+    ((530, 499), 530, 65, (-1, 0, 3)),
+    ((530, 499), 530, 129, (-1, 0, 3)),
 ])
 def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
     gen = torch.Generator(device=cuda).manual_seed(sum(counts) + d)
@@ -357,7 +376,7 @@ def test_k5_kernel_matches_plain(cuda, counts, n, d, fold_of):
         assert torch.equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("d", [128, 130])
+@pytest.mark.parametrize("d", [128, 130, 28, 64, 500])
 def test_k5_two_calls_are_bit_identical(cuda, d):
     """No float atomics: the slices' partials are summed in slice order,
     so the same inputs give the same bits."""
@@ -441,6 +460,14 @@ def test_secure_add_of_k4_shares_reveals_the_sum_through_k2(cuda, field):
     (4097, 256, torch.bfloat16),
     (0, 8, torch.float32),
     (3000, 1024, torch.float32),  # d 1024, the largest K6 takes
+    (30_000, 28, torch.float32),   # the narrow Gram at HIGGS's width
+    (5000, 500, torch.float32),    # the wide Gram at PASCAL alpha's
+    # each side of the Gram's regime boundaries, as K3's
+    (4097, 32, torch.float32),
+    (4097, 33, torch.float32),
+    (4097, 64, torch.float32),
+    (4097, 65, torch.float32),
+    (4097, 129, torch.float32),
 ])
 def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(n + d)
@@ -455,7 +482,7 @@ def test_k6_kernel_matches_plain(cuda, n, d, dtype):
     assert float((H - Hp).abs().max()) <= 2e-5 * float(Hp.abs().max())
 
 
-@pytest.mark.parametrize("d", [128, 130])
+@pytest.mark.parametrize("d", [128, 130, 28, 64, 500])
 def test_k3_and_k6_two_calls_are_bit_identical(cuda, d):
     """K3 and K6 run K5's kernels: fixed-order sums, no float atomics, so
     the same inputs give the same bits."""

@@ -41,7 +41,8 @@ H100_REGISTERS = {
     "K8b bf16 D32": 128, "K8b f32 D256": 146, "K8b f32 D128": 154,
     "K8a bf16 D256": 245, "K8a bf16 D128": 241, "K8a bf16 D64": 167,
     "K8a bf16 D32": 140, "K8a f32 D256": 104, "K8a f32 D128": 156,
-    **{f"{f} gram TN{t}": 143 for f in ("K3", "K5", "K6") for t in (16, 32)},
+    **{f"{f} gram N{t}": r for f in ("K3", "K5", "K6")
+       for t, r in ((32, 96), (128, 168))},
     **{f"{f} rows MTW{m}": r for f in ("K3", "K5")
        for m, r in ((16, 128), (8, 128), (4, 125), (2, 112))},
     **{f"{f} reduce": 32 for f in ("K3", "K5", "K6")},
@@ -123,7 +124,9 @@ def test_blocks_an_sm():
               for n, i in insts.items()}
     # registers: 208 x 128 a block, 2 fit; shared memory: 87,040 + 1,024
     assert blocks["K7 bf16 D128"] == 2
-    assert blocks["K3 gram TN32"] == 1    # 144 x 384 registers
+    # the wide Gram: 168 x 384 registers (its consumers take 216 of the
+    # producer warpgroup's, setmaxnreg); the narrow one 96 x 160
+    assert [blocks[f"K3 gram N{t}"] for t in (32, 128)] == [4, 1]
     assert blocks["K4"] == 8              # 64 x 128 registers
     assert blocks["K1 f32 table"] == 4    # 49,152 B of staged points
     assert blocks["K3 reduce"] == 8       # threads: 2,048 / 256
@@ -131,6 +134,7 @@ def test_blocks_an_sm():
     # takes 210,624 B, and one fits
     assert [blocks[f"K3 rows MTW{m}"] for m in (2, 4, 8, 16)] == [2, 2, 2, 1]
     assert tuning.register_cap(384, 1) == 168
+    assert tuning.register_cap(160, 3) == 136
     assert tuning.register_cap(128, 2) == 255
 
 

@@ -1,9 +1,15 @@
-"""Device-time categories of a secure round, by kernel-name substring,
-first hit wins: a frozen copy of ``chip_smoke.py::CATEGORIES`` (the round
-categories; the LM categories are for later cells), with the batched LU's
-helper kernels (``dgetf2_fused_batched``, ``setup_pivinfo``,
-``gemm_template_batched``), which the path's five solves a round launch,
-added to "solve"."""
+"""Device-time categories by kernel-name substring, first hit wins; an
+entry names the table its kernels fall in (its ``CATEGORIES``).
+
+``CATEGORIES``, a secure round's: a frozen copy of
+``chip_smoke.py::CATEGORIES``, with the batched LU's helper kernels
+(``dgetf2_fused_batched``, ``setup_pivinfo``, ``gemm_template_batched``),
+which the path's five solves a round launch, added to "solve".
+
+``TRAIN_CATEGORIES``, a training step's: a frozen copy of
+``chip_smoke.py::TRAIN_CATEGORIES`` (K7 and K8 by their kernels' names,
+cuBLAS's bf16 matmuls as ``nvjet_*``, the rest by its PyTorch kernel).
+"""
 from __future__ import annotations
 
 CATEGORIES = (
@@ -19,11 +25,21 @@ CATEGORIES = (
                "gemm_template_batched")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
 )
+TRAIN_CATEGORIES = (
+    ("K7 flash_attention", ("flash_attention_fwd", "flash_fwd_bf16")),
+    ("K8a flash_dq", ("flash_dq_kernel", "flash_dq_bf16")),
+    ("K8b flash_dkdv", ("flash_dkdv_kernel", "flash_dkdv_bf16")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
+                         "splitKreduce")),
+    ("softmax / log_softmax", ("softmax",)),
+    ("copies and casts", ("direct_copy", "bfloat16_copy", "CatArray")),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
 OTHER = "small ops"
 
 
-def category(name: str) -> str:
-    for cat, keys in CATEGORIES:
+def category(name: str, table=CATEGORIES) -> str:
+    for cat, keys in table:
         if any(k in name for k in keys):
             return cat
     return OTHER

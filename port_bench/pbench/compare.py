@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: the numbers a run compares,
-each held to its limit from ``port_bench/limits/<cell>.json``.
+each held to its limit from ``port_bench/limits/<cell>.json``; ``judge``
+holds any entry's numbers to their limits, the rest are the two
+logistic-regression entries' numbers.
 
 Fits (``secure_fit``), for a sample of the window's fits, one for each λ
 the sample reaches:
@@ -35,17 +37,8 @@ from . import reference as ref
 FIT_NUMBERS = ("beta_gap", "obj_gap", "wire_mismatch", "unconverged")
 PATH_NUMBERS = ("vdev_gap", "count_mismatch", "pick_mismatch", "refit_gap",
                 "wire_mismatch")
-# the entries' keyword arguments (a mix's ``args``) whose answer the
-# reference works out: settings of how the rounds run, not of what is
-# fitted.  An argument outside these (an L1 penalty, say) needs a
-# reference of its own first.
-MODELLED_ARGS = {
-    "secure_fit": {"rounds", "rounds_per_sync", "max_iter", "fused"},
-    "secure_cv_path": {"num_folds", "lam_block", "rounds_per_sync",
-                       "max_rounds", "warm_start", "refit"},
-}
-# numbers that count jobs or entries (summed over the jobs); the others
-# are gaps (their largest counts)
+# the logistic-regression numbers that count jobs or entries (summed over
+# the jobs); the others are gaps (their largest counts)
 COUNTS = ("wire_mismatch", "count_mismatch", "pick_mismatch", "unconverged")
 
 
@@ -120,20 +113,14 @@ def path_checks(config: dict, traffic: dict, parts, answers: list,
     return per_job
 
 
-def modelled(traffic: dict) -> None:
-    """Raise if the mix passes its entry an argument the reference does
-    not model: its answers could not be judged."""
-    extra = set(traffic["args"]) - MODELLED_ARGS[traffic["entry"]]
-    if extra:
-        raise ValueError(f"the reference does not model {sorted(extra)} "
-                         f"of {traffic['entry']}")
-
-
-def judge(per_job: dict, limits: dict) -> tuple[bool, dict, int]:
+def judge(per_job: dict, limits: dict,
+          counts=COUNTS) -> tuple[bool, dict, int]:
     """(correct, checks, failed): every number at or under its limit
     (a NaN is over any), and the jobs with some number over its limit.
-    A number without a limit, or a limit without a number, is a fault of
-    the benchmark's files and raises."""
+    The numbers named in ``counts`` (the entry's) are summed over the
+    jobs, the others are gaps, whose largest counts.  A number without a
+    limit, or a limit without a number, is a fault of the benchmark's
+    files and raises."""
     names = {k for nums in per_job.values() for k in nums}
     if names != set(limits):
         raise ValueError(f"numbers {sorted(names)} and limits "
@@ -141,7 +128,7 @@ def judge(per_job: dict, limits: dict) -> tuple[bool, dict, int]:
     checks = {}
     for k in sorted(names):
         values = [nums[k] for nums in per_job.values() if k in nums]
-        value = sum(values) if k in COUNTS else max(
+        value = sum(values) if k in counts else max(
             values, key=lambda v: float("inf") if v != v else v)
         checks[k] = {"value": value, "limit": limits[k]["limit"]}
     failed = sum(any(not v <= limits[k]["limit"] for k, v in nums.items())

@@ -14,8 +14,10 @@ Which peak applies to what:
   TFLOP/s.  A roofline is a least time, so it charges all float64
   operations at the higher rate: no correct implementation reads above
   100% because of this choice.
-* ``F32`` (67 TFLOP/s, CUDA cores) and ``BF16`` (989 TFLOP/s, tensor
-  cores): no cell counts such work yet; listed for later cells.
+* ``BF16`` (989 TFLOP/s, tensor cores): the flash attention kernels' bf16
+  products, and a training step's model FLOPs (``train_mfu``).
+* ``F32`` (67 TFLOP/s, CUDA cores): the flash kernels' float32
+  instantiation; no cell runs it.
 """
 BYTES = 3.35e12
 TF32 = 495e12

@@ -18,11 +18,14 @@ from . import work
 class Context:
     """A finished run as the readers see it.
 
-    ``jobs``: one dict a job of the measured window (``seconds``,
-    ``rounds``, and for paths ``sweep_rounds`` and ``refit_rounds``);
-    ``trace``: ``trace.capture``'s summary of the traced part, with that
-    part's ``jobs`` and program counters (``k3_launches``,
-    ``k5_launches``), or None."""
+    ``jobs``: one dict a job of the measured window (the entry's
+    ``job_record``: ``seconds``, and for fits and paths ``rounds``, for
+    paths ``sweep_rounds`` and ``refit_rounds``); ``trace``:
+    ``trace.capture``'s summary of the traced part, with that part's
+    ``jobs`` and the program's counters (the entry's: ``k3_launches``,
+    ``k5_launches``; ``K7``, ``K8a``, ``K8b`` launches), or None;
+    ``entry``: the cell's entry module, whose work counts a reader of its
+    kind of job may take."""
 
     config: dict
     traffic: dict
@@ -31,6 +34,7 @@ class Context:
     window_s: float
     jobs: list
     trace: dict | None = None
+    entry: object = None
 
 
 def mean_rounds(ctx: Context):

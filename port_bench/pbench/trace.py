@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import collections
 
-from .categories import category
+from .categories import CATEGORIES, category
 
 WINDOW_LABEL = "port_bench.traced_window"
 COLLECTIVE_SPAN = "SecureCollective.secure_round"
@@ -48,14 +48,16 @@ def _in_span(op) -> bool:
     return op is not None
 
 
-def capture(run, device):
+def capture(run, device, categories=CATEGORIES):
     """Run ``run()`` under the profiler; returns (its result, summary).
 
     The summary's times are microseconds on the profiler's clock:
     ``window_us`` the traced window, ``busy_us`` the union of device
     operations in it, ``by_category_us`` and ``collective_us`` device
     time (the latter None where no op under a collective span launched
-    device work), and ``breakdown`` the result line's lists (seconds)."""
+    device work), and ``breakdown`` the result line's lists (seconds).
+    ``categories`` is the kernel-name table ``by_category_us`` sorts
+    by (``pbench/categories.py``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -99,7 +101,7 @@ def capture(run, device):
     for a, b, name in kernels:
         by_name[name][0] += 1
         by_name[name][1] += b - a
-        by_cat[category(name)] += b - a
+        by_cat[category(name, categories)] += b - a
     merged = []
     for a, b, _ in sorted(kernels):
         if merged and a <= merged[-1][1]:

@@ -1,6 +1,8 @@
-"""The work the secure round's kernels must do, from the cell's shapes:
-bytes moved and operations by type.  A frozen copy of the program's
-``repro_torch/kernels/work.py`` for K1, K2, K3 and K5, with one change:
+"""The work the program's kernels must do, from the cell's shapes: bytes
+moved and operations by type.  A frozen copy of the program's
+``repro_torch/kernels/work.py`` for K1, K2, K3 and K5, and for the flash
+attention kernels K7, K8a and K8b of a training step, with one change to
+K3 and K5:
 
 K3 and K5 read X once **in float64, 8 bytes an element**.  The program
 keeps a float32 copy ``Xm`` beside ``X`` and its kernels read both (12
@@ -15,6 +17,8 @@ written once, whatever a kernel reads again; the float32 Gram is three
 TF32 products of its upper half; work that depends on the data (the
 valid rows, the folds) is counted for the rows these inputs have.
 Besides the kernels, ``lu_solve`` counts the float64 Newton solve.
+Attention counts only the allowed (causal) pairs; bf16 inputs run on the
+tensor cores, float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -90,3 +94,47 @@ def lu_solve(d: int, configs: int = 1) -> Work:
     (2 d^2); the matrix read and the solution written."""
     return Work(configs * (d * d + 2 * d) * 8,
                 f64=configs * (2 * d ** 3 // 3 + 2 * d * d))
+
+
+def _flash_ops(esize: int, n: int) -> dict:
+    """bf16 inputs run on the tensor cores, float32 on the CUDA cores."""
+    return {"bf16": n} if esize == 2 else {"f32": n}
+
+
+def k7_flash(b: int, s: int, h: int, kvh: int, d: int, esize: int,
+             dv: int | None = None) -> Work:
+    """K7 on (B, S, H, D) queries over KVH heads: q, k, v read once, o
+    written, m and l (float32); each allowed (query, key) pair of the
+    causal half 2 D for q.k and 2 Dv for p v.  ``dv`` (default D) counts
+    the function's own work where V is zero-padded to D (MLA)."""
+    dv = dv or d
+    return Work((b * s * h * (d + dv) + b * s * kvh * (d + dv)) * esize
+                + 2 * b * h * s * 4,
+                **_flash_ops(esize, b * h * s * (s + 1) // 2 * 2 * (d + dv)))
+
+
+def _k8_inputs(b, s, h, kvh, d, dv, esize) -> int:
+    """q, k, v, do (input dtype) and m, linv, delta (float32)."""
+    return ((b * s * h * (d + dv) + b * s * kvh * (d + dv)) * esize
+            + 3 * b * h * s * 4)
+
+
+def k8a_flash_dq(b: int, s: int, h: int, kvh: int, d: int, esize: int,
+                 dv: int | None = None) -> Work:
+    """K8a: its inputs read once, dq written; per allowed pair q.k, do.v
+    and ds k: 4 D + 2 Dv."""
+    dv = dv or d
+    pairs = b * h * s * (s + 1) // 2
+    return Work(_k8_inputs(b, s, h, kvh, d, dv, esize) + b * s * h * d * esize,
+                **_flash_ops(esize, pairs * (4 * d + 2 * dv)))
+
+
+def k8b_flash_dkdv(b: int, s: int, h: int, kvh: int, d: int, esize: int,
+                   dv: int | None = None) -> Work:
+    """K8b: its inputs read once, dk and dv written; per allowed pair
+    q.k, do.v, p do and ds q: 4 (D + Dv)."""
+    dv = dv or d
+    pairs = b * h * s * (s + 1) // 2
+    return Work(_k8_inputs(b, s, h, kvh, d, dv, esize)
+                + b * s * kvh * (d + dv) * esize,
+                **_flash_ops(esize, pairs * 4 * (d + dv)))

@@ -156,8 +156,8 @@ def test_forbidden_modules_compare_whole_top_level_names():
 def _load_in_trace(monkeypatch, load):
     capture = harness.trace_mod.capture
 
-    def loading(run, device):
-        out = capture(run, device)
+    def loading(*a, **k):
+        out = capture(*a, **k)
         load()
         return out
 

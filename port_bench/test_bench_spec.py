@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import bench_testutil as tu
-from pbench import compare, harness
+from pbench import harness
 from pbench.spec import Spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -68,10 +68,9 @@ def test_entries_have_only_the_allowed_keys(bench):
 @pytest.mark.parametrize("cell", tu.spec().cell_names())
 def test_every_cell_finds_its_files_by_name(cell):
     c = tu.spec().cell(cell)
-    assert c.traffic["entry"] in ("secure_fit", "secure_cv_path")
-    want = (compare.FIT_NUMBERS if c.traffic["entry"] == "secure_fit"
-            else compare.PATH_NUMBERS)
-    assert set(c.limits) == set(want)
+    assert c.entry.__file__ == str(tu.BENCH / "entries"
+                                   / f"{c.traffic['entry']}.py")
+    assert set(c.limits) == set(c.entry.NUMBERS)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:
